@@ -1,0 +1,106 @@
+"""The port stands alone (no jax, no JAX package), its kernel wrappers
+dispatch on the tensors' device, and chip_smoke.py refuses to run
+without a CUDA card."""
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import rvspecfit_torch
+from rvspecfit_torch.ops import ccf_chisq, spline, spline_eval
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        rvspecfit_torch.__path__, 'rvspecfit_torch.'))
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert {'rvspecfit_torch.ops.spline_eval', 'rvspecfit_torch.fit.batch',
+            'rvspecfit_torch.convert'} <= set(mods)
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['rvspecfit_tpu'] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch\n"
+            "assert not torch.backends.cuda.matmul.allow_tf32\n"
+            "assert not torch.backends.cudnn.allow_tf32\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == 'ok'
+
+
+def _spline_inputs(device):
+    geom = spline.SplineGeometry.from_knots(np.linspace(4500.0, 5500.0, 50),
+                                            log_step=False)
+    coeffs = torch.zeros((2, 4, 49), dtype=torch.float64, device=device)
+    u = torch.full((2, 7), 3.5, dtype=torch.float64, device=device)
+    return geom, coeffs, u
+
+
+def _ccf_inputs(device, cdtype=torch.complex128, rdtype=torch.float64):
+    c = lambda *s: torch.ones(s, dtype=cdtype, device=device)
+    r = lambda *s: torch.ones(s, dtype=rdtype, device=device)
+    return c(3, 9), c(3, 9), c(2, 9), c(2, 9), r(9, 5), r(9, 5)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    before = (spline_eval.launches, ccf_chisq.launches)
+    geom, coeffs, u = _spline_inputs('cpu')
+    assert torch.equal(
+        spline_eval.spline_eval_index(geom, coeffs, u),
+        spline_eval.spline_eval_index_plain(geom, coeffs, u))
+    args = _ccf_inputs('cpu')
+    assert torch.equal(ccf_chisq.ccf_chisq(*args),
+                       ccf_chisq.ccf_chisq_plain(*args))
+    assert (spline_eval.launches, ccf_chisq.launches) == before
+
+
+def test_other_devices_raise_instead_of_falling_back():
+    geom, coeffs, u = _spline_inputs('meta')
+    with pytest.raises(ValueError):
+        spline_eval.spline_eval_index(geom, coeffs, u)
+    with pytest.raises(ValueError):
+        ccf_chisq.ccf_chisq(*_ccf_inputs('meta'))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    return torch.device('cuda', 0)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_reject_float64_cuda_tensors(cuda_device):
+    geom, coeffs, u = _spline_inputs(cuda_device)
+    with pytest.raises(TypeError):
+        spline_eval.spline_eval_index(geom, coeffs, u)
+    with pytest.raises(TypeError):
+        ccf_chisq.ccf_chisq(*_ccf_inputs(cuda_device))
+
+
+def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
+    """Non-zero exit and no result line: without CUDA here, and in a
+    directory that holds chip_smoke.py and nothing else of the repo."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    alone = tmp_path / 'chip_smoke.py'
+    shutil.copy(os.path.join(REPO, 'chip_smoke.py'), alone)
+    for cwd, script in ((REPO, 'chip_smoke.py'), (tmp_path, str(alone))):
+        out = subprocess.run([sys.executable, script], cwd=cwd,
+                             capture_output=True, text=True, timeout=120,
+                             env=dict(os.environ, PYTHONPATH=''))
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
