@@ -3,14 +3,16 @@
 Each function takes a reference object (duck-typed: its array fields
 are read with ``np.asarray``, so this module imports neither jax nor
 the JAX package) and returns the port's counterpart on ``device`` in
-its working dtype (device.dtype_for).
+its working dtype (device.dtype_for); ``device=None`` is the card
+(device.resolve_device).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from rvspecfit_torch.device import complex_dtype_for, dtype_for
+from rvspecfit_torch.device import (complex_dtype_for, dtype_for,
+                                    resolve_device)
 from rvspecfit_torch.fit.spec_data import ArmState
 from rvspecfit_torch.interp.api import TemplateModel
 from rvspecfit_torch.interp.grid import GridInterpState
@@ -23,7 +25,7 @@ def _np(x):
     return None if x is None else np.array(x)
 
 
-def geometry(ref, device='cpu'):
+def geometry(ref, device=None):
     """rvspecfit_tpu SplineGeometry -> SplineGeometry."""
     return SplineGeometry.from_arrays(
         x0=ref.x0, x_last=ref.x_last, step=ref.step, n=ref.n,
@@ -31,7 +33,7 @@ def geometry(ref, device='cpu'):
         **{k: _np(getattr(ref, k)) for k in ARRAY_FIELDS})
 
 
-def grid_state(ref, device='cpu'):
+def grid_state(ref, device=None):
     """rvspecfit_tpu GridInterpState -> GridInterpState."""
     return GridInterpState.from_arrays(
         uvecs=[_np(u) for u in ref.uvecs], idgrid=_np(ref.idgrid),
@@ -40,8 +42,9 @@ def grid_state(ref, device='cpu'):
         device=device)
 
 
-def template_model(ref, device='cpu'):
+def template_model(ref, device=None):
     """rvspecfit_tpu TemplateModel (kind 'grid') -> TemplateModel."""
+    device = resolve_device(device)
     if ref.kind != 'grid':
         raise ValueError(f'only grid template models are ported, got '
                          f'{ref.kind!r}')
@@ -51,17 +54,19 @@ def template_model(ref, device='cpu'):
                          log_ids=tuple(ref.log_ids))
 
 
-def ccf_bank(tfft, t2fft, info, device='cpu'):
+def ccf_bank(tfft, t2fft, info, device=None):
     """Host (T, F) complex bank rFFTs + info -> device bank tuple."""
+    device = resolve_device(device)
     to = lambda c: torch.as_tensor(np.asarray(c),
                                    dtype=complex_dtype_for(device),
                                    device=device)
     return to(tfft), to(t2fft), info
 
 
-def arm_state(ref, device='cpu'):
+def arm_state(ref, device=None):
     """Single-object rvspecfit_tpu ArmState -> ArmState with a fiber
     axis of length 1."""
+    device = resolve_device(device)
     dtype = dtype_for(device)
     to = lambda a: None if a is None else torch.as_tensor(
         np.array(a, np.float64), dtype=dtype, device=device)

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from rvspecfit_torch.device import dtype_for
+from rvspecfit_torch.device import dtype_for, resolve_device
 from rvspecfit_torch.ops import basis as basis_mod
 from rvspecfit_torch.ops.chisq import basis_products
 from rvspecfit_torch.ops.resolution import BandedMatrix
@@ -67,10 +67,11 @@ class ArmState:
 
     @classmethod
     def from_host(cls, name, setup, lam, flux, espec, geom, npoly=5,
-                  rbf=True, band=None, device='cpu', dtype=None):
+                  rbf=True, band=None, device=None, dtype=None):
         """From host arrays: lam (npix,), flux/espec (B, npix) with
         finite flux and positive errors, template geometry ``geom``,
         optional (B, noff, npix) host band data as a BandedMatrix."""
+        device = resolve_device(device)
         dtype = dtype or dtype_for(device)
         to = lambda a: torch.as_tensor(np.array(a, np.float64),
                                        dtype=dtype, device=device)
@@ -90,7 +91,7 @@ class ArmState:
                    band=band)
 
     @classmethod
-    def build(cls, sd: SpecData, geom, npoly=5, rbf=True, device='cpu'):
+    def build(cls, sd: SpecData, geom, npoly=5, rbf=True, device=None):
         """Single-object state (fiber axis of length 1) from a
         SpecData."""
         band = sd.resolution

@@ -19,7 +19,7 @@ import itertools
 import numpy as np
 import torch
 
-from rvspecfit_torch.device import dtype_for
+from rvspecfit_torch.device import dtype_for, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +41,7 @@ class GridInterpState:
         return len(self.lens)
 
     @classmethod
-    def build(cls, uvecs, idgrid, vecs, dats, log_spec=True, device='cpu',
+    def build(cls, uvecs, idgrid, vecs, dats, log_spec=True, device=None,
               dtype=None):
         """From host arrays: per-dimension grid values, the (lens...)
         id grid, (ndim, nspec) mapped parameters and (nspec, npix)
@@ -56,7 +56,8 @@ class GridInterpState:
 
     @classmethod
     def from_arrays(cls, *, uvecs, idgrid, vecs_scaled, ptp_inv, dats,
-                    lens, log_spec, device='cpu', dtype=None):
+                    lens, log_spec, device=None, dtype=None):
+        device = resolve_device(device)
         dtype = dtype or dtype_for(device)
         to = lambda a: torch.as_tensor(np.asarray(a, np.float64),
                                        dtype=dtype, device=device)

@@ -21,7 +21,7 @@ import numpy as np
 import scipy.interpolate
 import torch
 
-from rvspecfit_torch.device import dtype_for
+from rvspecfit_torch.device import dtype_for, resolve_device
 
 
 def spline_nodes(lam, splinestep):
@@ -173,11 +173,12 @@ def _continuum(lam, cspec, cesp, ccfconf, niter):
     return torch.exp(torch.clamp(p @ phi.T, -100.0, 100.0))
 
 
-def fit_continuum(lam, specs, especs, ccfconf, niter=40, device='cpu'):
+def fit_continuum(lam, specs, especs, ccfconf, niter=40, device=None):
     """Robust smooth continuum of (B, npix) host spectra on one grid.
 
     Returns a (B, npix) float64 numpy array (the fit runs on ``device``
     in its working dtype)."""
+    device = resolve_device(device)
     to = lambda a: torch.as_tensor(np.atleast_2d(np.asarray(a)),
                                    dtype=dtype_for(device), device=device)
     cont = _continuum(np.asarray(lam, np.float64), to(specs), to(especs),
@@ -233,7 +234,7 @@ def _resample_aux(lam, ccfconf):
 
 
 def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
-                         maxerr=10, niter=40, device='cpu'):
+                         maxerr=10, niter=40, device=None):
     """Preprocess and rFFT one stacked arm on ``device``.
 
     lam : (npix,); specs, especs, badmask : (B, npix) host arrays.
@@ -241,6 +242,7 @@ def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
     sse (B,)): the conjugated rFFTs of spec*ivar and ivar on the CCF
     grid and sum(spec^2 ivar).
     """
+    device = resolve_device(device)
     dtype = dtype_for(device)
     lam = np.asarray(lam, np.float64)
     to = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt,

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rvspecfit_torch.device import dtype_for
+from rvspecfit_torch.device import dtype_for, resolve_device
 
 _W_BAND, _E_ROWS = 22, 30      # truncation ~0.268^22 ~ 3e-13
 ARRAY_FIELDS = ('h', 'hinv', 'xs', 'denom_inv', 'fwd_a', 'cp',
@@ -125,9 +125,10 @@ class SplineGeometry:
     inv_bot: torch.Tensor | None = None
 
     @classmethod
-    def from_arrays(cls, *, x0, x_last, step, n, log_step, device='cpu',
+    def from_arrays(cls, *, x0, x_last, step, n, log_step, device=None,
                     dtype=None, **arrays):
         """Build from host arrays (the names of ``geometry_arrays``)."""
+        device = resolve_device(device)
         dtype = dtype or dtype_for(device)
         to = lambda a: None if a is None else torch.as_tensor(
             np.asarray(a, np.float64), dtype=dtype, device=device)
@@ -136,7 +137,7 @@ class SplineGeometry:
                    **{k: to(arrays.get(k)) for k in ARRAY_FIELDS})
 
     @classmethod
-    def from_knots(cls, xs, log_step, device='cpu', dtype=None,
+    def from_knots(cls, xs, log_step, device=None, dtype=None,
                    validate=True):
         return cls.from_arrays(**geometry_arrays(xs, log_step, validate),
                                device=device, dtype=dtype)

@@ -60,7 +60,7 @@ def to_power_two(i):
 
 
 def preprocess_model_list(lammodels, models, params, ccfconf, vsinis=None,
-                          chunk=256, device='cpu'):
+                          chunk=256, device=None):
     """Continuum-normalize (and optionally rotation-broaden) every
     template and resample it onto the CCF log-lambda grid.
 

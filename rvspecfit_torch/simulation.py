@@ -11,6 +11,8 @@ import itertools
 
 import numpy as np
 
+from rvspecfit_torch.device import resolve_device
+
 LINE_CENTERS = np.array([4980.3, 5035.8, 5061.2, 5108.9])
 LINE_AMP = np.array([0.85, 0.55, 0.35, 0.65])
 LINE_FEH_SENS = np.array([0.9, 1.7, 0.4, 1.1])
@@ -104,12 +106,14 @@ def make_exposure(nfibers, npix_arm=1024, snr=50.0, seed=0,
 
 
 def build_template_model(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
-                         lam1=5450.0, wresol=2.0, device='cpu'):
-    """Ready-to-fit TemplateModel of the synthetic grid on ``device``."""
+                         lam1=5450.0, wresol=2.0, device=None):
+    """Ready-to-fit TemplateModel of the synthetic grid on ``device``
+    (None: the CUDA card, see device.resolve_device)."""
     from rvspecfit_torch.interp.api import TemplateModel
     from rvspecfit_torch.interp.grid import GridInterpState
     from rvspecfit_torch.ops.spline import SplineGeometry
 
+    device = resolve_device(device)
     lam, uvecs, idgrid, vecs, specs, parnames = make_template_grid(
         nt, nl, nf, na, npix=npix, lam0=lam0, lam1=lam1, wresol=wresol)
     state = GridInterpState.build(uvecs, idgrid, vecs, specs,
@@ -121,10 +125,13 @@ def build_template_model(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
 
 def build_ccf_bank(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
                    lam1=5450.0, every=4, ccf_lam0=4600.0, ccf_lam1=5400.0,
-                   step=0.25, vsinis=None):
-    """In-memory CCF template bank of the synthetic grid, built on the
-    host in float64.  Returns (tfft, t2fft, info) as numpy, shaped like
-    the reference's; convert.ccf_bank moves it to a device."""
+                   step=0.25, vsinis=None, continuum=True, device=None):
+    """In-memory CCF template bank of the synthetic grid.  The template
+    continua are fitted on ``device`` (None: the CUDA card) in its
+    working dtype; the rest is host float64.  ``continuum=False``
+    builds a bank without continuum normalization.  Returns (tfft, t2fft,
+    info) as numpy, shaped like the reference's; convert.ccf_bank moves
+    it to a device."""
     from rvspecfit_torch.pipeline import make_ccf
 
     lam, uvecs, idgrid, vecs, log_specs, parnames = make_template_grid(
@@ -135,9 +142,11 @@ def build_ccf_bank(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
     inds = np.argsort(make_ccf.get_mortoncurve_id(raw))[::every]
     npoints = make_ccf.to_power_two(int((ccf_lam1 - ccf_lam0) / step))
     ccfconf = make_ccf.get_ccf_config(
-        logl0=np.log(ccf_lam0), logl1=np.log(ccf_lam1), npoints=npoints)
+        logl0=np.log(ccf_lam0), logl1=np.log(ccf_lam1), npoints=npoints,
+        splinestep=1000 if continuum else None)
     models, params, vsinis_list = make_ccf.preprocess_model_list(
-        lam, specs[inds], raw[inds], ccfconf, vsinis=vsinis)
+        lam, specs[inds], raw[inds], ccfconf, vsinis=vsinis,
+        device=resolve_device(device))
     info = dict(params=params, ccfconf=ccfconf,
                 vsinis=[-1.0 if v is None else float(v)
                         for v in vsinis_list],

@@ -120,7 +120,8 @@ def test_preprocess_fft_batch_matches_reference(with_continuum):
     ref = rcont.preprocess_fft_batch(lam, flux, especs, badmask=badmask,
                                      ccfconf=conf)
     got = continuum.preprocess_fft_batch(lam, flux, especs,
-                                         badmask=badmask, ccfconf=conf)
+                                         badmask=badmask, ccfconf=conf,
+                                         device='cpu')
     # 40 IRLS steps amplify last-bit differences of the two linear
     # solvers to ~1e-10 of the largest FFT coefficient
     for g, r in zip(got[:2], ref[:2]):
@@ -146,7 +147,7 @@ def test_generators_and_bank_match_reference():
         for a, b in zip(ga[k], ra[k]):
             np.testing.assert_array_equal(a, b)
     kw = dict(nt=3, nl=3, nf=3, na=2, npix=512, every=2, step=2.0)
-    got = simulation.build_ccf_bank(**kw)
+    got = simulation.build_ccf_bank(**kw, device='cpu')
     ref = rsim.build_ccf_bank(**kw)
     for g, r in zip(got[:2], ref[:2]):
         np.testing.assert_allclose(g, r, rtol=1e-8,
@@ -165,7 +166,8 @@ def test_preprocess_model_list_with_vsini_matches_reference():
     np.testing.assert_array_equal(make_ccf.get_mortoncurve_id(vecs.T),
                                   rmake_ccf.get_mortoncurve_id(vecs.T))
     got = make_ccf.preprocess_model_list(lam, np.exp(log_specs), vecs.T,
-                                         conf, vsinis=[None, 30.0])
+                                         conf, vsinis=[None, 30.0],
+                                         device='cpu')
     ref = rmake_ccf.preprocess_model_list(lam, np.exp(log_specs), vecs.T,
                                           conf, vsinis=[None, 30.0])
     np.testing.assert_allclose(got[0], ref[0], rtol=1e-8)
@@ -183,7 +185,8 @@ def test_fit_batch_matches_reference():
     ref = rccf.fit_batch(batches, freeze(CONFIG),
                          banks={n: bank for n in arms})
     got = ccf.fit_batch(batches, CONFIG,
-                        {n: convert.ccf_bank(*bank) for n in arms})
+                        {n: convert.ccf_bank(*bank, device='cpu')
+                         for n in arms})
     np.testing.assert_array_equal(got['best_id'], ref['best_id'])
     np.testing.assert_allclose(got['best_vel'], ref['best_vel'], rtol=0,
                                atol=1e-6)
@@ -191,3 +194,101 @@ def test_fit_batch_matches_reference():
     np.testing.assert_array_equal(got['best_params'], ref['best_params'])
     np.testing.assert_array_equal(got['vel_grid'], ref['vel_grid'])
     assert np.abs(got['best_vel'] - truth['vel']).max() < 100.0
+
+
+def _small_bank(seed=11):
+    """Kernel B's inputs at a small bank: T=7, F=65, V=21, B=5."""
+    tfft, t2fft, sfft, ivfft, ecos, esin = _bank_arm(
+        np.random.RandomState(seed), t=7, b=5, npoints=128, nvel=21)
+    c = lambda a: _t(a, torch.complex128)
+    return [c(tfft), c(t2fft), c(sfft), c(ivfft), _t(ecos), _t(esin)]
+
+
+def _jax_plain(args, continuum_mode):
+    """fit/ccf._ccf_batch_cont / _nocont of the reference."""
+    pack = lambda c: jnp.asarray(np.stack([c.real, c.imag]))
+    fn = rccf._ccf_batch_cont if continuum_mode else rccf._ccf_batch_nocont
+    return np.asarray(fn(*[pack(a.numpy()) for a in args[:4]],
+                         *[jnp.asarray(a.numpy()) for a in args[4:]]))
+
+
+def _from_operands(ops, e, shape, continuum_mode, matmul=torch.matmul):
+    cs = [matmul(a, e).reshape(shape) for a in ops]
+    return cs[0] if continuum_mode else -(cs[0] * cs[0]) / cs[1]
+
+
+@pytest.mark.parametrize('continuum_mode', [True, False])
+def test_kernel_b_gemm_form_matches_plain(continuum_mode):
+    """[Re X | -Im X] @ [Ecos; Esin] over flattened (fiber, template)
+    rows is the kernel's contraction; in float64 it equals the plain
+    version and the reference's to 1e-12 of max|out|."""
+    args = _small_bank()
+    ops, e = ccf_chisq.contraction_operands(*args, continuum=continuum_mode)
+    assert [a.shape for a in ops] == [(35, 130)] * (1 if continuum_mode
+                                                    else 2)
+    got = _from_operands(ops, e, (5, 7, 21), continuum_mode)
+    for want in (ccf_chisq.ccf_chisq_plain(*args, continuum=continuum_mode),
+                 _jax_plain(args, continuum_mode)):
+        want = np.asarray(want)
+        np.testing.assert_allclose(got, want, rtol=1e-12,
+                                   atol=1e-12 * np.abs(want).max())
+
+
+def _tf32_product(passes):
+    """Matmul with the kernel's arithmetic: float32 operands split by
+    tf32_split, products of TF32 values (exact in float32) summed in
+    float32; 3 passes lo*hi + hi*lo + hi*hi, or hi*hi alone."""
+    def matmul(a, e):
+        (ah, al), (eh, el) = ccf_chisq.tf32_split(a), ccf_chisq.tf32_split(e)
+        out = ah @ eh
+        return al @ eh + ah @ el + out if passes == 3 else out
+    return matmul
+
+
+def _tf32_error(continuum_mode, passes):
+    args = _small_bank()
+    want = _jax_plain(args, continuum_mode)
+    ops, e = ccf_chisq.contraction_operands(
+        *[a.to(torch.complex64 if a.is_complex() else torch.float32)
+          for a in args], continuum=continuum_mode)
+    got = _from_operands(ops, e, (5, 7, 21), continuum_mode,
+                         _tf32_product(passes))
+    assert got.dtype == torch.float32
+    return float(np.abs(got.double().numpy() - want).max()
+                 / np.abs(want).max())
+
+
+@pytest.mark.parametrize('continuum_mode', [True, False])
+def test_kernel_b_3xtf32_arithmetic_within_tolerance(continuum_mode):
+    """The kernel's 3xTF32 arithmetic stays within its stated tolerance
+    (1e-4 of max|out|) of the float64 reference."""
+    assert _tf32_error(continuum_mode, passes=3) <= 1e-4
+
+
+@pytest.mark.parametrize('continuum_mode', [True, False])
+def test_kernel_b_single_tf32_pass_misses_tolerance(continuum_mode):
+    """One TF32 pass (hi*hi) misses that tolerance: why the kernel
+    takes three."""
+    assert _tf32_error(continuum_mode, passes=1) > 1e-4
+
+
+def test_kernel_b_operand_layouts():
+    """The interleaved operands hold what the kernel reads at each
+    (row, frequency) and (frequency, velocity): (T, T2), (S, IV) and
+    TF32 hi/lo parts of Ecos and Esin whose sums are within float32
+    rounding of them."""
+    args = [a.to(torch.complex64 if a.is_complex() else torch.float32)
+            for a in _small_bank()]
+    tt2, siv, quads = ccf_chisq.kernel_operands(*args)
+    assert tt2.shape == (7, 65, 2) and siv.shape == (5, 65, 2)
+    assert quads.shape == (65, 21, 4) and quads.dtype == torch.float32
+    floats = torch.view_as_real(tt2).reshape(7, 65, 4)
+    assert torch.equal(floats[..., 0], args[0].real)
+    assert torch.equal(floats[..., 3], args[1].imag)
+    assert torch.equal(siv[..., 0], args[2]) and torch.equal(siv[..., 1],
+                                                              args[3])
+    for part, e in ((quads[..., :2], args[4]), (quads[..., 2:], args[5])):
+        # the low 13 mantissa bits of every part are zero (TF32)
+        assert not (part.contiguous().view(torch.int32) & 0x1FFF).any()
+        np.testing.assert_allclose(part.sum(-1), e, rtol=2**-21,
+                                   atol=2**-21 * float(e.abs().max()))

@@ -113,7 +113,7 @@ def slice_runs():
     cfg = dict(CONFIG, second_minimizer=False, template_lib='')
     batches = [(n, lam, fl, 1.0 / np.sqrt(iv), None)
                for n, (lam, fl, iv) in arms_data.items()]
-    tm = convert.template_model(rtm)
+    tm = convert.template_model(rtm, device='cpu')
     out = {}
     with pytest.MonkeyPatch.context() as mp:
         # the reference's XLA path (its Pallas kernels off on the CPU)
@@ -137,7 +137,8 @@ def _run_slice(side, rtm, tm, arms_data, bank, cfg, batches):
         mapper = rvf.ParamMapper(rtm.parnames, START, [], None, False)
     else:
         c = ccf.fit_batch(batches, CONFIG,
-                          {n: convert.ccf_bank(*bank) for n in arms_data})
+                          {n: convert.ccf_bank(*bank, device='cpu')
+                           for n in arms_data})
         bf = batch.BatchedFitter(
             [batch.BatchArm(n, *a) for n, a in arms_data.items()],
             {n: tm for n in arms_data}, CONFIG, options={'npoly': 10})

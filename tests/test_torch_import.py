@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import rvspecfit_torch
+from rvspecfit_torch import convert, device, simulation
 from rvspecfit_torch.ops import ccf_chisq, spline, spline_eval
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,7 +44,7 @@ def test_every_module_imports_without_jax():
 
 def _spline_inputs(device):
     geom = spline.SplineGeometry.from_knots(np.linspace(4500.0, 5500.0, 50),
-                                            log_step=False)
+                                            log_step=False, device=device)
     coeffs = torch.zeros((2, 4, 49), dtype=torch.float64, device=device)
     u = torch.full((2, 7), 3.5, dtype=torch.float64, device=device)
     return geom, coeffs, u
@@ -73,6 +74,38 @@ def test_other_devices_raise_instead_of_falling_back():
         spline_eval.spline_eval_index(geom, coeffs, u)
     with pytest.raises(ValueError):
         ccf_chisq.ccf_chisq(*_ccf_inputs('meta'))
+
+
+def _bank():
+    rng = np.random.RandomState(0)
+    tfft = rng.normal(size=(3, 9)) + 1j * rng.normal(size=(3, 9))
+    return tfft, tfft * 2.0, dict(params=np.zeros((3, 4)))
+
+
+def test_entry_points_without_device_need_the_card(monkeypatch):
+    """device=None means the CUDA card: without one the entry points
+    raise instead of returning CPU tensors; device='cpu' still works."""
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        simulation.build_template_model(2, 2, 2, 2, npix=64)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.ccf_bank(*_bank())
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        spline.SplineGeometry.from_knots(np.linspace(4500.0, 5500.0, 50),
+                                         log_step=False)
+    tm = simulation.build_template_model(2, 2, 2, 2, npix=64, device='cpu')
+    assert tm.geom.h.device.type == tm.state.dats.device.type == 'cpu'
+    assert tm.state.dats.dtype == torch.float64
+    tfft, _, info = convert.ccf_bank(*_bank(), device='cpu')
+    assert tfft.device.type == 'cpu' and tfft.dtype == torch.complex128
+    assert info['params'].shape == (3, 4)
+
+
+def test_default_device_is_cuda_when_present(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
+    assert device.default_device() == torch.device('cuda')
+    assert device.resolve_device(None) == torch.device('cuda')
+    assert device.resolve_device('cpu') == torch.device('cpu')
 
 
 @pytest.fixture

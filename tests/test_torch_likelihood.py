@@ -93,7 +93,7 @@ def test_chol_solve_ridge_retry_and_failure():
 def test_interp_batch_matches_reference(ref_tm):
     """Inside points, points outside the grid (nearest-template
     fallback and distance) and non-finite parameters."""
-    state = convert.grid_state(ref_tm.state)
+    state = convert.grid_state(ref_tm.state, device='cpu')
     rng = np.random.RandomState(1)
     lo = np.array([np.log10(4000.0), 0.5, -2.0, 0.0])
     hi = np.array([np.log10(10000.0), 5.0, 0.0, 1.0])
@@ -108,7 +108,8 @@ def test_interp_batch_matches_reference(ref_tm):
     # the port's own constructor gives the same state as the conversion
     lam, uvecs, idgrid, vecs, specs, _ = rsim.make_template_grid(
         3, 3, 3, 2, npix=512)
-    own = grid.GridInterpState.build(uvecs, idgrid, vecs, specs)
+    own = grid.GridInterpState.build(uvecs, idgrid, vecs, specs,
+                                      device='cpu')
     for name in ('vecs_scaled', 'ptp_inv', 'dats', 'idgrid'):
         np.testing.assert_allclose(getattr(own, name), getattr(state, name),
                                    rtol=1e-15)
@@ -137,14 +138,14 @@ def test_banded_matvec_matches_reference():
 
 
 def test_arm_state_build_matches_conversion(ref_tm, ref_arms):
-    tm = convert.template_model(ref_tm)
+    tm = convert.template_model(ref_tm, device='cpu')
     ra = ref_arms[1]
     espec = 1.0 / np.asarray(ra.espec_inv)
     band = resolution.BandedMatrix(ra.band.offsets, np.asarray(ra.band.bands))
     sd = SpecData(ra.name, np.asarray(ra.lam), np.asarray(ra.dvec) * espec,
                   espec, resolution=band)
-    own = ArmState.build(sd, tm.geom, npoly=6)
-    conv = convert.arm_state(ra)
+    own = ArmState.build(sd, tm.geom, npoly=6, device='cpu')
+    conv = convert.arm_state(ra, device='cpu')
     for name in ('lam', 'dvec', 'espec_inv', 'polys', 'polys_prod',
                  'log_espec_sum', 'idx0'):
         np.testing.assert_allclose(getattr(own, name), getattr(conv, name),
@@ -183,9 +184,10 @@ def test_chisq_trials_core_matches_reference(ref_tm, ref_arms, use_vsini):
         jnp.asarray(params), jnp.asarray(vsinis), badchi=badchi,
         use_vsini=use_vsini, half_widths={**hw, 'arm1': hw.get('arm0')},
         outside_penalty=True, solve_dtype=None))
-    tm = convert.template_model(ref_tm)
+    tm = convert.template_model(ref_tm, device='cpu')
     got = likelihood.chisq_trials_core(
-        [convert.arm_state(a) for a in ref_arms], {'arm0': tm, 'arm1': tm},
+        [convert.arm_state(a, device='cpu') for a in ref_arms],
+        {'arm0': tm, 'arm1': tm},
         _t(vels)[None], _t(params)[None], _t(vsinis)[None], badchi=badchi,
         use_vsini=use_vsini, half_widths={**hw, 'arm1': hw.get('arm0')})
     assert np.isinf(ref[6]) and np.isfinite(ref[5])
@@ -195,7 +197,7 @@ def test_chisq_trials_core_matches_reference(ref_tm, ref_arms, use_vsini):
 def test_scan_core_matches_reference(ref_tm, ref_arms):
     vels = np.linspace(-600.0, 600.0, 25)
     badchi = float(10 * sum(a.npix for a in ref_arms))
-    tm = convert.template_model(ref_tm)
+    tm = convert.template_model(ref_tm, device='cpu')
     for par in ([6500.0, 2.5, -0.8, 0.4], [14000.0, 2.5, -0.8, 0.4]):
         ref = np.asarray(rlik.scan_core(
             ref_arms, {'arm0': ref_tm, 'arm1': ref_tm}, jnp.asarray(vels),
@@ -203,7 +205,7 @@ def test_scan_core_matches_reference(ref_tm, ref_arms):
             use_vsini=False, half_widths={}, outside_penalty=True,
             solve_dtype=None))
         got = likelihood.scan_core(
-            [convert.arm_state(a) for a in ref_arms],
+            [convert.arm_state(a, device='cpu') for a in ref_arms],
             {'arm0': tm, 'arm1': tm}, _t(vels)[None], _t(par)[None],
             _t([0.0]), badchi=badchi, use_vsini=False, half_widths={})
         np.testing.assert_allclose(got[0], ref, rtol=1e-8)
@@ -227,7 +229,8 @@ def test_batched_fitter_matches_reference(ref_tm):
     rbf = RBatchedFitter([RBatchArm('B', lam, flux, ivar, badmask, res)],
                          {'B': ref_tm}, freeze(cfg), options={'npoly': 7})
     bf = BatchedFitter([BatchArm('B', lam, flux, ivar, badmask, res)],
-                       {'B': convert.template_model(ref_tm)}, cfg,
+                       {'B': convert.template_model(ref_tm, device='cpu')},
+                       cfg,
                        options={'npoly': 7})
     vels = np.tile(np.linspace(-300.0, 300.0, 5), (3, 1))
     params = np.tile([7000.0, 3.0, -1.0, 0.5], (3, 5, 1))

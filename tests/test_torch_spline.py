@@ -41,7 +41,7 @@ GRIDS = [(True, 400), (False, 300), (True, 60), (False, 40)]
 def test_geometry_matches_reference(log_step, n):
     xs = _knots(log_step, n)
     ref = rspline.SplineGeometry.from_knots(xs, log_step=log_step)
-    got = spline.SplineGeometry.from_knots(xs, log_step=log_step)
+    got = spline.SplineGeometry.from_knots(xs, log_step=log_step, device='cpu')
     assert (got.x0, got.x_last, got.n, got.log_step) == \
         (ref.x0, ref.x_last, ref.n, ref.log_step)
     assert got.step == pytest.approx(ref.step, rel=RTOL)
@@ -60,7 +60,8 @@ def test_spline_coeffs_match_reference(log_step, n):
         rspline.SplineGeometry.from_knots(xs, log_step=log_step),
         jnp.asarray(ys))
     got = spline.spline_coeffs(
-        spline.SplineGeometry.from_knots(xs, log_step=log_step), _t(ys))
+        spline.SplineGeometry.from_knots(xs, log_step=log_step, device='cpu'),
+        _t(ys))
     assert got.shape == (3, 2, 4, n - 1)
     _close(got, ref)
 
@@ -80,7 +81,8 @@ def _eval_setup(log_step, rows=3, npix_t=500, npix_d=300, seed=0):
     else:
         u = idx0[None, :] + (shifts / 3e5)[:, None] \
             * (lam_d / rgeom.step)[None, :]
-    return rgeom, spline.SplineGeometry.from_knots(xs, log_step), \
+    return rgeom, spline.SplineGeometry.from_knots(
+        xs, log_step, device='cpu'), \
         coeffs, u, idx0
 
 
@@ -133,5 +135,6 @@ def test_doppler_index_shift_matches_reference(log_step):
         rspline.SplineGeometry.from_knots(xs, log_step=log_step),
         jnp.asarray(vels), lam_over_step=1.0)
     got = spline.doppler_index_shift(
-        spline.SplineGeometry.from_knots(xs, log_step), _t(vels))
+        spline.SplineGeometry.from_knots(xs, log_step, device='cpu'),
+        _t(vels))
     _close(got, ref)
