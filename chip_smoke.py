@@ -1,31 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the rvspecfit_torch fit slice on one CUDA card and check it.
+"""Drive the rvspecfit_torch group fit on one CUDA card and check it.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
 
     python3 chip_smoke.py
 
-1. Builds both CUDA kernels from rvspecfit_torch/csrc with nvcc
-   (sm_90a) into rvspecfit_torch/_build/.
+1. Builds the CUDA kernels from rvspecfit_torch/csrc with nvcc
+   (sm_90a, one nvcc per source, all started together) into
+   rvspecfit_torch/_build/.
 2. Compares each kernel with its plain PyTorch version on the card at
-   the main path's shapes (kernel B in both its modes), and times both
-   with CUDA events beside the least time the card could take for the
-   work (bound_ms) and, for kernel B, one fp32 torch.matmul of its
+   the main path's shapes (kernel A in both modes, its adjoint at the
+   polish's shape, kernel B in both modes), and times both with CUDA
+   events beside the least time the card could take for the work
+   (bound_ms) and, for kernel B, one fp32 torch.matmul of its
    materialized contraction (library_ms, a yardstick the port never
    calls).
-3. Drives the fit slice of bench.py's workload through the port's
-   entry points: a synthetic 500-fiber, 3-arm exposure -> batched CCF
-   first guess (kernel B) -> batched Nelder-Mead (kernel A) ->
-   velocity refinement (kernel A, shared mode) -> best-fit models; a
-   cold pass, then a timed warm pass whose kernel launches are
-   counted.
-4. Checks RV recovery against the injected velocities, and the slice
-   on 8 fibers against the CPU float64 run of the same code.
+3. Drives survey/desi._run_group_fit on bench.py's workload: a
+   synthetic 500-fiber, 3-arm exposure against the 864-template grid
+   (built through pipeline/library.template_model_from_artifacts) ->
+   batched CCF first guess (kernel B) -> Nelder-Mead (kernel A) ->
+   gradient polish (kernel A and its adjoint, AD Hessians) -> velocity
+   refinement (kernel A, shared mode) -> AD Hessian errors -> best-fit
+   models; a cold pass, then a timed warm pass whose kernel launches
+   are counted.
+4. Checks RV recovery against the injected velocities, that the polish
+   raised no fiber's objective, and the group fit on 8 fibers
+   (velocities, polished parameters, errors) against the CPU float64
+   run of the same code.
 
-Prints, last, a JSON line of the kernels and then the ok line.  Exits
-non-zero, printing no result, without a CUDA device or on any failure.
+Prints, last, the card, a JSON line of the kernels and then the ok
+line.  Exits non-zero, printing no result, without a CUDA device or on
+any failure.
 """
+import concurrent.futures
 import contextlib
 import itertools
 import json
@@ -39,8 +47,10 @@ import numpy as np
 NFIBERS = 500
 NPIX_ARM = 1024
 CONFIG = dict(min_vel=-1000, max_vel=1000, vel_step0=5, max_vsini=500,
-              min_vsini=1e-2, min_vel_step=0.2)
+              min_vsini=1e-2, min_vel_step=0.2, second_minimizer=True)
+OPTIONS = {'npoly': 10}
 START = dict(teff=6000.0, logg=3.0, feh=-1.0, alpha=0.5)
+PHASES = ('ccf', 'nm', 'polish', 'refine', 'hessian', 'models')
 
 
 class SmokeFailure(Exception):
@@ -110,7 +120,10 @@ def environment():
 def build_kernels():
     from rvspecfit_torch.ops import ccf_chisq, cuda_build, spline_eval
     t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as ex:
+        list(ex.map(cuda_build.load, ('spline_eval', 'ccf_chisq')))
     spline_eval.build()
+    spline_eval.build_adjoint()
     ccf_chisq.build()
     log(f'kernel build: {time.perf_counter() - t0:.2f} s')
     for name, info in cuda_build.build_log.items():
@@ -153,11 +166,20 @@ def make_bank(continuum=True):
                                      continuum=continuum, device='cpu')
 
 
-def make_workload(device):
+def make_template_model(device):
+    """The 864-template grid at 4096 px, through the library's
+    artifact path (a regular-grid library's arrays, made in memory)."""
     from rvspecfit_torch import simulation
+    from rvspecfit_torch.pipeline.library import \
+        template_model_from_artifacts
+    return template_model_from_artifacts(
+        *simulation.template_artifacts(6, 6, 6, 4, npix=4096, lam0=4550.0,
+                                       lam1=5450.0), device=device)
+
+
+def make_workload(device):
     t0 = time.perf_counter()
-    tm = simulation.build_template_model(6, 6, 6, 4, npix=4096, lam0=4550.0,
-                                         lam1=5450.0, device=device)
+    tm = make_template_model(device)
     arms, truth = make_arms()
     bank = make_bank()
     log(f'workload: {NFIBERS} fibers x {len(arms)} arms x {NPIX_ARM} px, '
@@ -199,6 +221,13 @@ def compare(got, want):
     import torch
     torch.cuda.synchronize()
     return (float((got - want).abs().max()), float(want.abs().max()))
+
+
+def adjoint_bound_ms(u, nm1):
+    """Least time of the adjoint's work from HBM: u and g read once and
+    the dense (R, 4, nm1) float32 output written once."""
+    return 1e3 * (2 * 4 * u.numel() + 16 * u.shape[0] * nm1) \
+        / HBM_BYTES_PER_S
 
 
 def make_nocont_bank(device):
@@ -316,43 +345,51 @@ def check_kernel_b(arms, bank_d, bank_nocont_d, device):
     return result
 
 
-def run_slice(bf, mapper, arms, banks, sync, x0=None):
-    """CCF -> Nelder-Mead -> refinement -> models; per-phase seconds.
-    ``x0`` replaces the CCF's starts of Nelder-Mead."""
-    from rvspecfit_torch.fit import ccf
-    t = [time.perf_counter()]
+def check_adjoint(tm, arms, truth, device):
+    """Kernel A's adjoint vs its plain version at the polish's shape
+    (one row per fiber, 500 x 1024 queries on 4095 intervals) with a
+    seeded upstream gradient; timed from HBM (CUDA-graph replays over
+    L2_COPIES copies of its inputs) and eagerly; two launches must give
+    the same bits."""
+    import torch
+    from rvspecfit_torch.ops import spline_eval
+    coeffs, cases = kernel_a_cases(tm, arms, truth, device)
+    u = cases[0][1]
+    nm1 = coeffs.shape[-1]
+    g = torch.as_tensor(np.random.RandomState(1).normal(size=u.shape),
+                        dtype=torch.float32, device=device)
 
-    def mark():
-        sync()
-        t.append(time.perf_counter())
+    def call(uu, gg):
+        return spline_eval.spline_eval_index_vjp(tm.geom, uu, gg, nm1)
+    got = call(u, g)
+    err, scale = compare(got, spline_eval.spline_eval_index_vjp_plain(
+        tm.geom, u, g, nm1))
+    check(torch.equal(got, call(u, g)),
+          'the adjoint gave other bits on a second launch')
+    ms = cuda_time(cold_inputs(call, u, g), 2 * L2_COPIES, graph=True)
+    eager_ms = cuda_time(lambda: call(u, g), 20)
+    plain_ms = cuda_time(lambda: spline_eval.spline_eval_index_vjp_plain(
+        tm.geom, u, g, nm1), 5)
+    bound = adjoint_bound_ms(u, nm1)
+    log(f'adjoint: rows {u.shape[0]} x {u.shape[1]} px -> (R, 4, {nm1}): '
+        f'max|diff| {err:.3e} (limit 1e-5 x max|out| = {1e-5 * scale:.3e});'
+        f' kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain '
+        f'{plain_ms:.4f} ms, bound {bound:.4f} ms (HBM bytes) -> '
+        f'{100 * bound / ms:.1f}% of it; bit-equal on relaunch')
+    check(np.isfinite(err) and err <= 1e-5 * scale,
+          'the adjoint disagrees with its plain version')
+    check(ms >= bound, 'the adjoint ran under its bound: the bound or '
+          'the timing is wrong')
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, bound_ms=bound)
 
-    with np.errstate(divide='ignore'):
-        cres = ccf.fit_batch(
-            [(a.name, a.lam, a.flux,
-              1.0 / np.sqrt(np.maximum(a.ivar, 1e-30)), None) for a in arms],
-            CONFIG, banks)
-    mark()
-    if x0 is None:
-        x0 = np.concatenate([cres['best_vel'][:, None],
-                             cres['best_params']], axis=1)
-    nmres = bf.run_neldermead(mapper, x0=x0)
-    mark()
-    vel_b, params_b, _ = mapper.unpack_host(nmres['x'])
-    ref = bf.refine_velocities(vel_b, params_b)
-    mark()
-    mods = bf.best_models(ref['best_vel'], params_b)
-    mark()
-    phases = dict(zip(('ccf', 'nm', 'refine', 'models'), np.diff(t)))
-    return dict(ccf=cres, x0=x0, nm=nmres, ref=ref, models=mods,
-                phases=phases)
 
-
-def make_fitter(tm, arms):
-    from rvspecfit_torch.fit.batch import BatchedFitter
-    from rvspecfit_torch.fit.vel_fit import ParamMapper
-    bf = BatchedFitter(arms, {a.name: tm for a in arms}, CONFIG,
-                       options={'npoly': 10})
-    return bf, ParamMapper(tm.parnames, START, [], None, False)
+def run_group_fit(tm, arms, banks):
+    """The port's main path: survey/desi._run_group_fit on the exposure
+    (all arms share the template model and the bank)."""
+    from rvspecfit_torch.survey import desi
+    return desi._run_group_fit(arms, {a.name: tm for a in arms}, CONFIG,
+                               OPTIONS, banks=banks)
 
 
 def check_outputs(out, nfib, npix):
@@ -360,15 +397,35 @@ def check_outputs(out, nfib, npix):
         check(out['ref'][key].shape == (nfib,)
               and np.isfinite(out['ref'][key]).all(),
               f'refinement {key}: non-finite or wrong shape')
-    for name, m in out['models']['models'].items():
+    check(out['errs'].shape == (nfib, 4)
+          and np.isfinite(out['errs'][~out['bad_hess']]).all(),
+          'Hessian errors: wrong shape or non-finite on a good Hessian')
+    for name, m in out['mods']['models'].items():
         check(m.shape == (nfib, npix) and np.isfinite(m).all(),
               f'model of arm {name}: non-finite or wrong shape')
+    worse = out['fun'] > out['nm']['fun']
+    check(not worse.any(), f'the polish raised the objective of '
+          f'{int(worse.sum())} fibers')
+
+
+def kernel_counts():
+    from rvspecfit_torch.ops import ccf_chisq, spline_eval
+    return dict(spline_eval=spline_eval.launches,
+                ccf_chisq=ccf_chisq.launches,
+                spline_eval_adjoint=spline_eval.adjoint_launches)
+
+
+def reset_counts():
+    from rvspecfit_torch.ops import ccf_chisq, spline_eval
+    spline_eval.launches = spline_eval.adjoint_launches = 0
+    ccf_chisq.launches = 0
 
 
 @contextlib.contextmanager
 def plain_versions():
-    """The slice's calls of both kernels run their plain versions
-    instead (a witness run: it launches no kernel)."""
+    """The path's calls of the kernels run their plain versions instead
+    (a witness run: it launches no kernel; the polish and the Hessian
+    differentiate the plain evaluation)."""
     from rvspecfit_torch.fit import batch, likelihood
     from rvspecfit_torch.ops import ccf_chisq, spline_eval
     plain = spline_eval.spline_eval_index_plain
@@ -379,41 +436,55 @@ def plain_versions():
         yield
 
 
-def check_against_cpu(tm, arms, bank, device):
-    """The slice on 8 fibers: CUDA float32 (kernels) against the CPU
-    float64 run of the plain versions.  A witness beside it: the CUDA
-    float32 slice with the plain versions in place of the kernels, from
-    the kernel run's Nelder-Mead starts, tells float32 arithmetic from a
-    kernel at fault."""
+@contextlib.contextmanager
+def ccf_result(record=None, replay=None):
+    """Record the group fit's CCF result into the list ``record``, or
+    hand it ``replay`` in place of running the CCF."""
+    from rvspecfit_torch.fit import ccf
+    from rvspecfit_torch.survey import desi
+    real = ccf.fit_batch
+
+    def fit_batch(*args, **kwargs):
+        if replay is not None:
+            return replay
+        record.append(real(*args, **kwargs))
+        return record[-1]
+    with mock.patch.object(desi.ccf_mod, 'fit_batch', fit_batch):
+        yield
+
+
+def check_against_cpu(arms, bank, device, tm):
+    """The group fit on 8 fibers: CUDA float32 (kernels) against the
+    CPU float64 run of the plain versions, for the velocities and the
+    polished parameters, and the Hessian errors at one point (see
+    hessians_at_one_point).  A witness beside it:
+    the CUDA float32 fit with the plain versions in place of the
+    kernels, from the kernel run's CCF result (so from the same NM
+    starts), tells float32 arithmetic from a kernel at fault."""
     import torch
-    from rvspecfit_torch import convert, simulation
+    from rvspecfit_torch import convert
     from rvspecfit_torch.fit.batch import BatchArm
-    from rvspecfit_torch.ops import ccf_chisq, spline_eval
     cpu = torch.device('cpu')
     sub = [BatchArm(a.name, a.lam, a.flux[:8], a.ivar[:8]) for a in arms]
-    tm_cpu = simulation.build_template_model(6, 6, 6, 4, npix=4096,
-                                             lam0=4550.0, lam1=5450.0,
-                                             device=cpu)
-    small, fitters = {}, {}
+    tm_cpu = make_template_model(cpu)
+    small, cres, banks = {}, {}, {}
     for dev, tm_d in ((device, tm), (cpu, tm_cpu)):
-        banks_d = {a.name: convert.ccf_bank(*bank, device=dev) for a in sub}
-        bf_d, mapper_d = make_fitter(tm_d, sub)
-        fitters[dev.type] = (bf_d, mapper_d, banks_d)
-        small[dev.type] = run_slice(bf_d, mapper_d, sub, banks_d,
-                                    torch.cuda.synchronize)
-    bf_g, mapper_g, banks_g = fitters['cuda']
-    counts = (spline_eval.launches, ccf_chisq.launches)
-    with plain_versions():
-        plain32 = run_slice(bf_g, mapper_g, sub, banks_g,
-                            torch.cuda.synchronize, x0=small['cuda']['x0'])
-    check(counts == (spline_eval.launches, ccf_chisq.launches),
-          'the witness run launched a kernel')
-    vg, vc = small['cuda']['ref']['best_vel'], small['cpu']['ref']['best_vel']
+        banks[dev.type] = {a.name: convert.ccf_bank(*bank, device=dev)
+                           for a in sub}
+        rec = []
+        with ccf_result(record=rec):
+            small[dev.type] = run_group_fit(tm_d, sub, banks[dev.type])
+        cres[dev.type] = rec[0]
+    counts = kernel_counts()
+    with plain_versions(), ccf_result(replay=cres['cuda']):
+        plain32 = run_group_fit(tm, sub, banks['cuda'])
+    check(counts == kernel_counts(), 'the witness run launched a kernel')
+    gk, gc = small['cuda'], small['cpu']
+    vg, vc = gk['ref']['best_vel'], gc['ref']['best_vel']
     vp = plain32['ref']['best_vel']
-    lim = np.maximum(1.0, 0.5 * small['cpu']['ref']['vel_err'])
-    same_id = (small['cuda']['ccf']['best_id']
-               == small['cpu']['ccf']['best_id']).sum()
-    log(f'8-fiber slice, CUDA float32 vs CPU float64: max|dv| '
+    lim = np.maximum(1.0, 0.5 * gc['ref']['vel_err'])
+    same_id = (cres['cuda']['best_id'] == cres['cpu']['best_id']).sum()
+    log(f'8-fiber group fit, CUDA float32 vs CPU float64: max|dv| '
         f'{np.abs(vg - vc).max():.4f} km/s (limit max(1, 0.5 sigma)); '
         f'same CCF template {int(same_id)}/8')
     for i in range(len(vc)):
@@ -422,7 +493,74 @@ def check_against_cpu(tm, arms, bank, device):
             f'{lim[i]:.4f}); CUDA float32 plain versions from the same '
             f'starts {vp[i]:.4f} (|dv| {abs(vp[i] - vc[i]):.4f})')
     check((np.abs(vg - vc) <= lim).all(),
-          'the CUDA slice disagrees with the CPU float64 slice')
+          'the CUDA velocities disagree with the CPU float64 ones')
+    # polished parameters: within half the CPU's error of the CPU's
+    plim = 0.5 * gc['errs']
+    dp, dpp = np.abs(gk['params'] - gc['params']), \
+        np.abs(plain32['params'] - gc['params'])
+    log(f'  polished parameters |dp| / sigma_CPU per fiber (limit 0.5), '
+        f'kernels: {np.round((dp / gc["errs"]).max(1), 4).tolist()}; '
+        f'plain versions: {np.round((dpp / gc["errs"]).max(1), 4).tolist()}')
+    check((dp <= plim).all(), 'the CUDA polished parameters disagree with '
+          'the CPU float64 ones')
+    hessians_at_one_point(sub, {'cuda': tm, 'cpu': tm_cpu}, gc)
+    # each run's errors at its own optimum: logged, not checked.  The
+    # grid interpolation is multilinear, so the Hessian changes across
+    # cell edges, and the float32 and float64 optima lie up to ~0.3
+    # sigma apart; the witness shows the same spread without a kernel.
+    rel = np.abs(gk['errs'] / gc['errs'] - 1).max(1)
+    relp = np.abs(plain32['errs'] / gc['errs'] - 1).max(1)
+    log(f'  Hessian errors at each run\'s own optimum, max over parameters '
+        f'of |err_CUDA / err_CPU - 1| per fiber: kernels '
+        f'{np.round(rel, 4).tolist()}, plain versions '
+        f'{np.round(relp, 4).tolist()}; BAD_HESSIAN CUDA '
+        f'{gk["bad_hess"].astype(int).tolist()}, plain '
+        f'{plain32["bad_hess"].astype(int).tolist()}, CPU '
+        f'{gc["bad_hess"].astype(int).tolist()}')
+
+
+# the float32 Hessian errors against float64 at one point
+ERR_TOL = 0.02
+
+
+def hessians_at_one_point(sub, tms, gc):
+    """The Hessian at the CPU run's refined velocities and polished
+    parameters, on the card (float32, kernels) and on the CPU: their
+    difference is float32 arithmetic alone.  In correlation form (D H
+    D, D = |diag H_CPU|^-1/2) it is E; a fiber's BAD_HESSIAN flag may
+    differ only where the CPU Hessian's smallest |eigenvalue| in that
+    form is within 4 max|E| of 0 (Weyl: a perturbation E moves an
+    eigenvalue by at most ||E||_2 <= 4 max|E| for 4 x 4)."""
+    from rvspecfit_torch.fit.batch import BatchedFitter
+    from rvspecfit_torch.fit.vel_fit import uncertainties_from_hessian
+    h = {}
+    for key, tm_d in tms.items():
+        bf = BatchedFitter(sub, {a.name: tm_d for a in sub}, CONFIG,
+                           options=OPTIONS)
+        h[key] = bf.hessians(gc['ref']['best_vel'],
+                             gc['params']).double().cpu().numpy()
+    d = np.abs(np.diagonal(h['cpu'], axis1=1, axis2=2))**-0.5
+    scale = d[:, :, None] * d[:, None, :]
+    e = np.abs((h['cuda'] - h['cpu']) * scale).max((1, 2))
+    lam = np.abs(np.linalg.eigvalsh(h['cpu'] * scale)).min(1)
+    res = {k: [uncertainties_from_hessian(x) for x in v]
+           for k, v in h.items()}
+    errs = {k: np.array([r[0] for r in v]) for k, v in res.items()}
+    bad = {k: np.array([r[2] for r in v]) for k, v in res.items()}
+    good = ~(bad['cuda'] | bad['cpu'])
+    rel = np.abs(errs['cuda'] / errs['cpu'] - 1).max(1)
+    may_flip = lam <= 4 * e
+    log(f'  Hessians at one point, float32 vs float64: max|E| per fiber '
+        f'{[float(f"{x:.3g}") for x in e]}; CPU min|eigenvalue| '
+        f'{[float(f"{x:.3g}") for x in lam]}; errors max |rel diff| '
+        f'(limit {ERR_TOL}, good Hessians) '
+        f'{[float(f"{x:.3g}") for x in rel]}; BAD_HESSIAN CUDA '
+        f'{bad["cuda"].astype(int).tolist()}, CPU '
+        f'{bad["cpu"].astype(int).tolist()}')
+    check(((bad['cuda'] == bad['cpu']) | may_flip).all(),
+          'a BAD_HESSIAN flag differs where float32 cannot flip it')
+    check((rel[good] <= ERR_TOL).all(),
+          'the CUDA Hessian errors at one point disagree with float64')
 
 
 def main():
@@ -433,7 +571,6 @@ def main():
         return 2
     try:
         from rvspecfit_torch import convert
-        from rvspecfit_torch.ops import ccf_chisq, spline_eval
     except ImportError as exc:
         print(f'chip_smoke: rvspecfit_torch is not importable ({exc}); '
               'run from the root of a checkout', file=sys.stderr)
@@ -444,29 +581,30 @@ def main():
     tm, arms, truth, bank = make_workload(device)
     banks = {a.name: convert.ccf_bank(*bank, device=device) for a in arms}
     res_a = check_kernel_a(tm, arms, truth, device)
+    res_adj = check_adjoint(tm, arms, truth, device)
     bank_nocont = make_nocont_bank(device)
     res_b = check_kernel_b(arms, banks[arms[0].name], bank_nocont, device)
 
-    bf, mapper = make_fitter(tm, arms)
-    sync = torch.cuda.synchronize
     t0 = time.perf_counter()
-    run_slice(bf, mapper, arms, banks, sync)
-    log(f'slice cold pass: {time.perf_counter() - t0:.2f} s')
-    spline_eval.launches = 0
-    ccf_chisq.launches = 0
-    out = run_slice(bf, mapper, arms, banks, sync)
-    counts = dict(spline_eval=spline_eval.launches,
-                  ccf_chisq=ccf_chisq.launches)
-    total = sum(out['phases'].values())
-    log('slice warm pass: ' + ' '.join(
-        f'{k}={v:.3f}s' for k, v in out['phases'].items())
-        + f' total={total:.3f}s -> {NFIBERS / total:.1f} fibers/s')
+    run_group_fit(tm, arms, banks)
+    log(f'group fit cold pass: {time.perf_counter() - t0:.2f} s')
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_group_fit(tm, arms, banks)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    log('group fit warm pass: ' + ' '.join(
+        f'{k}={out["phases"][k]:.3f}s' for k in PHASES)
+        + f' total={wall:.3f}s -> {NFIBERS / wall:.1f} fibers/s')
     log(f'NM: {int(out["nm"]["converged"].sum())}/{NFIBERS} converged, '
-        f'{out["nm"]["obj_evals"]} objective trials; refinement passes '
-        f'{int(out["ref"]["iterations"][0])}')
+        f'{out["nm"]["obj_evals"]} objective trials; polish moved '
+        f'{int((out["fun"] < out["nm"]["fun"]).sum())}/{NFIBERS}; '
+        f'refinement passes {int(out["ref"]["iterations"][0])}; '
+        f'BAD_HESSIAN {int(out["bad_hess"].sum())}/{NFIBERS}')
     log(f'kernel launches in the warm pass: {counts}')
     check(all(v > 0 for v in counts.values()),
-          f'a kernel of the slice was not launched: {counts}')
+          f'a kernel of the path was not launched: {counts}')
     check_outputs(out, NFIBERS, NPIX_ARM)
 
     dv = out['ref']['best_vel'] - truth['vel']
@@ -476,7 +614,7 @@ def main():
         f'{np.median(out["ref"]["vel_err"]):.3f} km/s')
     check(ok.sum() >= 490, 'RV recovery below 490/500')
 
-    check_against_cpu(tm, arms, bank, device)
+    check_against_cpu(arms, bank, device, tm)
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -490,7 +628,7 @@ def main():
              max_abs_err=max(r['max_abs_err'] for r in res_a.values()),
              ms=shared['ms'], plain_ms=shared['plain_ms'],
              bound_ms=shared['bound_ms'], bound_by='bytes',
-             bound_kind='hbm_bytes', library_ms=None,
+             library_ms=None,
              ms_per_row_mode=row['ms'],
              ms_per_row_mode_eager=row['eager_ms'],
              plain_ms_per_row_mode=row['plain_ms'],
@@ -501,12 +639,19 @@ def main():
              launches=counts['ccf_chisq'],
              max_abs_err=cont['max_abs_err'], ms=cont['ms'],
              plain_ms=cont['plain_ms'], bound_ms=cont['bound_ms'],
-             bound_by='operations', bound_kind='tf32x3_flops',
-             library_ms=cont['library_ms'],
+             bound_by='operations', library_ms=cont['library_ms'],
              max_abs_err_no_continuum=nocont['max_abs_err'],
              ms_no_continuum=nocont['ms'],
              plain_ms_no_continuum=nocont['plain_ms'],
              bound_ms_no_continuum=nocont['bound_ms']),
+        dict(name='spline_eval_adjoint', route='cuda',
+             source='rvspecfit_torch/csrc/spline_eval.cu',
+             replaces='rvspecfit_tpu/fit/batch.py:396',
+             launches=counts['spline_eval_adjoint'],
+             max_abs_err=res_adj['max_abs_err'], ms=res_adj['ms'],
+             plain_ms=res_adj['plain_ms'], bound_ms=res_adj['bound_ms'],
+             bound_by='bytes', library_ms=None,
+             ms_eager=res_adj['eager_ms']),
     ]
     print(smi)
     print(json.dumps(dict(kernels=kernels)))

@@ -45,6 +45,26 @@
 //   memory instead, so the result never depends on the window.
 // None of the TPU's devices are needed: no one-hot MXU gather, no
 // 128-lane window rounding, no Taylor expm1, no row/tile padding.
+//
+// The adjoint (rvst_spline_adjoint, per-row mode): the transpose of the
+// evaluation with respect to the coefficients,
+//   dcoeffs[r, :, i(r,p)] += g[r,p] (dxl^3, dxr^3, dxl, dxr)
+// summed over p, every other entry 0.  The JAX package has no such
+// kernel: its gradient paths switch the Pallas kernel off and
+// differentiate the plain gather (rvspecfit_tpu/fit/batch.py,
+// BatchedFitter.arms_ad).  Bound: the dense (R, 4, n-1) output, 16 B per
+// knot interval and row, against 8 B per query read; at the polish's
+// 500 x 1024 queries on 4095 intervals that is 36.9 MB.
+// Design: one block per row.  It zeroes the row's output with float4
+// stores, then takes the row's queries in tiles of ADJ_TILE: each
+// query's interval and four products go to shared memory with the key
+// (interval, position); a tile whose intervals are not non-decreasing
+// is put in key order by a bitonic sort (a tile that is, the usual
+// case since u increases along p, is left as it is: the same order);
+// the first query of each run of one interval sums the run in position
+// order and adds it to the output.  The sums are taken in one fixed
+// order whatever the launch: no atomics, so two launches give the same
+// bits, and a row's intervals may span any width.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -231,6 +251,112 @@ spline_shared_kernel(const float* __restrict__ coeffs,
                  false, g, crow, w);
     }
   }
+}
+
+#define ADJ_THREADS 256
+#define ADJ_TILE 1024               // queries of one row per tile
+
+__global__ void __launch_bounds__(ADJ_THREADS)
+spline_adjoint_kernel(const float* __restrict__ u,
+                      const float* __restrict__ gr, float* dc, int npix,
+                      Geo g) {
+  __shared__ unsigned long long s_key[ADJ_TILE];   // interval << 32 | pos
+  __shared__ float4 s_val[ADJ_TILE];
+  const int tid = threadIdx.x;
+  const int nm1 = g.nm1;
+  const float* urow = u + (size_t)blockIdx.x * npix;
+  const float* grow = gr + (size_t)blockIdx.x * npix;
+  float* drow = dc + (size_t)blockIdx.x * 4 * nm1;
+
+  // the row is 4 nm1 floats: float4 stores where it is 16-byte aligned
+  if ((reinterpret_cast<uintptr_t>(drow) & 15) == 0) {
+    float4* d4 = reinterpret_cast<float4*>(drow);
+    for (int k = tid; k < nm1; k += ADJ_THREADS)
+      d4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    for (int k = tid; k < 4 * nm1; k += ADJ_THREADS) drow[k] = 0.f;
+  }
+  __syncthreads();
+
+  const float top = (float)(nm1 - 1);
+  for (int p0 = 0; p0 < npix; p0 += ADJ_TILE) {
+    const int n = min(ADJ_TILE, npix - p0);
+    for (int s = tid; s < ADJ_TILE; s += ADJ_THREADS) {
+      if (s < n) {
+        // the forward's interval and offsets (eval1); a NaN query
+        // lands in interval 0 with NaN offsets
+        const float uu = urow[p0 + s], gg = grow[p0 + s];
+        const float idx = fminf(fmaxf(floorf(uu), 0.f), top);
+        const float frac = uu - idx;
+        float dxl, dxr;
+        if (g.log_step) {
+          const float xl = g.x0 * expf(idx * g.step);
+          const float ef = expm1f(frac * g.step);
+          dxl = xl * ef;
+          dxr = xl * (g.expm1_step - ef);
+        } else {
+          dxl = frac * g.step;
+          dxr = (1.f - frac) * g.step;
+        }
+        s_key[s] = ((unsigned long long)(unsigned)(int)idx << 32)
+                   | (unsigned)s;
+        s_val[s] = make_float4(gg * dxl * dxl * dxl, gg * dxr * dxr * dxr,
+                               gg * dxl, gg * dxr);
+      } else {
+        s_key[s] = ~0ull;                        // padding sorts last
+      }
+    }
+    __syncthreads();
+    int down = 0;
+    for (int s = tid + 1; s < n; s += ADJ_THREADS)
+      down |= (s_key[s] >> 32) < (s_key[s - 1] >> 32);
+    if (__syncthreads_or(down)) {
+      // bitonic sort of the tile's keys (unique: position in the low bits)
+      for (int k = 2; k <= ADJ_TILE; k <<= 1) {
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          for (int t = tid; t < ADJ_TILE / 2; t += ADJ_THREADS) {
+            const int i = 2 * t - (t & (j - 1));
+            const unsigned long long a = s_key[i], b = s_key[i + j];
+            if ((a > b) == ((i & k) == 0)) {
+              s_key[i] = b;
+              s_key[i + j] = a;
+            }
+          }
+          __syncthreads();
+        }
+      }
+    }
+    for (int s = tid; s < n; s += ADJ_THREADS) {
+      const unsigned iv = (unsigned)(s_key[s] >> 32);
+      if (s > 0 && (unsigned)(s_key[s - 1] >> 32) == iv) continue;
+      float4 acc = s_val[(unsigned)s_key[s]];
+      for (int t = s + 1; t < n && (unsigned)(s_key[t] >> 32) == iv; ++t) {
+        const float4 v = s_val[(unsigned)s_key[t]];
+        acc.x += v.x;
+        acc.y += v.y;
+        acc.z += v.z;
+        acc.w += v.w;
+      }
+      drow[iv] += acc.x;
+      drow[nm1 + iv] += acc.y;
+      drow[2 * nm1 + iv] += acc.z;
+      drow[3 * nm1 + iv] += acc.w;
+    }
+    __syncthreads();   // the next tile reuses s_key / s_val and may add
+                       // to the same intervals
+  }
+}
+
+extern "C" int rvst_spline_adjoint(const float* u, const float* g,
+                                   float* dcoeffs, int rows, int npix,
+                                   int nm1, int log_step, float x0,
+                                   float step, float expm1_step,
+                                   void* stream) {
+  if (rows == 0) return 0;
+  const Geo geo = {nm1, log_step, x0, step, expm1_step};
+  spline_adjoint_kernel<<<rows, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
+      u, g, dcoeffs, npix, geo);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int rvst_spline_eval(const float* coeffs, const float* u,

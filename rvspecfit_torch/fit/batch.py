@@ -1,19 +1,28 @@
 """Batched multi-fiber fitting on one device.
 
-Counterpart of rvspecfit_tpu/fit/batch.py for the fit-only main path:
-the Nelder-Mead rounds with straggler compaction, the iterative
-velocity refinement and the best-fit models, all on a whole exposure
-of fibers that share per-arm wavelength grids.  The device of the
-template tensors decides where everything runs (CUDA: float32 and the
-CUDA kernels; CPU: float64 and their plain versions).
+Counterpart of rvspecfit_tpu/fit/batch.py: the Nelder-Mead rounds
+with straggler compaction, the gradient polish, the iterative velocity
+refinement, the AD Hessian errors and the best-fit models, all on a
+whole exposure of fibers that share per-arm wavelength grids, and
+:meth:`BatchedFitter.run_tail`, the synchronous post-NM chain.  The
+device of the template tensors decides where everything runs (CUDA:
+float32 and the CUDA kernels, the derivatives through kernel A's
+autograd pair; CPU: float64 and their plain versions).
 
-Not ported yet: the gradient polish, the AD Hessian errors, the
-deferred tail, the mesh and the compile warm-up.
+Derivatives: fibers are independent, so one backward of the summed
+objective gives every fiber's gradient, and one backward of each
+gradient column (summed over fibers) gives every fiber's Hessian row
+(:func:`grad_hessian`).
+
+Not ported yet: the deferred tail (run_tail_async), the compile
+warm-up (warm), the mesh, and the polish's environment knobs
+(RVST_POLISH_STEPS, RVST_POLISH_FREEZE_H).
 """
 from __future__ import annotations
 
 import logging
 import math
+import time
 
 import numpy as np
 import torch
@@ -23,7 +32,8 @@ from rvspecfit_torch.fit.likelihood import (chisq_trials_core,
                                             doppler_u, overlap_check,
                                             scan_core, template_stages)
 from rvspecfit_torch.fit.spec_data import ArmState
-from rvspecfit_torch.fit.vel_fit import SIMPLEX_SEED
+from rvspecfit_torch.fit.vel_fit import (SIMPLEX_SEED,
+                                         uncertainties_from_hessian)
 from rvspecfit_torch.ops import chisq as chisq_mod
 from rvspecfit_torch.ops import vsini as vsini_mod
 from rvspecfit_torch.ops.resolution import BandedMatrix
@@ -102,6 +112,27 @@ def scan_stats(vels, mask, chi):
     return torch.stack([best_vel, err, best_chi, skew, kurt], dim=1)
 
 
+def grad_hessian(f, x):
+    """Per-fiber gradient (B, n) and Hessian (B, n, n) at x (B, n) of
+    f: (B, n) -> (B,) whose fibers are independent: one backward of
+    f.sum() with the graph kept, then one backward of each gradient
+    column summed over fibers (Hessian row j)."""
+    n = x.shape[1]
+    x = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        g, = torch.autograd.grad(f(x).sum(), x, create_graph=True)
+        rows = [torch.autograd.grad(g[:, j].sum(), x,
+                                    retain_graph=j < n - 1)[0]
+                for j in range(n)]
+    return g.detach(), torch.stack(rows, dim=1)
+
+
+def prior_rows(names, priors):
+    """[(index, mean, sigma)] of the parameters that have a prior."""
+    return [(i, float(priors[p][0]), float(priors[p][1]))
+            for i, p in enumerate(names or ()) if priors and p in priors]
+
+
 class BatchedFitter:
     """Fit a batch of fibers sharing arm wavelength grids."""
 
@@ -150,7 +181,7 @@ class BatchedFitter:
                     float(config['max_vsini']), tm.log_step)
 
     def _tensor(self, x):
-        return torch.as_tensor(np.asarray(x, np.float64), dtype=self.dtype,
+        return torch.as_tensor(np.array(x, np.float64), dtype=self.dtype,
                                device=self.device)
 
     def _vsinis(self, vsinis):
@@ -199,9 +230,7 @@ class BatchedFitter:
         bounds or at non-finite parameters."""
         min_vel = float(self.config['min_vel'])
         max_vel = float(self.config['max_vel'])
-        prior_rows = [(i, float(priors[p][0]), float(priors[p][1]))
-                      for i, p in enumerate(mapper.specParams)
-                      if priors and p in priors]
+        rows_p = prior_rows(mapper.specParams, priors)
         arms = self._arms_at(idx)
 
         def fun(x):
@@ -215,7 +244,7 @@ class BatchedFitter:
                                      badchi=self.badchi,
                                      use_vsini=self.use_vsini,
                                      half_widths=self.half_widths)
-            for i, mu, sig in prior_rows:
+            for i, mu, sig in rows_p:
                 chis = chis + ((params[:, :, i] - mu) / sig)**2
             chis = chis + penalty.reshape(b, k)
             bad = (vel > max_vel) | (vel < min_vel) \
@@ -293,6 +322,74 @@ class BatchedFitter:
         return dict(x=simplex[rows, ib].double().cpu().numpy(),
                     fun=fvals[rows, ib].double().cpu().numpy(),
                     converged=done.cpu().numpy(), obj_evals=evals)
+
+    # -------------------------------------------------------------
+    def _chisq_at(self, vel, params, vsinis):
+        """(B,) -2logL of one trial per fiber: vel (B,), params (B,
+        ndim), vsinis (B,); differentiable in params and vsinis."""
+        return chisq_trials_core(self.arms, self.templates, vel[:, None],
+                                 params[:, None, :], vsinis[:, None],
+                                 badchi=self.badchi,
+                                 use_vsini=self.use_vsini,
+                                 half_widths=self.half_widths)[:, 0]
+
+    def run_polish(self, mapper, x, priors=None, steps=2, fun0=None):
+        """Batched gradient polish, the ``second_minimizer`` stage.
+
+        ``steps`` damped-Newton iterations over the non-velocity
+        coordinates [vsini?, free params] (the refinement re-measures
+        the velocity right after): each solves (H + ridge) dx = -grad,
+        ridge 1e-6 max(|diag H|, 1e-12), with exact AD derivatives of
+        -2logL plus priors and the vsini penalty; a non-finite dx is 0.
+        The ladder [1, 0.25, 0.05] and the current point are evaluated
+        in one objective call, and a fiber moves only when a trial is
+        strictly better than its current value.
+
+        x : (B, nvec) NM optima; fun0 : optional (B,) NM best values.
+        Returns host x (B, nvec), fun (B,), moved (B,).
+        """
+        x = np.asarray(x, np.float64)
+        b = x.shape[0]
+        xc = self._tensor(x)
+        fc = self._tensor(np.full(b, np.inf) if fun0 is None else fun0)
+        objective = self._objective(mapper, priors,
+                                    torch.arange(b, device=self.device))
+        rows_p = prior_rows(mapper.specParams, priors)
+        ladder = self._tensor([1.0, 0.25, 0.05])
+
+        def scalar_obj(vel, rest):
+            _, params, vsini, penalty = mapper.unpack(
+                torch.cat([vel[:, None], rest], dim=1))
+            chi = self._chisq_at(vel, params, vsini)
+            for i, mu, sig in rows_p:
+                chi = chi + ((params[:, i] - mu) / sig)**2
+            return chi + penalty
+
+        for _ in range(steps):
+            vel = xc[:, 0]
+            g, h = grad_hessian(lambda rest: scalar_obj(vel, rest),
+                                xc[:, 1:])
+            dh = torch.diagonal(h, dim1=-2, dim2=-1).abs()
+            ridge = 1e-6 * torch.clamp(dh, min=1e-12)
+            dx = -torch.linalg.solve_ex(h + torch.diag_embed(ridge),
+                                        g[..., None])[0][..., 0]
+            dx = torch.where(torch.isfinite(dx), dx, 0.0)
+            cand = xc[:, None, :].repeat(1, 4, 1)           # (B, 4, nvec)
+            cand[:, :3, 1:] += ladder[None, :, None] * dx[:, None, :]
+            fcand = objective(cand)
+            fcand = torch.where(torch.isfinite(fcand), fcand, torch.inf)
+            ib = torch.argmin(fcand, dim=1)
+            # the reference's one-hot product: 0 * inf = NaN, so a fiber
+            # with a non-finite trial does not move at this step
+            onehot = torch.nn.functional.one_hot(ib, 4).to(fcand.dtype)
+            fbest = (onehot * fcand).sum(1)
+            xbest = cand[torch.arange(b, device=self.device), ib]
+            better = fbest < fc
+            xc = torch.where(better[:, None], xbest, xc)
+            fc = torch.where(better, fbest, fc)
+        xf = xc.double().cpu().numpy()
+        return dict(x=xf, fun=fc.double().cpu().numpy(),
+                    moved=np.any(xf != x, axis=1))
 
     # -------------------------------------------------------------
     def refine_velocities(self, best_vel, params, vsinis=None, maxiter=10):
@@ -382,6 +479,80 @@ class BatchedFitter:
             flat.append([x.double().cpu().numpy()
                          for x in (models[0], val, models[1])])
         return self._models_finalize(flat, self.batch_arms)
+
+    # -------------------------------------------------------------
+    def hessians(self, best_vel, params, vsinis=None, priors=None,
+                 parnames=None):
+        """(B, ndim, ndim) exact AD Hessians of 0.5 (-2logL + priors)
+        with respect to the parameters at velocities ``best_vel``."""
+        rows_p = prior_rows(parnames, priors)
+        vel = self._tensor(best_vel)
+        vs = self._vsinis(vsinis)
+
+        def half_chisq(p):
+            chi = self._chisq_at(vel, p, vs)
+            for i, mu, sig in rows_p:
+                chi = chi + ((p[:, i] - mu) / sig)**2
+            return 0.5 * chi
+
+        return grad_hessian(half_chisq, self._tensor(params))[1]
+
+    def hessian_errors(self, best_vel, params, vsinis=None, priors=None,
+                       parnames=None):
+        """Per-fiber errors, covariances and BAD_HESSIAN flags (host)
+        from :meth:`hessians` at the (refined) velocities."""
+        h = self.hessians(best_vel, params, vsinis=vsinis, priors=priors,
+                          parnames=parnames)
+        return self._hessian_finalize(h.double().cpu().numpy())
+
+    @staticmethod
+    def _hessian_finalize(hessians):
+        """(B, ndim, ndim) host Hessians -> (errs, covars, bad) with the
+        per-fiber robust-inversion fallbacks, and one summary warning."""
+        b, ndim = hessians.shape[:2]
+        errs = np.zeros((b, ndim))
+        covars = np.zeros((b, ndim, ndim))
+        bad = np.zeros(b, bool)
+        for i in range(b):
+            errs[i], covars[i], bad[i] = uncertainties_from_hessian(
+                hessians[i])
+        nbad = int(bad.sum())
+        if nbad:
+            logging.warning('%d/%d fibers flagged BAD_HESSIAN (robust '
+                            'inversion fallback used)', nbad, b)
+        return errs, covars, bad
+
+    # -------------------------------------------------------------
+    def run_tail(self, mapper, x, fun=None, parnames=None, priors=None,
+                 polish=True):
+        """The post-NM chain, synchronously: gradient polish (optional)
+        -> unpack -> velocity refinement -> AD Hessian errors -> best
+        models.  x : (B, nvec) NM optima; fun : (B,) NM best values.
+        Returns dict(x, fun, params, vsini, ref, errs, covars,
+        bad_hess, mods), the keys of the reference's run_tail_async
+        collect(), and phases: wall seconds of polish, refine, hessian
+        and models (each stage ends in a fetch to the host)."""
+        t = [time.perf_counter()]
+        x = np.asarray(x, np.float64)
+        if polish:
+            pol = self.run_polish(mapper, x, priors=priors, fun0=fun)
+            x, fun = pol['x'], pol['fun']
+        elif fun is not None:
+            fun = np.asarray(fun, np.float64)
+        t.append(time.perf_counter())
+        vel, params, vsini = mapper.unpack_host(x)
+        ref = self.refine_velocities(vel, params, vsinis=vsini)
+        t.append(time.perf_counter())
+        errs, covars, bad = self.hessian_errors(
+            ref['best_vel'], params, vsinis=vsini, priors=priors,
+            parnames=parnames)
+        t.append(time.perf_counter())
+        mods = self.best_models(ref['best_vel'], params, vsinis=vsini)
+        t.append(time.perf_counter())
+        return dict(x=x, fun=fun, params=params, vsini=vsini, ref=ref,
+                    errs=errs, covars=covars, bad_hess=bad, mods=mods,
+                    phases=dict(zip(('polish', 'refine', 'hessian',
+                                     'models'), np.diff(t))))
 
     @staticmethod
     def _models_finalize(flat, batch_arms):

@@ -12,17 +12,44 @@ cross-correlations of the bank rFFTs with the spectrum/ivar rFFTs
 evaluated directly at the velocity grid's fractional lags through two
 (F, V) DFT matrices.  Arm contributions are summed; each fiber's best
 template and parabola-refined velocity come back to the host.  A
-kernel failure raises: there is no fallback path.
+kernel failure raises: there is no fallback path.  The banks come from
+the caller or, through :func:`get_ccf_info`, from make_ccf's files.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
 
+from rvspecfit_torch import serializer
+from rvspecfit_torch.device import complex_dtype_for, resolve_device
 from rvspecfit_torch.ops import ccf_chisq
 from rvspecfit_torch.ops import continuum as continuum_mod
+from rvspecfit_torch.pipeline import make_ccf
+
+
+def get_ccf_info(spec_setup, config, device=None):
+    """One setup's CCF bank from make_ccf's files in
+    ``config['template_lib']``: (tfft, t2fft, models, info) with complex
+    (T, F) rFFT tensors on ``device`` (None: the CUDA card), the host
+    (T, npoints) template models (memory-mapped) and the info dict."""
+    lib = config['template_lib']
+    continuum = config.get('ccf_continuum_normalize')
+    if continuum is None:
+        continuum = True
+    device = resolve_device(device)
+    info = serializer.load_dict_from_hdf5(os.path.join(
+        lib, make_ccf.get_ccf_info_name(spec_setup, continuum)))
+    mods = np.load(os.path.join(
+        lib, make_ccf.get_ccf_mod_name(spec_setup, continuum)),
+        mmap_mode='r')
+    to = lambda c: torch.as_tensor(c, dtype=complex_dtype_for(device),
+                                   device=device)
+    with np.load(os.path.join(
+            lib, make_ccf.get_ccf_dat_name(spec_setup, continuum))) as dat:
+        return to(dat['fft']), to(dat['fft2']), mods, info
 
 
 @functools.lru_cache(maxsize=32)
@@ -112,16 +139,23 @@ def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
                 continuum=bool(ccfconf['continuum']))
 
 
-def fit_batch(arm_batches, config, banks):
+def fit_batch(arm_batches, config, banks=None, device=None):
     """Fiber-batched CCF of a stacked exposure.
 
     arm_batches : list of (setup, lam (npix,), fluxes (B, npix),
         especs (B, npix), badmask (B, npix) bool or None)
-    banks : {setup: (tfft, t2fft, info)} device-resident template banks
+    banks : {setup: (tfft, t2fft, info)} device-resident template
+        banks, or None to load them from ``config['template_lib']``
+        onto ``device`` (None: the CUDA card)
     Returns dict with parnames, best_params (B, ndim), best_vel (B,),
     best_vsini (B,; NaN where the template had no rotation), best_id
     (B,), best_chi (B,), vel_grid — host arrays.
     """
+    if banks is None:
+        banks = {}
+        for s, *_ in arm_batches:
+            tfft, t2fft, _, info = get_ccf_info(s, config, device)
+            banks[s] = (tfft, t2fft, info)
     prep = [prepare_arm_batch(s, lam, fl, er, bm, config, banks[s])
             for s, lam, fl, er, bm in arm_batches]
     info0 = prep[0]['info']

@@ -1,15 +1,20 @@
-"""Optimization-vector mapping of the maximum-likelihood fit.
+"""Optimization-vector mapping and Hessian errors of the
+maximum-likelihood fit.
 
-Counterpart of ParamMapper and VSiniMapper in
-rvspecfit_tpu/fit/vel_fit.py (the single-object fit ``process`` is
+Counterpart of ParamMapper, VSiniMapper and _uncertainties_from_hessian
+in rvspecfit_tpu/fit/vel_fit.py (the single-object fit ``process`` is
 not ported yet).
 """
 from __future__ import annotations
 
 import itertools
+import logging
 
 import numpy as np
+import scipy.linalg
 import torch
+
+from rvspecfit_torch.ops.clip import clip
 
 SIMPLEX_SEED = 20260816
 
@@ -26,7 +31,7 @@ class VSiniMapper:
         return float(np.clip(vsini, self.min_vsini, self.max_vsini))
 
     def to_vsini(self, x):
-        v = torch.clamp(x, self.min_vsini, self.max_vsini)
+        v = clip(x, self.min_vsini, self.max_vsini)
         return v, (v - x)**2
 
 
@@ -104,3 +109,39 @@ class ParamMapper:
             vsini = full(0.0)
         params = torch.stack(self._columns(pvec, full), dim=1)
         return pvec[:, 0], params, vsini, penalty
+
+
+def uncertainties_from_hessian(hessian):
+    """Robust parameter errors and covariance from a (possibly bad)
+    host Hessian: (err (ndim,), covariance, bad_hessian).
+
+    The inverse's diagonal gives the errors; where it is negative the
+    inverse of the Hessian's diagonal stands in (error 0 and then NaN
+    where that is negative too), and a failed inversion falls back to
+    the inverse diagonal.  Any of these, or a non-finite error, flags
+    the Hessian as bad; a failed inversion is logged at DEBUG (the batch
+    logs one summary line)."""
+    diag_h = np.diag(hessian)
+    inv_diag = 1.0 / (diag_h + (diag_h == 0))
+    inv_diag[diag_h == 0] = np.inf
+    bad_hessian = False
+    try:
+        hess_inv = scipy.linalg.inv(hessian)
+    except (np.linalg.LinAlgError, ValueError):
+        bad_hessian = True
+        logging.debug('Hessian inversion failed')
+        hess_inv = np.diag(inv_diag)
+    diag_err0 = np.array(np.diag(hess_inv), dtype=np.float64)
+    bad0 = diag_err0 < 0
+    bad1 = inv_diag < 0
+    if bad0.any():
+        bad_hessian = True
+    sub1 = bad0 & ~bad1
+    sub2 = bad0 & bad1
+    diag_err0[sub1] = inv_diag[sub1]
+    diag_err0[sub2] = 0
+    err = np.sqrt(diag_err0)
+    err[sub2] = np.nan
+    if (~np.isfinite(err)).any():
+        bad_hessian = True
+    return err, hess_inv, bad_hessian

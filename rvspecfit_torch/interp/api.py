@@ -10,6 +10,7 @@ import dataclasses
 import torch
 
 from rvspecfit_torch.interp import grid as grid_mod
+from rvspecfit_torch.ops.clip import clip
 from rvspecfit_torch.ops.spline import SplineGeometry
 
 
@@ -30,7 +31,7 @@ class TemplateModel:
 
     def map_params(self, params):
         """External -> interpolation space (log10 of ``log_ids``)."""
-        cols = [torch.log10(torch.clamp(params[..., i], min=1e-30))
+        cols = [torch.log10(clip(params[..., i], 1e-30))
                 if i in self.log_ids else params[..., i]
                 for i in range(params.shape[-1])]
         return torch.stack(cols, dim=-1)

@@ -11,7 +11,12 @@ Two solves give the same natural spline:
 * the banded inverse: the spline system factors as diag(h) @ K with K
   a Toeplitz tridiagonal whose inverse rows decay as ~0.268^|i-j|, so
   z = K^-1 (u/h) is a (2w+1)-tap cross-correlation (``conv1d``) plus
-  exact corrections for the first/last E rows (two small matmuls);
+  exact corrections for the first/last E rows (two small matmuls).
+  The correlation is an autograd pair (:class:`BandCorrelation`): its
+  backward is the correlation with the flipped taps, so derivatives of
+  any order are forward ``conv1d`` calls on contiguous rows (autograd's
+  own double backward of ``conv1d`` takes a far slower cuDNN path at
+  the polish's shapes on an H100, see PERF.md);
 * a sequential Thomas solve for short (m2 < 4E) or non-geometric
   grids, where the banded form does not apply.
 """
@@ -167,22 +172,38 @@ def spline_coeffs(geom: SplineGeometry, ys):
     return out.reshape(batch + (4, geom.n - 1))
 
 
+class BandCorrelation(torch.autograd.Function):
+    """'same'-size cross-correlation of rows x (B, m) with odd-length
+    taps k (2w+1,), zero-padded: y_i = sum_d k[d+w] x_{i+d}.  Linear in
+    x with constant taps; its adjoint is the correlation with the
+    flipped taps, which is also its backward (so it differentiates any
+    number of times)."""
+
+    @staticmethod
+    def forward(ctx, x, k):
+        ctx.save_for_backward(k)
+        w = (k.shape[0] - 1) // 2
+        return F.conv1d(x.contiguous()[:, None, :], k[None, None, :],
+                        padding=w)[:, 0, :]
+
+    @staticmethod
+    def backward(ctx, g):
+        k, = ctx.saved_tensors
+        return BandCorrelation.apply(g, k.flip(0)), None
+
+
 def _banded_inverse_solve(geom, yb):
     """Interior second derivatives z (B, n-2) via the banded inverse."""
     hinv = geom.hinv
     m2 = geom.n - 2
     slopes = (yb[:, 1:] - yb[:, :-1]) * hinv
     up = 6.0 * (slopes[:, 1:] - slopes[:, :-1]) * hinv[:m2]
-    kern = geom.inv_kernel
-    w_band = (kern.shape[0] - 1) // 2
-    # conv1d is a cross-correlation (no kernel flip): exactly the
-    # row-Toeplitz application sum_d kern[d+w] u_{j+d}
-    z = F.conv1d(up[:, None, :], kern[None, None, :],
-                 padding=w_band)[:, 0, :]
+    # the row-Toeplitz application sum_d kern[d+w] u_{j+d}
+    z = BandCorrelation.apply(up, geom.inv_kernel)
     e_rows, wtop = geom.inv_top.shape
-    z[:, :e_rows] += up[:, :wtop] @ geom.inv_top.T
-    z[:, m2 - e_rows:] += up[:, m2 - wtop:] @ geom.inv_bot.T
-    return z
+    top = z[:, :e_rows] + up[:, :wtop] @ geom.inv_top.T
+    bot = z[:, m2 - e_rows:] + up[:, m2 - wtop:] @ geom.inv_bot.T
+    return torch.cat([top, z[:, e_rows:m2 - e_rows], bot], dim=1)
 
 
 def _thomas_solve(geom, yb):

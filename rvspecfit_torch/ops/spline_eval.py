@@ -1,4 +1,5 @@
-"""Kernel A: Doppler spline evaluation at fractional knot indices.
+"""Kernel A: Doppler spline evaluation at fractional knot indices, and
+its adjoint.
 
 Counterpart of rvspecfit_tpu/ops/pallas_spline.py (the Pallas kernel)
 and of rvspecfit_tpu/ops/spline.spline_eval_index (its plain
@@ -11,12 +12,20 @@ through :func:`spline_eval_index`:
   (velocities) share one fiber's coefficient row, which is indexed,
   never broadcast in memory.
 
-On a CPU tensor the wrapper runs :func:`spline_eval_index_plain`; on a
-CUDA tensor it launches ``csrc/spline_eval.cu`` or raises.  There is
-no fallback from the kernel to the plain version.
+The evaluation is linear in the coefficients, out = K(u) c, and the
+queries u (velocities) are never differentiated.  So in per-row mode
+the autograd pair :class:`SplineEval` / :class:`SplineEvalAdjoint`
+gives exact derivatives of any order through two kernels: the backward
+of K(u) c is the adjoint K(u)^T g (:func:`spline_eval_index_vjp`), and
+the backward of the adjoint is K(u) again.
+
+On a CPU tensor the wrappers run the plain versions (whose own
+autograd serves); on a CUDA tensor they launch ``csrc/spline_eval.cu``
+or raise.  There is no fallback from a kernel to a plain version.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -25,8 +34,28 @@ import torch
 
 from rvspecfit_torch.ops import cuda_build
 
-# kernel launches by this process (chip_smoke.py resets and reads it)
+# kernel launches by this process, of the evaluation and of the adjoint
+# (chip_smoke.py resets and reads them)
 launches = 0
+adjoint_launches = 0
+
+
+def _intervals(geom, u, nm1):
+    """Interval index (long) and the offsets dxl, dxr of every query:
+    clamped to the knot range, NaN offsets (interval 0) for a NaN
+    query."""
+    idx = torch.clamp(torch.floor(u), 0, nm1 - 1)
+    frac = u - idx
+    iidx = torch.where(torch.isfinite(idx), idx, 0).long()
+    if geom.log_step:
+        xl = geom.x0 * torch.exp(idx * geom.step)
+        ef = torch.expm1(frac * geom.step)
+        dxl = xl * ef
+        dxr = xl * (math.expm1(geom.step) - ef)
+    else:
+        dxl = frac * geom.step
+        dxr = (1.0 - frac) * geom.step
+    return iidx, dxl, dxr
 
 
 def spline_eval_index_plain(geom, coeffs, u, rows_per_coeff=1):
@@ -39,27 +68,28 @@ def spline_eval_index_plain(geom, coeffs, u, rows_per_coeff=1):
     knot range takes the clamped end interval's cubic, a NaN query
     gives NaN.
     """
-    nm1 = coeffs.shape[-1]
-    idx = torch.clamp(torch.floor(u), 0, nm1 - 1)
-    frac = u - idx
-    iidx = torch.where(torch.isfinite(idx), idx, 0).long()
-    if geom.log_step:
-        xl = geom.x0 * torch.exp(idx * geom.step)
-        ef = torch.expm1(frac * geom.step)
-        dxl = xl * ef
-        dxr = xl * (math.expm1(geom.step) - ef)
-    else:
-        dxl = frac * geom.step
-        dxr = (1.0 - frac) * geom.step
+    iidx, dxl, dxr = _intervals(geom, u, coeffs.shape[-1])
     crow = torch.arange(u.shape[0], device=u.device) // rows_per_coeff
     cf = coeffs[crow[:, None], :, iidx]                   # (R, npix, 4)
     return (cf[..., 0] * dxl * dxl * dxl + cf[..., 1] * dxr * dxr * dxr
             + cf[..., 2] * dxl + cf[..., 3] * dxr)
 
 
+def spline_eval_index_vjp_plain(geom, u, g, nm1):
+    """Plain-torch adjoint of per-row evaluation (the adjoint kernel's
+    oracle): (R, npix) queries u and upstream gradient g -> (R, 4, nm1)
+    with g[r, p] (dxl^3, dxr^3, dxl, dxr) added into column i(r, p)."""
+    iidx, dxl, dxr = _intervals(geom, u, nm1)
+    vals = torch.stack([g * dxl * dxl * dxl, g * dxr * dxr * dxr,
+                        g * dxl, g * dxr], dim=1)         # (R, 4, npix)
+    out = torch.zeros((u.shape[0], 4, nm1), dtype=vals.dtype,
+                      device=u.device)
+    return out.scatter_add_(2, iidx[:, None, :].expand(-1, 4, -1), vals)
+
+
 @functools.lru_cache(maxsize=None)
 def build():
-    """Compile (first call) and bind the kernel's C launcher."""
+    """Compile (first call) and bind kernel A's C launcher."""
     fn = cuda_build.load('spline_eval').rvst_spline_eval
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -69,21 +99,39 @@ def build():
     return fn
 
 
-def spline_eval_index(geom, coeffs, u, rows_per_coeff=1):
-    """Kernel A on CUDA tensors, its plain version on CPU tensors.
+@functools.lru_cache(maxsize=None)
+def build_adjoint():
+    """Compile (first call) and bind the adjoint's C launcher (same
+    source and library as kernel A)."""
+    fn = cuda_build.load('spline_eval').rvst_spline_adjoint
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
-    Same contract as :func:`spline_eval_index_plain`.  CUDA inputs must
-    be contiguous float32 on one device.
-    """
-    if u.device.type == 'cpu':
-        return spline_eval_index_plain(geom, coeffs, u, rows_per_coeff)
+
+def _check_cuda(name, *tensors):
+    dev = tensors[0].device
+    if dev.type != 'cuda' or any(t.device != dev for t in tensors):
+        raise ValueError(f'{name}: tensors on '
+                         f'{" / ".join(str(t.device) for t in tensors)}; '
+                         'need one CUDA device or CPU')
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f'{name}: CUDA kernel takes float32, got '
+                        f'{" / ".join(str(t.dtype) for t in tensors)}')
+
+
+def _geo_args(geom):
+    return (int(geom.log_step), geom.x0, geom.step,
+            math.expm1(geom.step) if geom.log_step else 0.0)
+
+
+def _launch(geom, coeffs, u, rows_per_coeff):
+    """Kernel A on CUDA tensors (checks, launch, count)."""
     global launches
-    if u.device.type != 'cuda' or coeffs.device != u.device:
-        raise ValueError(f'spline_eval: tensors on {u.device} / '
-                         f'{coeffs.device}; need one CUDA device or CPU')
-    if coeffs.dtype != torch.float32 or u.dtype != torch.float32:
-        raise TypeError(f'spline_eval: CUDA kernel takes float32, got '
-                        f'{coeffs.dtype} / {u.dtype}')
+    _check_cuda('spline_eval', u, coeffs)
     if coeffs.dim() != 3 or coeffs.shape[1] != 4 or u.dim() != 2 \
             or u.shape[0] != coeffs.shape[0] * rows_per_coeff:
         raise ValueError(f'spline_eval: bad shapes coeffs '
@@ -91,14 +139,103 @@ def spline_eval_index(geom, coeffs, u, rows_per_coeff=1):
                          f'rows_per_coeff {rows_per_coeff}')
     if not (coeffs.is_contiguous() and u.is_contiguous()):
         raise ValueError('spline_eval: inputs must be contiguous')
-    nm1 = coeffs.shape[-1]
     out = torch.empty_like(u)
+    log_step, x0, step, em1 = _geo_args(geom)
     with torch.cuda.device(u.device):
         err = build()(coeffs.data_ptr(), u.data_ptr(), out.data_ptr(),
-                      u.shape[0], u.shape[1], nm1, rows_per_coeff,
-                      int(geom.log_step), geom.x0, geom.step,
-                      math.expm1(geom.step) if geom.log_step else 0.0,
+                      u.shape[0], u.shape[1], coeffs.shape[-1],
+                      rows_per_coeff, log_step, x0, step, em1,
                       cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval')
     launches += 1
     return out
+
+
+def spline_eval_index_vjp(geom, u, g, nm1):
+    """The adjoint kernel on CUDA tensors, its plain version on CPU
+    tensors: (R, npix) u and g -> (R, 4, nm1) float32 dcoeffs.  Same
+    contract as :func:`spline_eval_index_vjp_plain`; the result does
+    not depend on the launch (no atomics)."""
+    if u.device.type == 'cpu':
+        return spline_eval_index_vjp_plain(geom, u, g, nm1)
+    global adjoint_launches
+    _check_cuda('spline_eval_adjoint', u, g)
+    if u.dim() != 2 or g.shape != u.shape:
+        raise ValueError(f'spline_eval_adjoint: bad shapes u '
+                         f'{tuple(u.shape)}, g {tuple(g.shape)}')
+    u, g = u.contiguous(), g.contiguous()
+    out = torch.empty((u.shape[0], 4, nm1), dtype=u.dtype, device=u.device)
+    log_step, x0, step, em1 = _geo_args(geom)
+    with torch.cuda.device(u.device):
+        err = build_adjoint()(u.data_ptr(), g.data_ptr(), out.data_ptr(),
+                              u.shape[0], u.shape[1], nm1, log_step, x0,
+                              step, em1, cuda_build.current_stream(u))
+    cuda_build.check_launch(err, 'spline_eval_adjoint')
+    adjoint_launches += 1
+    return out
+
+
+# the two functions an autograd pair is built from: forward(geom, coeffs,
+# u) and adjoint(geom, u, g, nm1)
+Route = collections.namedtuple('Route', 'forward adjoint')
+KERNELS = Route(lambda geom, c, u: _launch(geom, c.contiguous(), u, 1),
+                spline_eval_index_vjp)
+PLAIN = Route(spline_eval_index_plain, spline_eval_index_vjp_plain)
+
+
+class SplineEval(torch.autograd.Function):
+    """out = K(u) coeffs in per-row mode; the backward with respect to
+    the coefficients is the adjoint.  ``route`` picks the kernels or
+    the plain versions."""
+
+    @staticmethod
+    def forward(ctx, coeffs, u, geom, route):
+        ctx.save_for_backward(u)
+        ctx.geom, ctx.route, ctx.nm1 = geom, route, coeffs.shape[-1]
+        return route.forward(geom, coeffs, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, = ctx.saved_tensors
+        dc = None
+        if ctx.needs_input_grad[0]:
+            dc = SplineEvalAdjoint.apply(u, g, ctx.geom, ctx.route, ctx.nm1)
+        return dc, None, None, None
+
+
+class SplineEvalAdjoint(torch.autograd.Function):
+    """dcoeffs = K(u)^T g; the backward with respect to g is K(u)."""
+
+    @staticmethod
+    def forward(ctx, u, g, geom, route, nm1):
+        ctx.save_for_backward(u)
+        ctx.geom, ctx.route = geom, route
+        return route.adjoint(geom, u, g, nm1)
+
+    @staticmethod
+    def backward(ctx, gd):
+        u, = ctx.saved_tensors
+        dg = None
+        if ctx.needs_input_grad[1]:
+            dg = SplineEval.apply(gd, u, ctx.geom, ctx.route)
+        return None, dg, None, None, None
+
+
+def spline_eval_index(geom, coeffs, u, rows_per_coeff=1):
+    """Kernel A on CUDA tensors, its plain version on CPU tensors.
+
+    Same contract as :func:`spline_eval_index_plain`.  CUDA inputs must
+    be float32 on one device.  Per-row mode is differentiable with
+    respect to ``coeffs`` through the kernel pair; ``u`` and shared mode
+    are not differentiated (a CUDA call that asks for it raises).
+    """
+    if u.device.type == 'cpu':
+        return spline_eval_index_plain(geom, coeffs, u, rows_per_coeff)
+    grad = torch.is_grad_enabled()
+    if grad and u.requires_grad:
+        raise NotImplementedError('spline_eval: u is not differentiated')
+    if rows_per_coeff == 1:
+        return SplineEval.apply(coeffs, u, geom, KERNELS)
+    if grad and coeffs.requires_grad:
+        raise NotImplementedError('spline_eval: shared mode has no adjoint')
+    return _launch(geom, coeffs, u, rows_per_coeff)

@@ -4,7 +4,9 @@ Counterpart of rvspecfit_tpu/ops/vsini.py, batched over trials: the
 kernel of each trial has the static length 2*half_width+1 (half_width
 from the configured maximum vsini), with analytically zero weights
 beyond the true support, so one fixed-shape stencil serves every
-trial.  vsini = 0 gives an exact delta kernel.
+trial.  vsini = 0 gives an exact delta kernel.  The clamps
+differentiate as the reference's (ops/clip.py): d(kernel)/d(vsini) is
+NaN there too, from sqrt at 0 beyond the support.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from rvspecfit_torch.ops.clip import clip
 
 SPEED_OF_LIGHT = 299792.458  # km/s
 
@@ -24,11 +28,11 @@ def kernel_half_width(max_vsini, log_step):
 
 def _primitives(x, eps):
     """Primitives of K(x) and x K(x) for the rotation profile K."""
-    x = torch.clamp(x, -1.0, 1.0)
+    x = clip(x, -1.0, 1.0)
     norm = math.pi * (1.0 - eps / 3.0)
     c1 = 2.0 * (1.0 - eps) / norm
     c2 = (math.pi / 2.0) * eps / norm
-    sq = torch.sqrt(torch.clamp(1.0 - x * x, min=0.0))
+    sq = torch.sqrt(clip(1.0 - x * x, 0.0))
     k0 = c1 * 0.5 * (x * sq + torch.arcsin(x)) + c2 * (x - x**3 / 3.0)
     k1 = (c1 * (-1.0 / 3.0) * (1.0 - x * x) * sq
           + c2 * (x * x / 2.0 - x**4 / 4.0))
@@ -46,14 +50,14 @@ def _segment_integral(xa, xb, slope, intercept, eps):
 def rotation_kernel(vsini, log_step, half_width, eps=0.6):
     """(T,) vsini [km/s] -> (T, 2*half_width+1) normalized kernels."""
     r_true = (vsini / SPEED_OF_LIGHT) / log_step        # pixels
-    r = torch.clamp(r_true, min=1e-6)[:, None]
+    r = clip(r_true, 1e-6)[:, None]
     k = torch.arange(half_width + 1, dtype=vsini.dtype,
                      device=vsini.device)[None, :]
-    w = _segment_integral(torch.clamp(k / r, -1, 1),
-                          torch.clamp((k + 1) / r, -1, 1),
+    w = _segment_integral(clip(k / r, -1.0, 1.0),
+                          clip((k + 1) / r, -1.0, 1.0),
                           slope=-r, intercept=1.0 + k, eps=eps)
-    w = w + _segment_integral(torch.clamp((k - 1) / r, -1, 1),
-                              torch.clamp(k / r, -1, 1),
+    w = w + _segment_integral(clip((k - 1) / r, -1.0, 1.0),
+                              clip(k / r, -1.0, 1.0),
                               slope=r, intercept=1.0 - k, eps=eps)
     full = torch.cat([w[:, 1:].flip(-1), w], dim=-1)
     full = full / full.sum(-1, keepdim=True)

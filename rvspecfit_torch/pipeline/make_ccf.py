@@ -3,8 +3,9 @@
 Counterpart of the bank-building core of
 rvspecfit_tpu/pipeline/make_ccf.py: Morton-curve subsampling of the
 template set, continuum normalization (ops/continuum.fit_continuum)
-and resampling onto the power-of-two log-lambda CCF grid.  Reading and
-writing the on-disk artifacts is not ported yet.
+and resampling onto the power-of-two log-lambda CCF grid, and the names of
+the bank's files (fit/ccf.get_ccf_info reads them).  Writing the
+on-disk artifacts is not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +16,22 @@ import torch
 
 from rvspecfit_torch.ops import continuum as continuum_mod
 from rvspecfit_torch.ops import vsini as vsini_mod
+
+
+def get_continuum_prefix(continuum):
+    return '' if continuum else 'nocont_'
+
+
+def get_ccf_info_name(setup, continuum=True):
+    return 'ccf_' + get_continuum_prefix(continuum) + '%s.h5' % setup
+
+
+def get_ccf_dat_name(setup, continuum=True):
+    return 'ccfdat_' + get_continuum_prefix(continuum) + '%s.npz' % setup
+
+
+def get_ccf_mod_name(setup, continuum=True):
+    return 'ccfmod_' + get_continuum_prefix(continuum) + '%s.npy' % setup
 
 
 def interleave_bits(x):

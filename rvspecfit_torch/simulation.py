@@ -105,22 +105,30 @@ def make_exposure(nfibers, npix_arm=1024, snr=50.0, seed=0,
     return arms, truth
 
 
+def template_artifacts(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
+                       lam1=5450.0, wresol=2.0):
+    """The synthetic grid as a regular-grid library's host arrays: (the
+    interp dict, as make_nd writes it, and the (nspec, npix) stored
+    log-spectra); pipeline/library.template_model_from_artifacts builds
+    the model from them."""
+    lam, uvecs, idgrid, vecs, specs, parnames = make_template_grid(
+        nt, nl, nf, na, npix=npix, lam0=lam0, lam1=lam1, wresol=wresol)
+    fd = dict(interpolation_type='regulargrid', lam=lam, log_step=True,
+              log_spec=True, log_ids=[0], parnames=list(parnames),
+              uvecs={f'dim{i}': u for i, u in enumerate(uvecs)},
+              idgrid=idgrid, vec=vecs)
+    return fd, specs
+
+
 def build_template_model(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
                          lam1=5450.0, wresol=2.0, device=None):
     """Ready-to-fit TemplateModel of the synthetic grid on ``device``
     (None: the CUDA card, see device.resolve_device)."""
-    from rvspecfit_torch.interp.api import TemplateModel
-    from rvspecfit_torch.interp.grid import GridInterpState
-    from rvspecfit_torch.ops.spline import SplineGeometry
-
-    device = resolve_device(device)
-    lam, uvecs, idgrid, vecs, specs, parnames = make_template_grid(
-        nt, nl, nf, na, npix=npix, lam0=lam0, lam1=lam1, wresol=wresol)
-    state = GridInterpState.build(uvecs, idgrid, vecs, specs,
-                                  log_spec=True, device=device)
-    geom = SplineGeometry.from_knots(lam, log_step=True, device=device)
-    return TemplateModel(state=state, geom=geom, parnames=parnames,
-                         log_ids=(0,))
+    from rvspecfit_torch.pipeline.library import \
+        template_model_from_artifacts
+    return template_model_from_artifacts(
+        *template_artifacts(nt, nl, nf, na, npix=npix, lam0=lam0,
+                            lam1=lam1, wresol=wresol), device=device)
 
 
 def build_ccf_bank(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,

@@ -26,10 +26,15 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert {'rvspecfit_torch.ops.spline_eval', 'rvspecfit_torch.fit.batch',
-            'rvspecfit_torch.convert'} <= set(mods)
+            'rvspecfit_torch.convert', 'rvspecfit_torch.ops.clip',
+            'rvspecfit_torch.serializer', 'rvspecfit_torch.pipeline.library',
+            'rvspecfit_torch.survey.desi'} <= set(mods)
+    # h5py and yaml are missing on the card's machine too
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['rvspecfit_tpu'] = None\n"
+            "sys.modules['h5py'] = None\n"
+            "sys.modules['yaml'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import torch\n"
@@ -57,21 +62,28 @@ def _ccf_inputs(device, cdtype=torch.complex128, rdtype=torch.float64):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (spline_eval.launches, ccf_chisq.launches)
+    before = (spline_eval.launches, spline_eval.adjoint_launches,
+              ccf_chisq.launches)
     geom, coeffs, u = _spline_inputs('cpu')
     assert torch.equal(
         spline_eval.spline_eval_index(geom, coeffs, u),
         spline_eval.spline_eval_index_plain(geom, coeffs, u))
+    assert torch.equal(
+        spline_eval.spline_eval_index_vjp(geom, u, u, 49),
+        spline_eval.spline_eval_index_vjp_plain(geom, u, u, 49))
     args = _ccf_inputs('cpu')
     assert torch.equal(ccf_chisq.ccf_chisq(*args),
                        ccf_chisq.ccf_chisq_plain(*args))
-    assert (spline_eval.launches, ccf_chisq.launches) == before
+    assert (spline_eval.launches, spline_eval.adjoint_launches,
+            ccf_chisq.launches) == before
 
 
 def test_other_devices_raise_instead_of_falling_back():
     geom, coeffs, u = _spline_inputs('meta')
     with pytest.raises(ValueError):
         spline_eval.spline_eval_index(geom, coeffs, u)
+    with pytest.raises(ValueError):
+        spline_eval.spline_eval_index_vjp(geom, u, u, 49)
     with pytest.raises(ValueError):
         ccf_chisq.ccf_chisq(*_ccf_inputs('meta'))
 
@@ -120,6 +132,8 @@ def test_kernel_wrappers_reject_float64_cuda_tensors(cuda_device):
     geom, coeffs, u = _spline_inputs(cuda_device)
     with pytest.raises(TypeError):
         spline_eval.spline_eval_index(geom, coeffs, u)
+    with pytest.raises(TypeError):
+        spline_eval.spline_eval_index_vjp(geom, u, u, 49)
     with pytest.raises(TypeError):
         ccf_chisq.ccf_chisq(*_ccf_inputs(cuda_device))
 

@@ -1,6 +1,6 @@
-"""The port's two CUDA kernels against their plain PyTorch versions on
-the card, at ragged shapes.  Imports no jax (the card's machine has
-none): run there with
+"""The port's CUDA kernels (kernel A, its adjoint, kernel B) against
+their plain PyTorch versions on the card, at ragged shapes.  Imports
+no jax (the card's machine has none): run there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_import.py \\
         tests/test_torch_kernels_cuda.py
@@ -21,6 +21,9 @@ pytestmark = pytest.mark.cuda
 B_TOL = 1e-4
 # kernel A's stated tolerance (same float32 formula, other op order)
 A_TOL = 1e-5
+# the adjoint's: float32 sums of a run of queries in another order than
+# scatter_add's, relative to the largest |dcoeffs| of the row set
+ADJ_TOL = 1e-5
 
 
 @pytest.fixture
@@ -131,3 +134,107 @@ def test_kernel_a_shared_above_65535_rows(cuda_device):
     got = spline_eval.spline_eval_index(geom, coeffs, u, 401)
     want = spline_eval.spline_eval_index_plain(geom, coeffs, u, 401)
     _assert_close(got, want, A_TOL)
+
+
+def _adjoint_case(log_step, rows, npix, nm1, seed, device):
+    """Queries of an arm's pixels Doppler-shifted per row on an
+    (nm1 + 1)-knot grid, with a NaN, out-of-range queries and a row in
+    reverse order, and a random upstream gradient."""
+    rng = np.random.RandomState(seed)
+    n = nm1 + 1
+    xs = np.exp(np.linspace(np.log(4550.0), np.log(5450.0), n)) \
+        if log_step else np.linspace(4550.0, 5450.0, n)
+    geom = spline.SplineGeometry.from_knots(xs, log_step, device=device)
+    geom_cpu = spline.SplineGeometry.from_knots(xs, log_step, device='cpu')
+    lam = np.linspace(4600.0, 5400.0, npix)
+    idx0 = spline.fractional_index(geom_cpu, lam)
+    vels = rng.uniform(-1000.0, 1000.0, rows)
+    shift = spline.doppler_index_shift(geom_cpu,
+                                       torch.as_tensor(vels)).numpy()
+    u = idx0[None] + shift[:, None] * (1.0 if log_step
+                                       else (lam / geom_cpu.step)[None])
+    u[0, npix // 2] = np.nan
+    u[-1, :min(3, npix)] = [-2.5, -0.3, n + 4.2][:min(3, npix)]
+    if rows > 2:
+        u[1] = u[1, ::-1]
+    g = rng.normal(size=(rows, npix))
+    to = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=torch.float32, device=device)
+    return geom, to(u), to(g)
+
+
+def _assert_adjoint_close(got, want):
+    """NaN where the plain version has NaN, else within ADJ_TOL of the
+    largest finite |want|."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    fin = want[~nan]
+    scale = float(fin.abs().max()) if fin.numel() else 0.0
+    err = float((got[~nan] - fin).abs().max()) if fin.numel() else 0.0
+    assert err <= ADJ_TOL * max(scale, 1e-30), (err, scale)
+
+
+@pytest.mark.parametrize('log_step', [True, False])
+@pytest.mark.parametrize('rows,npix,nm1',
+                         list(itertools.product((1, 37, 500), (1, 1023, 1024),
+                                                (49, 4095)))
+                         + [(37, 2500, 49), (5, 2500, 4095)])
+def test_adjoint_matches_plain(cuda_device, log_step, rows, npix, nm1):
+    """Ragged shapes; 2500 queries span several tiles (on 49 intervals
+    a run of one interval crosses a tile boundary)."""
+    geom, u, g = _adjoint_case(log_step, rows, npix, nm1,
+                               seed=rows + npix + nm1, device=cuda_device)
+    before = spline_eval.adjoint_launches
+    got = spline_eval.spline_eval_index_vjp(geom, u, g, nm1)
+    assert spline_eval.adjoint_launches == before + 1
+    want = spline_eval.spline_eval_index_vjp_plain(geom, u, g, nm1)
+    assert got.shape == (rows, 4, nm1)
+    _assert_adjoint_close(got, want)
+
+
+def test_adjoint_of_a_nan_query_is_nan_in_interval_0(cuda_device):
+    geom, u, g = _adjoint_case(True, 3, 64, 4095, seed=2,
+                               device=cuda_device)
+    u[2] = float('nan')
+    got = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[2, :, 0]).all()
+    assert not torch.isnan(got[2, :, 1:]).any()
+
+
+def test_adjoint_is_bit_reproducible(cuda_device):
+    geom, u, g = _adjoint_case(True, 500, 1024, 4095, seed=3,
+                               device=cuda_device)
+    a = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
+    b = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.nan_to_num(a, nan=7.0),
+                       torch.nan_to_num(b, nan=7.0))
+
+
+@pytest.mark.parametrize('log_step', [True, False])
+def test_kernel_pair_derivatives_match_plain_pair(cuda_device, log_step):
+    """First and second derivatives through the CUDA pair equal those
+    through the plain pair in float32 (a gradgradcheck of the wiring
+    with the kernels in it)."""
+    geom, u, g = _adjoint_case(log_step, 37, 1023, 4095, seed=4,
+                               device=cuda_device)
+    u = torch.nan_to_num(u, nan=100.0)
+    rng = np.random.RandomState(5)
+    c0 = torch.as_tensor(rng.normal(size=(37, 4, 4095)),
+                         dtype=torch.float32, device=cuda_device)
+    gg = torch.as_tensor(rng.normal(size=(37, 4, 4095)),
+                         dtype=torch.float32, device=cuda_device)
+    out = {}
+    for name, route in (('cuda', spline_eval.KERNELS),
+                        ('plain', spline_eval.PLAIN)):
+        c = c0.clone().requires_grad_(True)
+        gu = g.clone().requires_grad_(True)
+        y = spline_eval.SplineEval.apply(c, u, geom, route)
+        dc, = torch.autograd.grad(y, c, gu, create_graph=True)
+        dg, = torch.autograd.grad(dc, gu, gg)
+        out[name] = (y.detach(), dc.detach(), dg)
+    for got, want in zip(out['cuda'], out['plain']):
+        _assert_adjoint_close(got, want)
