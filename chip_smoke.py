@@ -23,7 +23,7 @@ and the CUDA toolkit):
    gradient polish (kernel A and its adjoint, AD Hessians) -> velocity
    refinement (kernel A, shared mode) -> AD Hessian errors -> best-fit
    models; a cold pass, then a timed warm pass whose kernel launches
-   are counted.
+   are counted (kernel A's per mode and in all).
 4. Checks RV recovery against the injected velocities, that the polish
    raised no fiber's objective, and the group fit on 8 fibers
    (velocities, polished parameters, errors) against the CPU float64
@@ -345,19 +345,26 @@ def check_kernel_b(arms, bank_d, bank_nocont_d, device):
     return result
 
 
-def check_adjoint(tm, arms, truth, device):
-    """Kernel A's adjoint vs its plain version at the polish's shape
-    (one row per fiber, 500 x 1024 queries on 4095 intervals) with a
-    seeded upstream gradient; timed from HBM (CUDA-graph replays over
-    L2_COPIES copies of its inputs) and eagerly; two launches must give
-    the same bits."""
+def adjoint_inputs(tm, arms, truth, device):
+    """The adjoint's inputs at the polish's shape (one row per fiber,
+    500 x 1024 queries on 4095 intervals): (u, g, nm1), g a seeded
+    upstream gradient."""
     import torch
-    from rvspecfit_torch.ops import spline_eval
     coeffs, cases = kernel_a_cases(tm, arms, truth, device)
     u = cases[0][1]
-    nm1 = coeffs.shape[-1]
     g = torch.as_tensor(np.random.RandomState(1).normal(size=u.shape),
                         dtype=torch.float32, device=device)
+    return u, g, coeffs.shape[-1]
+
+
+def check_adjoint(tm, arms, truth, device):
+    """Kernel A's adjoint vs its plain version at the polish's shape
+    with a seeded upstream gradient (adjoint_inputs); timed from HBM
+    (CUDA-graph replays over L2_COPIES copies of its inputs) and
+    eagerly; two launches must give the same bits."""
+    import torch
+    from rvspecfit_torch.ops import spline_eval
+    u, g, nm1 = adjoint_inputs(tm, arms, truth, device)
 
     def call(uu, gg):
         return spline_eval.spline_eval_index_vjp(tm.geom, uu, gg, nm1)
@@ -411,6 +418,8 @@ def check_outputs(out, nfib, npix):
 def kernel_counts():
     from rvspecfit_torch.ops import ccf_chisq, spline_eval
     return dict(spline_eval=spline_eval.launches,
+                spline_eval_per_row=spline_eval.row_launches,
+                spline_eval_shared=spline_eval.shared_launches,
                 ccf_chisq=ccf_chisq.launches,
                 spline_eval_adjoint=spline_eval.adjoint_launches)
 
@@ -418,6 +427,7 @@ def kernel_counts():
 def reset_counts():
     from rvspecfit_torch.ops import ccf_chisq, spline_eval
     spline_eval.launches = spline_eval.adjoint_launches = 0
+    spline_eval.row_launches = spline_eval.shared_launches = 0
     ccf_chisq.launches = 0
 
 
@@ -625,6 +635,8 @@ def main():
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/ops/pallas_spline.py:200',
              launches=counts['spline_eval'],
+             launches_per_row_mode=counts['spline_eval_per_row'],
+             launches_shared_mode=counts['spline_eval_shared'],
              max_abs_err=max(r['max_abs_err'] for r in res_a.values()),
              ms=shared['ms'], plain_ms=shared['plain_ms'],
              bound_ms=shared['bound_ms'], bound_by='bytes',

@@ -65,7 +65,7 @@
 #include <stdint.h>
 
 // RVST_ABLATE (0 when unset) builds parts of the kernel alone, to time
-// them (tools/torch_ccf_ablate.py): 1 drops the cp.async copies (the
+// them (tools/torch_ablate.py): 1 drops the cp.async copies (the
 // shared tiles keep whatever they hold); 2 also drops the A forming,
 // the per-chunk barrier and the shared fragment loads (fragments made
 // in registers), leaving the 3xTF32 mma.sync stream; 3 is 2 with the

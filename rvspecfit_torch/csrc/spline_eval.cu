@@ -52,24 +52,54 @@
 // summed over p, every other entry 0.  The JAX package has no such
 // kernel: its gradient paths switch the Pallas kernel off and
 // differentiate the plain gather (rvspecfit_tpu/fit/batch.py,
-// BatchedFitter.arms_ad).  Bound: the dense (R, 4, n-1) output, 16 B per
-// knot interval and row, against 8 B per query read; at the polish's
-// 500 x 1024 queries on 4095 intervals that is 36.9 MB.
-// Design: one block per row.  It zeroes the row's output with float4
-// stores, then takes the row's queries in tiles of ADJ_TILE: each
-// query's interval and four products go to shared memory with the key
-// (interval, position); a tile whose intervals are not non-decreasing
-// is put in key order by a bitonic sort (a tile that is, the usual
-// case since u increases along p, is left as it is: the same order);
-// the first query of each run of one interval sums the run in position
-// order and adds it to the output.  The sums are taken in one fixed
-// order whatever the launch: no atomics, so two launches give the same
-// bits, and a row's intervals may span any width.
+// BatchedFitter.arms_ad).
+// What bounds it on the H100: HBM bytes, nearly all of them output.  The
+// dense (R, 4, n-1) float32 result is 16 B per knot interval and row,
+// against 8 B per query read (u and g); at the polish's 500 x 1024
+// queries on 4095 intervals that is 32.8 of 36.9 MB.
+// Design: output-stationary, every output element written once, zeros
+// included, with no global read-modify-write, no zero-fill pass and no
+// atomics.  A block owns one row's segment of ADJ_SEG consecutive
+// intervals (grid: rows x segments, flattened into x; ADJ_SEG is 4096,
+// so one block a row up to n-1 = 4096 and each row is scanned once), with
+// at most 64 registers a thread, so that 4 blocks an SM hold the
+// polish's 500 rows in one wave.
+// * The usual row, whose clamped interval index does not decrease
+//   along p (u increases along p): the queries of interval i are the
+//   range [lo(i), lo(i+1)) of the row.  The block reads the row's u
+//   and g once (float4 loads; kept in shared memory for a row of at
+//   most ADJ_SCAN queries), checks that the index does not decrease,
+//   and writes lo(i) of its intervals into shared memory: a query p
+//   starts the runs of the intervals (i(p-1), i(p)].  Then, for
+//   ADJ_CHUNK intervals at a time, each thread sums its intervals'
+//   runs in position order into shared memory, and the block stores
+//   each plane's ADJ_CHUNK values with 16-byte streaming stores from
+//   the first aligned address (a plane starts at k (n-1) floats, not
+//   16-byte aligned for odd n-1), scalar ones at the ends.
+// * Any other row (reversed, a descent, a NaN query, which maps to
+//   interval 0): the block takes the row's queries in tiles of
+//   ADJ_TILE, keeps those that land in its current ADJ_SUB intervals
+//   keyed (interval, position), sorts the keys (bitonic), and the first
+//   query of each run adds the run, in position order, to the
+//   intervals' sums in shared memory, carried across tiles; then it
+//   stores them.
+// Both paths add each interval's terms one at a time in increasing
+// position, starting from 0, with adds that are never contracted into
+// a multiply: the path a row takes does not change the bits, and two
+// launches give the same bits.
+// At the polish's shape the stores alone (RVST_ABLATE 1) take ~75% of
+// the kernel's time and the rest alone (2) ~80%: they overlap only in
+// part (PERF.md).
+// RVST_ABLATE (tools/torch_ablate.py; default 0, the kernel):
+//   1  the stores alone: zeros into every element, nothing read;
+//   2  the scan and the sums, storing only the intervals that have
+//      queries (the caller zeroes the output first).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <climits>
 
 #define THREADS 256
 #define TILE_PX (4 * THREADS)       // pixels of one row per block pass
@@ -253,97 +283,276 @@ spline_shared_kernel(const float* __restrict__ coeffs,
   }
 }
 
+#ifndef RVST_ABLATE
+#define RVST_ABLATE 0
+#endif
+
 #define ADJ_THREADS 256
-#define ADJ_TILE 1024               // queries of one row per tile
+#define ADJ_SEG 4096                // knot intervals per block
+#define ADJ_MIN_BLOCKS 4            // blocks per SM: at most 64 registers
+#define ADJ_SCAN (4 * ADJ_THREADS)  // queries of a row per scan pass
+#define ADJ_CHUNK (4 * ADJ_THREADS) // usual row: intervals per store pass
+#define ADJ_SUB 1024                // other rows: intervals per summing pass
+#define ADJ_TILE 512                // other rows: queries per sorted tile
 
-__global__ void __launch_bounds__(ADJ_THREADS)
-spline_adjoint_kernel(const float* __restrict__ u,
-                      const float* __restrict__ gr, float* dc, int npix,
-                      Geo g) {
-  __shared__ unsigned long long s_key[ADJ_TILE];   // interval << 32 | pos
-  __shared__ float4 s_val[ADJ_TILE];
-  const int tid = threadIdx.x;
-  const int nm1 = g.nm1;
-  const float* urow = u + (size_t)blockIdx.x * npix;
-  const float* grow = gr + (size_t)blockIdx.x * npix;
-  float* drow = dc + (size_t)blockIdx.x * 4 * nm1;
+// one block's shared memory: the usual row's, then another row's
+union AdjShared {
+  struct {
+    float u[ADJ_SCAN], g[ADJ_SCAN];   // a short row's queries
+    int lo[ADJ_SEG + 1];     // first query of each interval (-1: none
+                             // found, so before the first or past the
+                             // last query)
+    float out[4][ADJ_CHUNK]; // one store pass's sums, plane by plane
+  } row;
+  struct {
+    float4 val[ADJ_TILE];
+    float4 sum[ADJ_SUB];
+    unsigned key[ADJ_TILE];  // (interval - first of the pass) << 16 | s
+  } other;
+};
 
-  // the row is 4 nm1 floats: float4 stores where it is 16-byte aligned
-  if ((reinterpret_cast<uintptr_t>(drow) & 15) == 0) {
-    float4* d4 = reinterpret_cast<float4*>(drow);
-    for (int k = tid; k < nm1; k += ADJ_THREADS)
-      d4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ int adj_interval(float uu, float top) {
+  return (int)fminf(fmaxf(floorf(uu), 0.f), top);
+}
+
+// g (dxl^3, dxr^3, dxl, dxr) of one query, with the forward's interval
+// and offsets (eval1): a NaN query gives NaN terms
+__device__ __forceinline__ float4 adj_term(float uu, float gg,
+                                           const Geo& g) {
+  const float idx = fminf(fmaxf(floorf(uu), 0.f), (float)(g.nm1 - 1));
+  const float frac = uu - idx;
+  float dxl, dxr;
+  if (g.log_step) {
+    const float xl = g.x0 * expf(idx * g.step);
+    const float ef = expm1f(frac * g.step);
+    dxl = xl * ef;
+    dxr = xl * (g.expm1_step - ef);
   } else {
-    for (int k = tid; k < 4 * nm1; k += ADJ_THREADS) drow[k] = 0.f;
+    dxl = frac * g.step;
+    dxr = (1.f - frac) * g.step;
   }
-  __syncthreads();
+  return make_float4(gg * dxl * dxl * dxl, gg * dxr * dxr * dxr, gg * dxl,
+                     gg * dxr);
+}
 
+// acc += t with rounded adds (never fused with the products into FMAs)
+__device__ __forceinline__ void adj_add(float4& acc, const float4& t) {
+  acc.x = __fadd_rn(acc.x, t.x);
+  acc.y = __fadd_rn(acc.y, t.y);
+  acc.z = __fadd_rn(acc.z, t.z);
+  acc.w = __fadd_rn(acc.w, t.w);
+}
+
+// the four planes' values of interval k, counted from drow[0]
+__device__ __forceinline__ void adj_store(float* drow, int nm1, int k,
+                                          const float4& v) {
+  __stcs(drow + k, v.x);
+  __stcs(drow + nm1 + k, v.y);
+  __stcs(drow + 2 * nm1 + k, v.z);
+  __stcs(drow + 3 * nm1 + k, v.w);
+}
+
+// x[p, p + 4) of one row into q (one float4 where the row is 16-byte
+// aligned; the tail past npix is left alone)
+__device__ __forceinline__ void adj_load4(const float* __restrict__ x,
+                                          int p, int npix, bool vec,
+                                          float q[4]) {
+  if (vec && p + 4 <= npix) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x + p));
+    q[0] = v.x;
+    q[1] = v.y;
+    q[2] = v.z;
+    q[3] = v.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (p + e < npix) q[e] = __ldg(x + p + e);
+  }
+}
+
+// len consecutive floats of one plane from shared memory, by the
+// block's threads: 16-byte streaming stores from the first aligned
+// address on, scalar ones before it and after the last full float4
+__device__ __forceinline__ void adj_store_run(float* dst, const float* src,
+                                              int len, int tid) {
+  const int skew = (int)(reinterpret_cast<uintptr_t>(dst) & 15);  // 0, 4, ..
+  const int head = min(len, ((16 - skew) & 15) / 4);
+  if (tid < head) __stcs(dst + tid, src[tid]);
+  const int nvec = (len - head) / 4;
+  for (int v = tid; v < nvec; v += ADJ_THREADS) {
+    const int e = head + 4 * v;
+    __stcs(reinterpret_cast<float4*>(dst + e),
+           make_float4(src[e], src[e + 1], src[e + 2], src[e + 3]));
+  }
+  const int done = head + 4 * nvec;
+  if (tid < len - done) __stcs(dst + done + tid, src[done + tid]);
+}
+
+__global__ void __launch_bounds__(ADJ_THREADS, ADJ_MIN_BLOCKS)
+spline_adjoint_kernel(const float* __restrict__ u,
+                      const float* __restrict__ gr, float* __restrict__ dc,
+                      int rows, int npix, int nseg, Geo g) {
+  __shared__ AdjShared sh;
+  const int tid = threadIdx.x, nm1 = g.nm1;
   const float top = (float)(nm1 - 1);
-  for (int p0 = 0; p0 < npix; p0 += ADJ_TILE) {
-    const int n = min(ADJ_TILE, npix - p0);
-    for (int s = tid; s < ADJ_TILE; s += ADJ_THREADS) {
-      if (s < n) {
-        // the forward's interval and offsets (eval1); a NaN query
-        // lands in interval 0 with NaN offsets
-        const float uu = urow[p0 + s], gg = grow[p0 + s];
-        const float idx = fminf(fmaxf(floorf(uu), 0.f), top);
-        const float frac = uu - idx;
-        float dxl, dxr;
-        if (g.log_step) {
-          const float xl = g.x0 * expf(idx * g.step);
-          const float ef = expm1f(frac * g.step);
-          dxl = xl * ef;
-          dxr = xl * (g.expm1_step - ef);
-        } else {
-          dxl = frac * g.step;
-          dxr = (1.f - frac) * g.step;
-        }
-        s_key[s] = ((unsigned long long)(unsigned)(int)idx << 32)
-                   | (unsigned)s;
-        s_val[s] = make_float4(gg * dxl * dxl * dxl, gg * dxr * dxr * dxr,
-                               gg * dxl, gg * dxr);
-      } else {
-        s_key[s] = ~0ull;                        // padding sorts last
-      }
+  const int i0 = (int)(blockIdx.x % nseg) * ADJ_SEG;
+  const int ns = min(ADJ_SEG, nm1 - i0);
+  // a row of at most ADJ_SCAN queries is kept in shared memory; the
+  // sums of a longer one read it again from device memory
+  const bool staged = npix <= ADJ_SCAN;
+
+  for (int r = blockIdx.x / nseg; r < rows; r += gridDim.x / nseg) {
+    const float* urow = u + (size_t)r * npix;
+    const float* grow = gr + (size_t)r * npix;
+    float* drow = dc + ((size_t)r * 4 * nm1 + i0);
+    __syncthreads();   // the previous row is done with shared memory
+#if RVST_ABLATE == 1
+    for (int k = tid; k < 4 * ADJ_CHUNK; k += ADJ_THREADS)
+      sh.row.out[0][k] = 0.f;
+    __syncthreads();
+    for (int c0 = 0; c0 < ns; c0 += ADJ_CHUNK)
+      for (int pl = 0; pl < 4; ++pl)
+        adj_store_run(drow + pl * nm1 + c0, sh.row.out[pl],
+                      min(ADJ_CHUNK, ns - c0), tid);
+    continue;
+#endif
+
+    // scan the row: does its interval index ever decrease, and where
+    // does the run of each of the segment's intervals start
+    const bool vec = ((reinterpret_cast<uintptr_t>(urow)
+                       | reinterpret_cast<uintptr_t>(grow)) & 15) == 0;
+    int p = 4 * tid;
+    float q[4], w[4], qprev = 0.f;
+    if (p < npix) {
+      adj_load4(urow, p, npix, vec, q);
+      if (staged) adj_load4(grow, p, npix, vec, w);
+      qprev = __ldg(urow + max(p - 1, 0));
     }
+    const int first = npix > 0 ? adj_interval(__ldg(urow), top) : 0;
+    for (int k = tid; k <= ns; k += ADJ_THREADS) sh.row.lo[k] = -1;
     __syncthreads();
     int down = 0;
-    for (int s = tid + 1; s < n; s += ADJ_THREADS)
-      down |= (s_key[s] >> 32) < (s_key[s - 1] >> 32);
-    if (__syncthreads_or(down)) {
-      // bitonic sort of the tile's keys (unique: position in the low bits)
-      for (int k = 2; k <= ADJ_TILE; k <<= 1) {
-        for (int j = k >> 1; j > 0; j >>= 1) {
-          for (int t = tid; t < ADJ_TILE / 2; t += ADJ_THREADS) {
-            const int i = 2 * t - (t & (j - 1));
-            const unsigned long long a = s_key[i], b = s_key[i + j];
-            if ((a > b) == ((i & k) == 0)) {
-              s_key[i] = b;
-              s_key[i + j] = a;
-            }
+    while (p < npix) {
+      int prev = adj_interval(qprev, top);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (p + e < npix) {
+          const int iv = adj_interval(q[e], top);
+          down |= iv < prev;
+          // query p + e starts the runs of intervals prev + 1 .. iv (not
+          // needed once the row is known to take the sorted path)
+          const int hi = down ? -1 : min(iv - i0, ns);
+#pragma unroll 1
+          for (int k = max(prev + 1 - i0, 0); k <= hi; ++k)
+            sh.row.lo[k] = p + e;
+          if (staged) {
+            sh.row.u[p + e] = q[e];
+            sh.row.g[p + e] = w[e];
           }
-          __syncthreads();
+          prev = iv;
         }
       }
-    }
-    for (int s = tid; s < n; s += ADJ_THREADS) {
-      const unsigned iv = (unsigned)(s_key[s] >> 32);
-      if (s > 0 && (unsigned)(s_key[s - 1] >> 32) == iv) continue;
-      float4 acc = s_val[(unsigned)s_key[s]];
-      for (int t = s + 1; t < n && (unsigned)(s_key[t] >> 32) == iv; ++t) {
-        const float4 v = s_val[(unsigned)s_key[t]];
-        acc.x += v.x;
-        acc.y += v.y;
-        acc.z += v.z;
-        acc.w += v.w;
+      p += ADJ_SCAN;
+      if (p < npix) {
+        adj_load4(urow, p, npix, vec, q);
+        qprev = __ldg(urow + p - 1);
       }
-      drow[iv] += acc.x;
-      drow[nm1 + iv] += acc.y;
-      drow[2 * nm1 + iv] += acc.z;
-      drow[3 * nm1 + iv] += acc.w;
     }
-    __syncthreads();   // the next tile reuses s_key / s_val and may add
-                       // to the same intervals
+
+    if (!__syncthreads_or(down)) {
+      // the usual row: in passes of ADJ_CHUNK intervals, each thread
+      // sums its intervals' runs, then the block stores the pass
+      for (int c0 = 0; c0 < ns; c0 += ADJ_CHUNK) {
+        const int len = min(ADJ_CHUNK, ns - c0);
+#pragma unroll 1
+        for (int k = tid; k < len; k += ADJ_THREADS) {
+          int a = sh.row.lo[c0 + k], b = sh.row.lo[c0 + k + 1];
+          if (a < 0) a = i0 + c0 + k <= first ? 0 : npix;
+          if (b < 0) b = i0 + c0 + k + 1 <= first ? 0 : npix;
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (staged) {
+#pragma unroll 1
+            for (int pp = a; pp < b; ++pp)
+              adj_add(acc, adj_term(sh.row.u[pp], sh.row.g[pp], g));
+          } else {
+#pragma unroll 1
+            for (int pp = a; pp < b; ++pp)
+              adj_add(acc, adj_term(__ldg(urow + pp), __ldg(grow + pp), g));
+          }
+#if RVST_ABLATE == 2
+          if (a != b) adj_store(drow, nm1, c0 + k, acc);
+#else
+          sh.row.out[0][k] = acc.x;
+          sh.row.out[1][k] = acc.y;
+          sh.row.out[2][k] = acc.z;
+          sh.row.out[3][k] = acc.w;
+#endif
+        }
+#if RVST_ABLATE != 2
+        __syncthreads();
+        for (int pl = 0; pl < 4; ++pl)
+          adj_store_run(drow + pl * nm1 + c0, sh.row.out[pl], len, tid);
+        __syncthreads();   // the next pass reuses the sums' memory
+#endif
+      }
+      continue;
+    }
+
+    // any other row: passes over ADJ_SUB intervals of the segment, each
+    // taking the row's queries that land there in sorted tiles
+#pragma unroll 1
+    for (int sub = 0; sub < ns; sub += ADJ_SUB) {
+      const int nsub = min(ADJ_SUB, ns - sub);
+      for (int k = tid; k < nsub; k += ADJ_THREADS)
+        sh.other.sum[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 1
+      for (int p0 = 0; p0 < npix; p0 += ADJ_TILE) {
+        const int n = min(ADJ_TILE, npix - p0);
+        for (int s = tid; s < ADJ_TILE; s += ADJ_THREADS) {
+          unsigned key = ~0u;                    // padding sorts last
+          if (s < n) {
+            const float uu = __ldg(urow + p0 + s);
+            const int k = adj_interval(uu, top) - i0 - sub;
+            if (k >= 0 && k < nsub) {
+              key = ((unsigned)k << 16) | (unsigned)s;
+              sh.other.val[s] = adj_term(uu, __ldg(grow + p0 + s), g);
+            }
+          }
+          sh.other.key[s] = key;
+        }
+        __syncthreads();   // also: the zeroed sums are visible
+        // bitonic sort of the keys (unique: position in the low bits)
+        for (int k = 2; k <= ADJ_TILE; k <<= 1) {
+          for (int j = k >> 1; j > 0; j >>= 1) {
+            for (int t = tid; t < ADJ_TILE / 2; t += ADJ_THREADS) {
+              const int i = 2 * t - (t & (j - 1));
+              const unsigned a = sh.other.key[i], b = sh.other.key[i + j];
+              if ((a > b) == ((i & k) == 0)) {
+                sh.other.key[i] = b;
+                sh.other.key[i + j] = a;
+              }
+            }
+            __syncthreads();
+          }
+        }
+        // the first query of each run adds the run to its interval's sum
+        for (int s = tid; s < ADJ_TILE; s += ADJ_THREADS) {
+          const unsigned key = sh.other.key[s];
+          const unsigned k = key >> 16;
+          if (key == ~0u || (s > 0 && (sh.other.key[s - 1] >> 16) == k))
+            continue;
+          float4 acc = sh.other.sum[k];
+#pragma unroll 1
+          for (int t = s; t < ADJ_TILE && (sh.other.key[t] >> 16) == k; ++t)
+            adj_add(acc, sh.other.val[sh.other.key[t] & 0xffffu]);
+          sh.other.sum[k] = acc;
+        }
+        __syncthreads();   // the next tile reuses the keys and values
+      }
+      // each thread stores (and next zeroes) the sums of its own k
+      for (int k = tid; k < nsub; k += ADJ_THREADS)
+        adj_store(drow, nm1, sub + k, sh.other.sum[k]);
+    }
   }
 }
 
@@ -352,10 +561,12 @@ extern "C" int rvst_spline_adjoint(const float* u, const float* g,
                                    int nm1, int log_step, float x0,
                                    float step, float expm1_step,
                                    void* stream) {
-  if (rows == 0) return 0;
+  if (rows == 0 || nm1 <= 0) return 0;
   const Geo geo = {nm1, log_step, x0, step, expm1_step};
-  spline_adjoint_kernel<<<rows, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
-      u, g, dcoeffs, npix, geo);
+  const int nseg = (nm1 + ADJ_SEG - 1) / ADJ_SEG;
+  const int grid = std::min(rows, INT_MAX / nseg) * nseg;
+  spline_adjoint_kernel<<<grid, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
+      u, g, dcoeffs, rows, npix, nseg, geo);
   return (int)cudaGetLastError();
 }
 

@@ -100,12 +100,15 @@ def kernel_operands(tfft, t2fft, sfft_conj, ivfft_conj, ecos, esin):
             torch.stack(tf32_split(ecos) + tf32_split(esin), -1))
 
 
+# rvst_ccf_chisq(tt2, siv, e_quads, out, nb, nt, nf, nv, continuum, stream)
+ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def build():
     """Compile (first call) and bind the kernel's C launcher."""
     fn = cuda_build.load('ccf_chisq').rvst_ccf_chisq
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
+    fn.argtypes = ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 

@@ -34,8 +34,11 @@ import torch
 
 from rvspecfit_torch.ops import cuda_build
 
-# kernel launches by this process, of the evaluation and of the adjoint
+# kernel launches by this process: of the evaluation in per-row mode
+# (rows_per_coeff 1), in shared mode, both together, and of the adjoint
 # (chip_smoke.py resets and reads them)
+row_launches = 0
+shared_launches = 0
 launches = 0
 adjoint_launches = 0
 
@@ -99,15 +102,20 @@ def build():
     return fn
 
 
+# rvst_spline_adjoint(u, g, dcoeffs, rows, npix, nm1, log_step, x0, step,
+# expm1_step, stream)
+ADJOINT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                    ctypes.c_void_p]
+
+
 @functools.lru_cache(maxsize=None)
 def build_adjoint():
     """Compile (first call) and bind the adjoint's C launcher (same
     source and library as kernel A)."""
     fn = cuda_build.load('spline_eval').rvst_spline_adjoint
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_void_p]
+    fn.argtypes = ADJOINT_ARGTYPES
     fn.restype = ctypes.c_int
     return fn
 
@@ -130,7 +138,7 @@ def _geo_args(geom):
 
 def _launch(geom, coeffs, u, rows_per_coeff):
     """Kernel A on CUDA tensors (checks, launch, count)."""
-    global launches
+    global launches, row_launches, shared_launches
     _check_cuda('spline_eval', u, coeffs)
     if coeffs.dim() != 3 or coeffs.shape[1] != 4 or u.dim() != 2 \
             or u.shape[0] != coeffs.shape[0] * rows_per_coeff:
@@ -148,6 +156,10 @@ def _launch(geom, coeffs, u, rows_per_coeff):
                       cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval')
     launches += 1
+    if rows_per_coeff == 1:
+        row_launches += 1
+    else:
+        shared_launches += 1
     return out
 
 

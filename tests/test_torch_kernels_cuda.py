@@ -117,9 +117,14 @@ def test_kernel_a_matches_plain(cuda_device, log_step, npix, ncoef,
                                 rows_per_coeff):
     geom, coeffs, u = _spline_case(log_step, npix, ncoef, rows_per_coeff,
                                    seed=npix + ncoef, device=cuda_device)
-    before = spline_eval.launches
+    before = (spline_eval.launches, spline_eval.row_launches,
+              spline_eval.shared_launches)
     got = spline_eval.spline_eval_index(geom, coeffs, u, rows_per_coeff)
-    assert spline_eval.launches == before + 1
+    per_row = rows_per_coeff == 1
+    assert (spline_eval.launches, spline_eval.row_launches,
+            spline_eval.shared_launches) == (before[0] + 1,
+                                             before[1] + per_row,
+                                             before[2] + (not per_row))
     want = spline_eval.spline_eval_index_plain(geom, coeffs, u,
                                                rows_per_coeff)
     assert torch.isnan(want).sum() == 1
@@ -136,10 +141,14 @@ def test_kernel_a_shared_above_65535_rows(cuda_device):
     _assert_close(got, want, A_TOL)
 
 
-def _adjoint_case(log_step, rows, npix, nm1, seed, device):
+def _adjoint_case(log_step, rows, npix, nm1, seed, device, kind='mixed'):
     """Queries of an arm's pixels Doppler-shifted per row on an
-    (nm1 + 1)-knot grid, with a NaN, out-of-range queries and a row in
-    reverse order, and a random upstream gradient."""
+    (nm1 + 1)-knot grid and a random upstream gradient.  ``kind``:
+    'mixed' adds a NaN, out-of-range queries and a row in reverse order;
+    'constant' puts every query in one interval, 'below' / 'above' every
+    query out of range on that side (u still increasing); 'descent'
+    moves the last query of every other row back to an earlier
+    interval."""
     rng = np.random.RandomState(seed)
     n = nm1 + 1
     xs = np.exp(np.linspace(np.log(4550.0), np.log(5450.0), n)) \
@@ -153,10 +162,19 @@ def _adjoint_case(log_step, rows, npix, nm1, seed, device):
                                        torch.as_tensor(vels)).numpy()
     u = idx0[None] + shift[:, None] * (1.0 if log_step
                                        else (lam / geom_cpu.step)[None])
-    u[0, npix // 2] = np.nan
-    u[-1, :min(3, npix)] = [-2.5, -0.3, n + 4.2][:min(3, npix)]
-    if rows > 2:
-        u[1] = u[1, ::-1]
+    if kind == 'mixed':
+        u[0, npix // 2] = np.nan
+        u[-1, :min(3, npix)] = [-2.5, -0.3, n + 4.2][:min(3, npix)]
+        if rows > 2:
+            u[1] = u[1, ::-1]
+    elif kind == 'constant':
+        u[:] = 17.3
+    elif kind == 'below':
+        u[:] = -npix * 0.01 - 3.0 + np.arange(npix) * 0.01
+    elif kind == 'above':
+        u[:] = nm1 + 5.0 + np.arange(npix) * 0.01
+    elif kind == 'descent':
+        u[::2, -1] = u[::2, npix // 3]
     g = rng.normal(size=(rows, npix))
     to = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                    dtype=torch.float32, device=device)
@@ -179,11 +197,15 @@ def _assert_adjoint_close(got, want):
 @pytest.mark.parametrize('log_step', [True, False])
 @pytest.mark.parametrize('rows,npix,nm1',
                          list(itertools.product((1, 37, 500), (1, 1023, 1024),
-                                                (49, 4095)))
-                         + [(37, 2500, 49), (5, 2500, 4095)])
+                                                (49, 4095, 4097)))
+                         + [(37, 2500, 49), (5, 2500, 4095), (1, 5000, 49),
+                            (500, 5000, 49), (37, 5000, 4097)])
 def test_adjoint_matches_plain(cuda_device, log_step, rows, npix, nm1):
-    """Ragged shapes; 2500 queries span several tiles (on 49 intervals
-    a run of one interval crosses a tile boundary)."""
+    """Ragged shapes: n-1 not a multiple of the kernel's segment of
+    intervals and not 4-aligned (4095, 4097); 2500 and 5000 queries
+    span several tiles (on 49 intervals a run of one interval, ~100
+    queries, crosses a tile boundary; on 4097 runs lie on both sides of
+    each segment boundary)."""
     geom, u, g = _adjoint_case(log_step, rows, npix, nm1,
                                seed=rows + npix + nm1, device=cuda_device)
     before = spline_eval.adjoint_launches
@@ -192,6 +214,58 @@ def test_adjoint_matches_plain(cuda_device, log_step, rows, npix, nm1):
     want = spline_eval.spline_eval_index_vjp_plain(geom, u, g, nm1)
     assert got.shape == (rows, 4, nm1)
     _assert_adjoint_close(got, want)
+
+
+@pytest.mark.parametrize('kind', ['constant', 'below', 'above'])
+@pytest.mark.parametrize('rows', [1, 500])
+@pytest.mark.parametrize('nm1', [49, 4095, 4097])
+def test_adjoint_rows_in_one_interval(cuda_device, kind, rows, nm1):
+    """Every query of a row in one interval: one run of 1024 queries
+    (constant u), or all clamped to the first or last interval.
+
+    A float32 sum of 1024 terms is only as exact as the sum of their
+    magnitudes allows, so the reference is the plain version in float64
+    on the same float32 inputs, and the tolerance is ADJ_TOL of that
+    sum of |terms| per element.  Within one of these intervals each
+    plane's terms keep one sign apart from g's, so the plain version of
+    |g| gives that sum."""
+    geom, u, g = _adjoint_case(True, rows, 1024, nm1, seed=rows + nm1,
+                               device=cuda_device, kind=kind)
+    got = spline_eval.spline_eval_index_vjp(geom, u, g, nm1)
+    want = spline_eval.spline_eval_index_vjp_plain(geom, u.double(),
+                                                   g.double(), nm1)
+    mags = spline_eval.spline_eval_index_vjp_plain(geom, u.double(),
+                                                   g.double().abs(),
+                                                   nm1).abs()
+    torch.cuda.synchronize()
+    assert ((got.double() - want).abs() <= ADJ_TOL * mags).all()
+    assert (want != 0).any(1).sum(1).eq(1).all()
+    assert (got != 0).any(1).sum(1).eq(1).all()
+
+
+@pytest.mark.parametrize('log_step', [True, False])
+@pytest.mark.parametrize('rows', [1, 500])
+@pytest.mark.parametrize('nm1', [49, 4095, 4097])
+def test_adjoint_sums_in_position_order_on_every_row(cuda_device, log_step,
+                                                     rows, nm1):
+    """A row whose last query steps back to an earlier interval takes the
+    kernel's path for rows that are not monotone; it must give the same
+    bits as the monotone row without that query on every interval the
+    query does not touch (both paths sum in position order)."""
+    geom, u, g = _adjoint_case(log_step, rows, 1024, nm1, seed=rows + nm1,
+                               device=cuda_device, kind='descent')
+    got = spline_eval.spline_eval_index_vjp(geom, u, g, nm1)
+    _assert_adjoint_close(got, spline_eval.spline_eval_index_vjp_plain(
+        geom, u, g, nm1))
+    cut = spline_eval.spline_eval_index_vjp(geom, u[:, :-1].contiguous(),
+                                            g[:, :-1].contiguous(), nm1)
+    torch.cuda.synchronize()
+    last = torch.clamp(torch.floor(u[:, -1]), 0, nm1 - 1).long()
+    keep = torch.ones((rows, nm1), dtype=torch.bool, device=cuda_device)
+    keep[torch.arange(rows, device=cuda_device), last] = False
+    keep = keep[:, None, :].expand(-1, 4, -1)
+    assert torch.equal(got[keep], cut[keep])
+    assert not torch.equal(got, cut)
 
 
 def test_adjoint_of_a_nan_query_is_nan_in_interval_0(cuda_device):

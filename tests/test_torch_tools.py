@@ -1,6 +1,8 @@
-"""CPU-side logic of chip_smoke.py and tools/torch_kernel_ab.py: the
-kernel A bound's byte count and the A/B tool's choice of a baseline's C
-interface."""
+"""CPU-side logic of chip_smoke.py, tools/torch_kernel_ab.py and
+tools/torch_ablate.py: the kernel A bound's byte count, the A/B tool's
+choice of a baseline's C interface, and the ablation tool's table of
+sources and its reading of ptxas."""
+import re
 import sys
 from pathlib import Path
 
@@ -11,8 +13,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / 'tools'))
 
 import chip_smoke  # noqa: E402
+import torch_ablate  # noqa: E402
 import torch_kernel_ab  # noqa: E402
-from rvspecfit_torch.ops import cuda_build  # noqa: E402
+from rvspecfit_torch.ops import (  # noqa: E402
+    ccf_chisq, cuda_build, spline_eval)
 
 
 @pytest.mark.parametrize('rpc,knots', [(1, 3 + 2), (2, 4)])
@@ -47,3 +51,70 @@ def test_ab_binds_or_refuses_a_baseline(tmp_path, params, want):
     else:
         assert torch_kernel_ab.baseline_interface(tmp_path,
                                                   'ccf_chisq') == want
+
+
+ADJOINT = ('const float* u, const float* g, float* dcoeffs, int rows, '
+           'int npix, int nm1, int log_step, float x0, float step, '
+           'float expm1_step, void* stream')
+
+
+@pytest.mark.parametrize('params,want', [
+    (None, True),                 # the port's own source
+    ('', False),                  # a source from before the adjoint
+    (ADJOINT.replace(', ', ',\n    '), True),
+    ('const float* u, float* dcoeffs, int rows, void* stream', None),
+])
+def test_ab_binds_the_adjoint_or_refuses_it(tmp_path, params, want):
+    csrc = cuda_build.CSRC
+    if params is not None:
+        csrc = tmp_path
+        fn = f'extern "C" int rvst_spline_adjoint({params}) {{ return 0; }}'
+        (tmp_path / 'spline_eval.cu').write_text(fn if params else '')
+    if want is None:
+        with pytest.raises(SystemExit, match='cannot call'):
+            torch_kernel_ab.baseline_has_adjoint(csrc)
+    else:
+        assert torch_kernel_ab.baseline_has_adjoint(csrc) is want
+
+
+@pytest.mark.parametrize('kernel', list(torch_ablate.KERNELS))
+def test_ablation_table_matches_the_sources(kernel):
+    # the source has the launcher, the kernel and every level's switch,
+    # and the launcher takes as many parameters as the tool binds
+    source, launcher, entry, variants = torch_ablate.KERNELS[kernel]
+    text = (cuda_build.CSRC / source).read_text()
+    assert f'{entry}(' in text
+    for level in set(variants.values()) - {0}:
+        assert re.search(rf'RVST_ABLATE\s*[<>=!]=?\s*{level}\b', text)
+    params = torch_kernel_ab.c_params(cuda_build.CSRC / source,
+                                      launcher.removeprefix('rvst_'))
+    argtypes = {'ccf_chisq': ccf_chisq.ARGTYPES,
+                'spline_eval_adjoint': spline_eval.ADJOINT_ARGTYPES}[kernel]
+    assert len(params.split(',')) == len(argtypes)
+
+
+PTXAS = """ptxas info    : Compiling entry function '_Z16ccf_chisq_kernelILi1ELi4EEvPK6float4' for 'sm_90a'
+ptxas info    : Function properties for _Z16ccf_chisq_kernelILi1ELi4EEvPK6float4
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z16ccf_chisq_kernelILi2ELi2EEvPK6float4' for 'sm_90a'
+ptxas info    : Used 96 registers, 392 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z21spline_adjoint_kernelPKfS0_Pfiii3Geo' for 'sm_90a'
+ptxas info    : Function properties for _Z21spline_adjoint_kernelPKfS0_Pfiii3Geo
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 400 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize('entry,want', [
+    ('ccf_chisq_kernel', ['0 bytes stack frame, 0 bytes spill stores, '
+                          '0 bytes spill loads | Used 128 registers, '
+                          '392 bytes cmem[0]',
+                          'Used 96 registers, 392 bytes cmem[0]']),
+    ('spline_adjoint_kernel', ['0 bytes stack frame, 0 bytes spill stores, '
+                               '0 bytes spill loads | Used 64 registers, '
+                               '400 bytes cmem[0]']),
+    ('spline_eval_kernel', []),
+])
+def test_ablation_reads_each_kernels_ptxas_report(entry, want):
+    assert torch_ablate.registers(PTXAS, entry) == want

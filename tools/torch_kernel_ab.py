@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B timing of rvspecfit_torch's two CUDA kernels against a baseline
-build of other sources of them, at the main path's shapes, on one card.
+"""A/B timing of rvspecfit_torch's CUDA kernels (kernel A, its adjoint,
+kernel B) against a baseline build of other sources of them, at the
+main path's shapes, on one card.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
@@ -10,13 +11,14 @@ and the CUDA toolkit):
 OTHER is, for example, an earlier commit unpacked with ``git archive``
 into a git-ignored directory.  The baseline's C launchers must have the
 current sources' parameter lists, or (kernel B) the one of its first
-port, which took Ecos and Esin apart; the tool refuses any other.  Both
-versions are built with the same nvcc flags (the baseline into
-``rvspecfit_torch/_build/baseline/``), checked against the plain
-versions, and timed with CUDA events in the order baseline, current,
-current, baseline (kernel A's per-row mode, a few microseconds, from
-CUDA-graph replays over copies of its inputs, chip_smoke.cold_inputs);
-the plain versions and, for
+port, which took Ecos and Esin apart; the tool refuses any other.  The
+adjoint is compared where the baseline's spline_eval.cu has one (with
+the current parameters).  Both versions are built with the same nvcc
+flags (the baseline into ``rvspecfit_torch/_build/baseline/``), checked
+against the plain versions, and timed with CUDA events in the order
+baseline, current, current, baseline (kernel A's per-row mode and the
+adjoint, a few microseconds, from CUDA-graph replays over copies of
+their inputs, chip_smoke.cold_inputs); the plain versions and, for
 kernel B with continuum, one fp32 torch.matmul of the materialized
 contraction (the library yardstick) are timed beside them.  The inputs
 are chip_smoke.py's: the 500-fiber, 3-arm exposure of bench.py's
@@ -66,9 +68,24 @@ def baseline_interface(csrc, name):
                      f'({got}), an interface this tool cannot call')
 
 
+def baseline_has_adjoint(csrc):
+    """Whether the baseline's spline_eval.cu has the adjoint with the
+    current parameters (False where it has none); refuses another
+    interface."""
+    from rvspecfit_torch.ops import cuda_build
+    got = c_params(Path(csrc) / 'spline_eval.cu', 'spline_adjoint')
+    if got is None:
+        return False
+    if got == c_params(cuda_build.CSRC / 'spline_eval.cu', 'spline_adjoint'):
+        return True
+    raise SystemExit(f'torch_kernel_ab: the baseline rvst_spline_adjoint '
+                     f'takes ({got}), an interface this tool cannot call')
+
+
 def build_baseline(csrc):
     """ctypes launchers of the baseline sources, bound through their
-    own interfaces; returns ({name: (fn, interface)}, {name: ptxas
+    own interfaces (the adjoint's as 'spline_eval_adjoint', where the
+    baseline has one); returns ({name: (fn, interface)}, {name: ptxas
     report})."""
     import ctypes
     from rvspecfit_torch.ops import ccf_chisq, cuda_build, spline_eval
@@ -86,11 +103,17 @@ def build_baseline(csrc):
         if proc.returncode:
             raise RuntimeError(f'nvcc failed on the baseline {name}:\n'
                                f'{proc.stderr}')
-        fn = getattr(ctypes.CDLL(str(lib)), f'rvst_{name}')
+        handle = ctypes.CDLL(str(lib))
+        fn = getattr(handle, f'rvst_{name}')
         fn.argtypes = types
         fn.restype = ctypes.c_int
         fns[name] = (fn, interface)
         ptxas[name] = proc.stderr.strip()
+        if name == 'spline_eval' and baseline_has_adjoint(csrc):
+            fn = handle.rvst_spline_adjoint
+            fn.argtypes = spline_eval.ADJOINT_ARGTYPES
+            fn.restype = ctypes.c_int
+            fns['spline_eval_adjoint'] = (fn, 'current')
     return fns, ptxas
 
 
@@ -107,6 +130,20 @@ def baseline_spline(fn, geom, coeffs, u, rpc):
              geom.step, math.expm1(geom.step) if geom.log_step else 0.0,
              cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'baseline spline_eval')
+    return out
+
+
+def baseline_adjoint(fn, geom, u, g, nm1):
+    """The baseline adjoint through the current C interface."""
+    import math
+    import torch
+    from rvspecfit_torch.ops import cuda_build
+    out = torch.empty((u.shape[0], 4, nm1), dtype=u.dtype, device=u.device)
+    err = fn[0](u.data_ptr(), g.data_ptr(), out.data_ptr(), u.shape[0],
+                u.shape[1], nm1, int(geom.log_step), geom.x0, geom.step,
+                math.expm1(geom.step) if geom.log_step else 0.0,
+                cuda_build.current_stream(u))
+    cuda_build.check_launch(err, 'baseline spline_eval_adjoint')
     return out
 
 
@@ -203,6 +240,28 @@ def main():
                          library_ms=None, bound_kind='hbm_bytes',
                          bound_ms=chip_smoke.spline_bound_ms(
                              u, coeffs.shape[-1], rpc),
+                         rel_err_baseline=errs[0], rel_err=errs[1]))
+    if 'spline_eval_adjoint' in base:
+        u, g, nm1 = chip_smoke.adjoint_inputs(tm, arms, truth, device)
+
+        def call(uu, gg):
+            return spline_eval.spline_eval_index_vjp(tm.geom, uu, gg, nm1)
+
+        def old_call(uu, gg):
+            return baseline_adjoint(base['spline_eval_adjoint'], tm.geom, uu,
+                                    gg, nm1)
+        plain = lambda: spline_eval.spline_eval_index_vjp_plain(tm.geom, u,
+                                                                g, nm1)
+        errs = check_both(lambda: old_call(u, g), lambda: call(u, g), plain,
+                          1e-5)
+        old, new = ab_times(chip_smoke.cold_inputs(old_call, u, g),
+                            chip_smoke.cold_inputs(call, u, g), graph=True)
+        rows.append(dict(kernel='spline_eval_adjoint', mode='per-row',
+                         shape=[u.shape[0], u.shape[1], nm1],
+                         baseline_ms=old, ms=new,
+                         plain_ms=chip_smoke.cuda_time(plain, REPS['plain']),
+                         library_ms=None, bound_kind='hbm_bytes',
+                         bound_ms=chip_smoke.adjoint_bound_ms(u, nm1),
                          rel_err_baseline=errs[0], rel_err=errs[1]))
     banks = [('continuum', convert.ccf_bank(*bank, device=device)),
              ('no-continuum', chip_smoke.make_nocont_bank(device))]
