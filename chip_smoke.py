@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the rvspecfit_torch group fit on one CUDA card and check it.
+"""Drive the rvspecfit_torch group fit and DESI driver on one CUDA card
+and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
@@ -28,6 +29,19 @@ and the CUDA toolkit):
    raised no fiber's objective, and the group fit on 8 fibers
    (velocities, polished parameters, errors) against the CPU float64
    run of the same code.
+5. Drives the DESI driver, survey/desi.proc_many, over 4 coadd files of
+   500 fibers in bench.py's format, written with the port's FITS module
+   into a temporary directory, at coalesce 2 (two groups of 1000
+   fibers, the first cold) with crash isolation off and in-memory
+   models and banks (the card's machine has no h5py); its kernel
+   launches are counted per run and per group.  Checks the status
+   lines, the RVTAB schema and rows, RV recovery per file and RVMOD;
+   prints per-file seconds, the steady fibers/s from the status file's
+   completion times and each group's phases.  Then holds the three
+   kernels against their plain versions at a 1000-fiber group's shapes,
+   and the driver's RVTAB on the card against the CPU float64 run for
+   an 8-fiber coadd and a 64-fiber coadd with per-fiber resolution
+   matrices (--resolution_matrix, width-11 Gaussian bands).
 
 Prints, last, the card, a JSON line of the kernels and then the ok
 line.  Exits non-zero, printing no result, without a CUDA device or on
@@ -37,8 +51,10 @@ import concurrent.futures
 import contextlib
 import itertools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -166,15 +182,17 @@ def make_bank(continuum=True):
                                      continuum=continuum, device='cpu')
 
 
-def make_template_model(device):
-    """The 864-template grid at 4096 px, through the library's
-    artifact path (a regular-grid library's arrays, made in memory)."""
+def make_template_model(device, wresol=2.0):
+    """The 864-template grid at 4096 px with lines broadened by a
+    Gaussian of ``wresol`` A, through the library's artifact path (a
+    regular-grid library's arrays, made in memory)."""
     from rvspecfit_torch import simulation
     from rvspecfit_torch.pipeline.library import \
         template_model_from_artifacts
     return template_model_from_artifacts(
         *simulation.template_artifacts(6, 6, 6, 4, npix=4096, lam0=4550.0,
-                                       lam1=5450.0), device=device)
+                                       lam1=5450.0, wresol=wresol),
+        device=device)
 
 
 def make_workload(device):
@@ -239,8 +257,9 @@ def make_nocont_bank(device):
 
 def kernel_a_cases(tm, arms, truth, device):
     """Kernel A's inputs at the NM-step shape (one trial per fiber) and
-    the refinement's full-pass shape (401 shared rows per fiber):
-    (coeffs, [(mode, u, rows_per_coeff), ...])."""
+    the refinement's full-pass shape (401 shared rows per fiber), for
+    the B fibers of ``arms``: (coeffs, [(mode, u, rows_per_coeff),
+    ...])."""
     import torch
     from rvspecfit_torch.fit.likelihood import doppler_u, template_stage
     from rvspecfit_torch.fit.spec_data import ArmState
@@ -252,9 +271,10 @@ def kernel_a_cases(tm, arms, truth, device):
                              dtype=torch.float32, device=device)
     coeffs = template_stage(tm, params, None, False, None)[0]
     vels = torch.as_tensor(truth['vel'], dtype=torch.float32, device=device)
-    u_row = doppler_u(arm, tm.geom, vels)                       # (500, 1024)
+    u_row = doppler_u(arm, tm.geom, vels)                       # (B, 1024)
     grid = torch.linspace(-1000, 1000, 401, device=device)
-    u_shared = doppler_u(arm, tm.geom, grid.repeat(NFIBERS))  # (200500, 1024)
+    # (401 B, 1024)
+    u_shared = doppler_u(arm, tm.geom, grid.repeat(arm.dvec.shape[0]))
     return coeffs, [('per-row', u_row, 1), ('shared', u_shared, 401)]
 
 
@@ -302,20 +322,21 @@ def kernel_b_args(arms, bank):
     from rvspecfit_torch.fit import ccf
     a = arms[0]
     p = ccf.prepare_arm_batch(a.name, a.lam, a.flux, 1.0 / np.sqrt(a.ivar),
-                              None, CONFIG, bank)
+                              a.badmask, CONFIG, bank)
     return [p['tfft'], p['t2fft'], p['sfft_conj'], p['ivfft_conj'],
             p['ecos'], p['esin']], p['continuum']
 
 
-def check_kernel_b(arms, bank_d, bank_nocont_d, device):
-    """Kernel B vs plain at the full exposure (500 fibers, one arm) in
-    the path's continuum mode and, from a bank without continuum built
-    from the same grid, in no-continuum mode; times both, and the
-    continuum contraction as one fp32 torch.matmul (library_ms)."""
+def check_kernel_b(arms, banks, device):
+    """Kernel B vs plain on the first arm of ``arms`` (all its fibers)
+    with each of ``banks`` ({mode: device bank}; the path's continuum
+    mode and, from a bank without continuum built from the same grid,
+    the no-continuum mode); times both, and the continuum contraction as
+    one fp32 torch.matmul (library_ms)."""
     import torch
     from rvspecfit_torch.ops import ccf_chisq
     result = {}
-    for mode, bank in (('continuum', bank_d), ('no-continuum', bank_nocont_d)):
+    for mode, bank in banks.items():
         args, cont = kernel_b_args(arms, bank)
         check(cont == (mode == 'continuum'),
               f'the {mode} bank has continuum={cont}')
@@ -527,28 +548,37 @@ def check_against_cpu(arms, bank, device, tm):
         f'{gk["bad_hess"].astype(int).tolist()}, plain '
         f'{plain32["bad_hess"].astype(int).tolist()}, CPU '
         f'{gc["bad_hess"].astype(int).tolist()}')
+    return tm_cpu
 
 
 # the float32 Hessian errors against float64 at one point
 ERR_TOL = 0.02
+# the float32 chi-square against float64 at one point: the change of
+# chi-square over half a standard error in one parameter
+CHI_TOL = 0.25
 
 
 def hessians_at_one_point(sub, tms, gc):
-    """The Hessian at the CPU run's refined velocities and polished
-    parameters, on the card (float32, kernels) and on the CPU: their
-    difference is float32 arithmetic alone.  In correlation form (D H
-    D, D = |diag H_CPU|^-1/2) it is E; a fiber's BAD_HESSIAN flag may
-    differ only where the CPU Hessian's smallest |eigenvalue| in that
-    form is within 4 max|E| of 0 (Weyl: a perturbation E moves an
-    eigenvalue by at most ||E||_2 <= 4 max|E| for 4 x 4)."""
+    """The chi-square and the Hessian at the CPU run's refined
+    velocities and polished parameters, on the card (float32, kernels)
+    and on the CPU: their difference is float32 arithmetic alone.  The
+    chi-squares may differ by at most CHI_TOL.  In correlation form (D
+    H D, D = |diag H_CPU|^-1/2) the Hessians' difference is E; a
+    fiber's BAD_HESSIAN flag may differ only where the CPU Hessian's
+    smallest |eigenvalue| in that form is within 4 max|E| of 0 (Weyl: a
+    perturbation E moves an eigenvalue by at most ||E||_2 <= 4 max|E|
+    for 4 x 4)."""
     from rvspecfit_torch.fit.batch import BatchedFitter
     from rvspecfit_torch.fit.vel_fit import uncertainties_from_hessian
-    h = {}
+    h, chi = {}, {}
+    vel, params = gc['ref']['best_vel'], gc['params']
     for key, tm_d in tms.items():
         bf = BatchedFitter(sub, {a.name: tm_d for a in sub}, CONFIG,
                            options=OPTIONS)
-        h[key] = bf.hessians(gc['ref']['best_vel'],
-                             gc['params']).double().cpu().numpy()
+        h[key] = bf.hessians(vel, params).double().cpu().numpy()
+        chi[key] = bf.chisq(vel[:, None], params[:, None, :])[:, 0] \
+            .double().cpu().numpy()
+    dchi = np.abs(chi['cuda'] - chi['cpu'])
     d = np.abs(np.diagonal(h['cpu'], axis1=1, axis2=2))**-0.5
     scale = d[:, :, None] * d[:, None, :]
     e = np.abs((h['cuda'] - h['cpu']) * scale).max((1, 2))
@@ -560,18 +590,303 @@ def hessians_at_one_point(sub, tms, gc):
     good = ~(bad['cuda'] | bad['cpu'])
     rel = np.abs(errs['cuda'] / errs['cpu'] - 1).max(1)
     may_flip = lam <= 4 * e
-    log(f'  Hessians at one point, float32 vs float64: max|E| per fiber '
-        f'{[float(f"{x:.3g}") for x in e]}; CPU min|eigenvalue| '
-        f'{[float(f"{x:.3g}") for x in lam]}; errors max |rel diff| '
-        f'(limit {ERR_TOL}, good Hessians) '
-        f'{[float(f"{x:.3g}") for x in rel]}; BAD_HESSIAN CUDA '
-        f'{bad["cuda"].astype(int).tolist()}, CPU '
-        f'{bad["cpu"].astype(int).tolist()}')
+
+    def show(x):
+        return ([float(f'{v:.3g}') for v in x] if len(x) <= 8
+                else f'max {np.max(x):.3g}')
+    log(f'  at one point (the CPU optimum), float32 vs float64: |dchi2| '
+        f'{show(dchi)} (limit {CHI_TOL}); Hessians max|E| per fiber '
+        f'{show(e)}; CPU min|eigenvalue| {show(lam)} (min '
+        f'{lam.min():.3g}); errors max |rel diff| (limit {ERR_TOL}, good '
+        f'Hessians) {show(rel[good])}; BAD_HESSIAN card '
+        f'{int(bad["cuda"].sum())}, CPU {int(bad["cpu"].sum())}, '
+        f'differing {int((bad["cuda"] != bad["cpu"]).sum())}')
+    check((dchi <= CHI_TOL).all(),
+          'the card\'s chi-square at one point disagrees with float64')
     check(((bad['cuda'] == bad['cpu']) | may_flip).all(),
           'a BAD_HESSIAN flag differs where float32 cannot flip it')
     check((rel[good] <= ERR_TOL).all(),
           'the CUDA Hessian errors at one point disagree with float64')
 
+
+# ------------------------------------------------------------------
+# the DESI driver: coadd files -> survey/desi.proc_many -> RVTAB/RVMOD
+
+NFILES = 4
+COALESCE = 2
+SETUPS = ('b', 'r', 'z')
+TID0 = 39620000000
+# RVTAB columns that need an EXPID column or a redrock file
+OPTIONAL_COLUMNS = ('EXPID', 'RR_Z', 'RR_SPECTYPE', 'RR_SUBTYPE')
+# the resolution-matrix comparison: NFIB_RES fibers, each smeared by a
+# Gaussian LSF of its own (sigma 0.35-0.5 A, 1.4-2 px) given as
+# width-RES_WIDTH bands, against templates of RES_SIGMA0 A lines
+NFIB_RES = 64
+RES_WIDTH = 11
+RES_SIGMA0 = 0.25
+C_KMS = 299792.458
+
+
+def write_coadd(path, arms_data, bands=None):
+    """A DESI coadd in bench.py's _build_e2e_coadd format (B/R/Z flux,
+    ivar, mask and wavelength, FIBERMAP, SCORES), written with the
+    port's fitsio; ``bands`` optionally {arm: (B, w, npix)} RESOLUTION
+    extensions."""
+    from rvspecfit_torch.io import fitsio
+    nfib = next(iter(arms_data.values()))[1].shape[0]
+    hdus = [dict(kind='image', data=None)]
+    for s, (lam, flux, ivar) in arms_data.items():
+        su = s.upper()
+        hdus += [
+            dict(kind='image', data=lam, name=f'{su}_WAVELENGTH'),
+            dict(kind='image', data=flux.astype(np.float32),
+                 name=f'{su}_FLUX'),
+            dict(kind='image', data=ivar.astype(np.float32),
+                 name=f'{su}_IVAR'),
+            dict(kind='image', data=np.zeros(flux.shape, np.int32),
+                 name=f'{su}_MASK')]
+        if bands is not None:
+            hdus.append(dict(kind='image', data=bands[s].astype(np.float32),
+                             name=f'{su}_RESOLUTION'))
+    hdus.append(dict(kind='table', name='FIBERMAP', data=[
+        ('TARGETID', np.arange(nfib, dtype=np.int64) + TID0),
+        ('TARGET_RA', np.linspace(0, 359, nfib)),
+        ('TARGET_DEC', np.zeros(nfib)),
+        ('FIBER', np.arange(nfib, dtype=np.int32)),
+        ('OBJTYPE', np.array(['TGT'] * nfib)),
+        ('FIBERSTATUS', np.zeros(nfib, np.int32)),
+        ('DESI_TARGET', np.full(nfib, 1 << 61, np.int64))]))
+    hdus.append(dict(kind='table', name='SCORES', data=[
+        ('MEDIAN_CALIB_SNR_' + s.upper(), np.full(nfib, 50.0))
+        for s in arms_data]))
+    fitsio.write(path, hdus)
+    return path
+
+
+def resolution_exposure(nfib, seed):
+    """``nfib`` fibers of the 3-arm layout at S/N 50, each smeared by
+    its own Gaussian LSF, and that LSF as dia-convention bands
+    (offsets +w..-w, each column summing to 1): (arms_data, bands,
+    truth)."""
+    from rvspecfit_torch import simulation
+    rng = np.random.RandomState(seed)
+    truth = dict(vel=rng.uniform(-500, 500, nfib),
+                 teff=rng.uniform(4500, 9500, nfib),
+                 logg=rng.uniform(1.0, 4.8, nfib),
+                 feh=rng.uniform(-1.9, -0.1, nfib),
+                 alpha=rng.uniform(0.05, 0.95, nfib))
+    sigmas = np.linspace(0.35, 0.5, nfib)
+    w2 = RES_WIDTH // 2
+    offs = np.arange(w2, -w2 - 1, -1)
+    arms, bands = {}, {}
+    for name, (l0, l1) in simulation.THREE_ARM_LAYOUT.items():
+        lam = np.linspace(l0, l1, NPIX_ARM)
+        flux = np.zeros((nfib, NPIX_ARM))
+        for i in range(nfib):
+            flux[i] = simulation.fake_spectrum(
+                lam / (1 + truth['vel'][i] / C_KMS), truth['teff'][i],
+                truth['logg'][i], truth['feh'][i], truth['alpha'][i],
+                wresol=sigmas[i])
+        esp = flux / 50.0
+        arms[name] = (lam, flux + rng.normal(size=flux.shape) * esp,
+                      1.0 / esp**2)
+        g = np.exp(-0.5 * (offs[None, :] * (lam[1] - lam[0])
+                           / sigmas[:, None])**2)
+        g /= g.sum(1, keepdims=True)
+        bands[name] = np.repeat(g[:, :, None], NPIX_ARM, axis=2)
+    return arms, bands, truth
+
+
+def per_setup(x):
+    return {f'desi_{s}': x for s in SETUPS}
+
+
+@contextlib.contextmanager
+def group_fits(records):
+    """Append to ``records``, for each group fit the driver runs, its
+    fibers, phases, wall time, kernel launches, arms and result."""
+    from rvspecfit_torch.survey import desi
+    real = desi._run_group_fit
+
+    def run(arms, templates, config, options, banks=None):
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        out = real(arms, templates, config, options, banks=banks)
+        wall = time.perf_counter() - t0
+        after = kernel_counts()
+        records.append(dict(
+            nfibers=arms[0].nfibers, phases=out['phases'], wall=wall,
+            launches={k: after[k] - before[k] for k in after}, arms=arms,
+            out=out))
+        return out
+    with mock.patch.object(desi, '_run_group_fit', run):
+        yield
+
+
+def read_status(path):
+    with open(path) as fp:
+        return [ln.split() for ln in fp.read().strip().splitlines()]
+
+
+def run_driver(workdir, tm, bank_d):
+    """The slice's main path on the card: NFILES 500-fiber coadds
+    through the port's proc_many at coalesce 2 (two groups of 1000
+    fibers, the first cold), crash isolation off.  Checks the status
+    lines, the RVTAB schema and rows, RV recovery per file and RVMOD,
+    and that every kernel of the path was launched."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import desi
+    t0 = time.perf_counter()
+    files, truths = [], []
+    for i in range(NFILES):
+        arms_data, truth = simulation.make_exposure(
+            NFIBERS, npix_arm=NPIX_ARM, snr=50.0, seed=100 + i)
+        files.append(write_coadd(
+            os.path.join(workdir, f'coadd-bench{i}.fits'), arms_data))
+        truths.append(truth)
+    log(f'driver inputs: {NFILES} coadds of {NFIBERS} fibers x 3 arms x '
+        f'{NPIX_ARM} px ({time.perf_counter() - t0:.1f} s)')
+    outdir = os.path.join(workdir, 'out')
+    status = os.path.join(workdir, 'status.txt')
+    records = []
+    reset_counts()
+    t_start = time.time()
+    t0 = time.perf_counter()
+    with group_fits(records):
+        desi.proc_many(files, outdir, config=CONFIG, options=OPTIONS,
+                       status_fname=status, coalesce=COALESCE,
+                       templates=per_setup(tm), banks=per_setup(bank_d),
+                       throw_exceptions=True)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    log(f'driver: {NFILES} files at coalesce {COALESCE} in {wall:.3f} s; '
+        f'kernel launches {counts}')
+    check(all(v > 0 for v in counts.values()),
+          f'a kernel of the driver path was not launched: {counts}')
+
+    lines = read_status(status)
+    check([ln[0] for ln in lines] == files
+          and all(ln[1:3] == ['SUCCESS', str(NFIBERS)] and len(ln) == 5
+                  for ln in lines),
+          f'status lines: {lines}')
+    stamps = [float(ln[4]) for ln in lines]
+    steady = (stamps[-1] - stamps[COALESCE - 1]) / (NFILES - COALESCE)
+    cold = stamps[COALESCE - 1] - t_start
+    log(f'driver status: per-file seconds {[float(ln[3]) for ln in lines]};'
+        f' cold group {cold:.3f} s ({COALESCE} files); steady '
+        f'{steady:.3f} s/file from completion times -> '
+        f'{NFIBERS / steady:.1f} fibers/s')
+    check(len(records) == NFILES // COALESCE
+          and all(r['nfibers'] == COALESCE * NFIBERS for r in records),
+          f'group fits: {[r["nfibers"] for r in records]}')
+    for g, r in enumerate(records):
+        log(f'  group {g} ({r["nfibers"]} fibers): ' + ' '.join(
+            f'{k}={r["phases"][k]:.3f}s' for k in PHASES)
+            + f' fit={r["wall"]:.3f}s; launches {r["launches"]}')
+
+    desc = desi.get_column_desc([s.upper() for s in SETUPS])
+    recovered = []
+    for f, truth in zip(files, truths):
+        tab_path, mod_path = desi.output_paths(f, outdir)
+        rv = fitsio.read(tab_path)['RVTAB'].data
+        check(np.array_equal(rv['TARGETID'], np.arange(NFIBERS) + TID0),
+              f'{f}: RVTAB rows are not the {NFIBERS} targets in order')
+        for k, (dtype, _, _) in desc.items():
+            check(k in OPTIONAL_COLUMNS
+                  or (k in rv and rv[k].dtype == np.dtype(dtype)),
+                  f'{f}: RVTAB column {k} missing or not {dtype}')
+        ok = np.abs(rv['VRAD'] - truth['vel']) < np.maximum(
+            10.0, 5 * rv['VRAD_ERR'])
+        recovered.append(int(ok.sum()))
+        check(ok.sum() >= 0.98 * NFIBERS,
+              f'{f}: RV recovery {ok.sum()}/{NFIBERS}')
+        mod = fitsio.read(mod_path)
+        for s in SETUPS:
+            m = mod[f'{s.upper()}_MODEL'].data
+            check(m.shape == (NFIBERS, NPIX_ARM) and m.dtype == np.float32
+                  and np.isfinite(m).all(), f'{f}: {s} RVMOD')
+    log(f'driver RV recovery per file (of {NFIBERS}, within max(10, 5 '
+        f'sigma)): {recovered}; RVTAB has every column of '
+        f'get_column_desc with its dtype; RVMOD ({NFIBERS}, {NPIX_ARM}) '
+        'float32 per arm')
+    group_truth = {k: np.concatenate([t[k] for t in truths[-COALESCE:]])
+                   for k in truths[0]}
+    return dict(counts=counts, records=records, steady=steady, cold=cold,
+                wall=wall, recovered=recovered, truth=group_truth)
+
+
+def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
+                       config=CONFIG, check_params=True):
+    """One coadd through proc_many on the card (float32, kernels) and on
+    the CPU (float64, plain versions): same columns, TARGETID and
+    SUCCESS; RVS_WARN equal but for BAD_HESSIAN, whose flips are held
+    to the one-point test (hessians_at_one_point, which also holds the
+    chi-square at the CPU optimum); |dv| <= max(1 km/s, sigma/2), sigma
+    the CPU's errors.  With ``check_params``, the parameters within
+    sigma/2 of the CPU's too; else logged only.  A witness beside it,
+    the card in float32 with the plain versions in place of the
+    kernels (it launches none), tells float32 arithmetic from a kernel
+    at fault."""
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import desi
+    path = write_coadd(os.path.join(workdir, f'coadd-{name}.fits'),
+                       arms_data, bands)
+    tabs, recs = {}, {}
+    for key in ('cuda', 'cpu', 'witness'):
+        records = []
+        outdir = os.path.join(workdir, f'out-{name}-{key}')
+        dev = 'cpu' if key == 'cpu' else 'cuda'
+        counts = kernel_counts()
+        t0 = time.perf_counter()
+        with group_fits(records), (plain_versions() if key == 'witness'
+                                   else contextlib.nullcontext()):
+            desi.proc_many([path], outdir, config=config, options=OPTIONS,
+                           coalesce=COALESCE, templates=per_setup(tms[dev]),
+                           banks=per_setup(banks[dev]),
+                           throw_exceptions=True,
+                           use_resolution_matrix=bands is not None)
+        log(f'{name}: driver on {key} {time.perf_counter() - t0:.2f} s')
+        if key == 'witness':
+            check(counts == kernel_counts(),
+                  'the witness run launched a kernel')
+        tabs[key] = fitsio.read(desi.output_paths(path, outdir)[0])[
+            'RVTAB'].data
+        recs[key] = records[0]
+    g, c = tabs['cuda'], tabs['cpu']
+    bh = desi.bitmasks['BAD_HESSIAN']
+    check(list(g) == list(c), f'{name}: RVTAB columns differ')
+    check(np.array_equal(g['TARGETID'], c['TARGETID']),
+          f'{name}: TARGETID differs')
+    check(np.array_equal(g['SUCCESS'], c['SUCCESS']),
+          f'{name}: SUCCESS differs')
+    check(np.array_equal(g['RVS_WARN'] & ~bh, c['RVS_WARN'] & ~bh),
+          f'{name}: RVS_WARN differs beyond BAD_HESSIAN')
+    lim = np.maximum(1.0, 0.5 * c['VRAD_ERR'])
+    pars = ('TEFF', 'LOGG', 'FEH', 'ALPHAFE')
+
+    def spread(t):
+        dv = np.abs(t['VRAD'] - c['VRAD']) / lim
+        dp = np.stack([np.abs(t[p] - c[p]) / c[p + '_ERR']
+                       for p in pars], 1)
+        return dv, dp
+    (dv, dp), (wdv, wdp) = spread(g), spread(tabs['witness'])
+    good = np.isfinite(dp).all(1)
+    flips = int(((g['RVS_WARN'] ^ c['RVS_WARN']) & bh).astype(bool).sum())
+    log(f'{name}: {len(c["TARGETID"])} fibers, card float32 vs CPU '
+        f'float64: max |dv|/limit {dv.max():.4f} (limit max(1 km/s, '
+        f'sigma/2)); max |dp|/sigma {np.nanmax(dp):.4f}, over 0.5 for '
+        f'{int((dp > 0.5).any(1).sum())} fibers ({int(good.sum())} with '
+        f'finite CPU errors); witness (float32, plain versions): max '
+        f'|dv|/limit {wdv.max():.4f}, max |dp|/sigma {np.nanmax(wdp):.4f}, '
+        f'over 0.5 for {int((wdp > 0.5).any(1).sum())}; BAD_HESSIAN flips '
+        f'at own optima {flips}; SUCCESS {int(g["SUCCESS"].sum())}/'
+        f'{len(g["SUCCESS"])} on both')
+    check((dv <= 1).all(), f'{name}: card velocities disagree with CPU')
+    if check_params:
+        check((dp[good] <= 0.5).all(),
+              f'{name}: card parameters disagree with CPU')
+    hessians_at_one_point(recs['cpu']['arms'], tms, recs['cpu']['out'])
 
 def main():
     import torch
@@ -593,7 +908,8 @@ def main():
     res_a = check_kernel_a(tm, arms, truth, device)
     res_adj = check_adjoint(tm, arms, truth, device)
     bank_nocont = make_nocont_bank(device)
-    res_b = check_kernel_b(arms, banks[arms[0].name], bank_nocont, device)
+    res_b = check_kernel_b(arms, {'continuum': banks[arms[0].name],
+                                  'no-continuum': bank_nocont}, device)
 
     t0 = time.perf_counter()
     run_group_fit(tm, arms, banks)
@@ -624,46 +940,105 @@ def main():
         f'{np.median(out["ref"]["vel_err"]):.3f} km/s')
     check(ok.sum() >= 490, 'RV recovery below 490/500')
 
-    check_against_cpu(arms, bank, device, tm)
+    tm_cpu = check_against_cpu(arms, bank, device, tm)
+    del out
+
+    from rvspecfit_torch import simulation
+    cpu = torch.device('cpu')
+    bank_d = banks[arms[0].name]
+    bank_cpu = convert.ccf_bank(*bank, device=cpu)
+    with tempfile.TemporaryDirectory() as workdir:
+        drv = run_driver(workdir, tm, bank_d)
+        group = drv['records'][-1]
+        log(f'kernels at the shapes of a {group["nfibers"]}-fiber driver '
+            'group:')
+        res_a_grp = check_kernel_a(tm, group['arms'], drv['truth'], device)
+        res_adj_grp = check_adjoint(tm, group['arms'], drv['truth'], device)
+        res_b_grp = check_kernel_b(group['arms'], {'continuum': bank_d},
+                                   device)['continuum']
+        per_group = [r['launches'] for r in drv['records']]
+        drv['records'] = group = None
+        cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
+                                               snr=50.0, seed=7)
+        driver_against_cpu(workdir, 'coadd8', cmp_arms,
+                           {'cuda': tm, 'cpu': tm_cpu},
+                           {'cuda': bank_d, 'cpu': bank_cpu})
+        res_data, bands, _ = resolution_exposure(NFIB_RES, seed=8)
+        narrow = {key: make_template_model(d, wresol=RES_SIGMA0)
+                  for key, d in (('cuda', device), ('cpu', cpu))}
+        # parameters at each run's own optimum are logged, not checked:
+        # over 64 fibers the float32 Nelder-Mead ends up to ~1 sigma
+        # from the float64 one with or without the kernels (the
+        # witness, PERF.md); the chi-square and the Hessian are checked
+        # at one point instead
+        driver_against_cpu(
+            workdir, f'coadd{NFIB_RES}res', res_data, narrow,
+            {'cuda': bank_d, 'cpu': bank_cpu}, bands=bands,
+            config=dict(CONFIG, lsf_sigma0_angstrom={
+                s: RES_SIGMA0 for s in SETUPS}), check_params=False)
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
+    dc = drv['counts']
     shared, row = res_a['shared'], res_a['per-row']
     cont, nocont = res_b['continuum'], res_b['no-continuum']
+    g_shared, g_row = res_a_grp['shared'], res_a_grp['per-row']
+    group_n = COALESCE * NFIBERS
     kernels = [
         dict(name='spline_eval', route='cuda',
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/ops/pallas_spline.py:200',
-             launches=counts['spline_eval'],
-             launches_per_row_mode=counts['spline_eval_per_row'],
-             launches_shared_mode=counts['spline_eval_shared'],
-             max_abs_err=max(r['max_abs_err'] for r in res_a.values()),
+             launches=dc['spline_eval'],
+             launches_per_row_mode=dc['spline_eval_per_row'],
+             launches_shared_mode=dc['spline_eval_shared'],
+             launches_per_driver_group=[g['spline_eval'] for g in per_group],
+             launches_group_fit_warm_pass=counts['spline_eval'],
+             max_abs_err=max(r['max_abs_err'] for r in
+                             (*res_a.values(), *res_a_grp.values())),
              ms=shared['ms'], plain_ms=shared['plain_ms'],
              bound_ms=shared['bound_ms'], bound_by='bytes',
              library_ms=None,
              ms_per_row_mode=row['ms'],
              ms_per_row_mode_eager=row['eager_ms'],
              plain_ms_per_row_mode=row['plain_ms'],
-             bound_ms_per_row_mode=row['bound_ms']),
+             bound_ms_per_row_mode=row['bound_ms'],
+             **{f'{k}_B{group_n}': v for k, v in (
+                 ('ms', g_shared['ms']), ('plain_ms', g_shared['plain_ms']),
+                 ('bound_ms', g_shared['bound_ms']),
+                 ('ms_per_row_mode', g_row['ms']),
+                 ('plain_ms_per_row_mode', g_row['plain_ms']),
+                 ('bound_ms_per_row_mode', g_row['bound_ms']))}),
         dict(name='ccf_chisq', route='cuda',
              source='rvspecfit_torch/csrc/ccf_chisq.cu',
              replaces='rvspecfit_tpu/ops/pallas_ccf.py:159',
-             launches=counts['ccf_chisq'],
-             max_abs_err=cont['max_abs_err'], ms=cont['ms'],
+             launches=dc['ccf_chisq'],
+             launches_per_driver_group=[g['ccf_chisq'] for g in per_group],
+             launches_group_fit_warm_pass=counts['ccf_chisq'],
+             max_abs_err=max(cont['max_abs_err'], res_b_grp['max_abs_err']),
+             ms=cont['ms'],
              plain_ms=cont['plain_ms'], bound_ms=cont['bound_ms'],
              bound_by='operations', library_ms=cont['library_ms'],
              max_abs_err_no_continuum=nocont['max_abs_err'],
              ms_no_continuum=nocont['ms'],
              plain_ms_no_continuum=nocont['plain_ms'],
-             bound_ms_no_continuum=nocont['bound_ms']),
+             bound_ms_no_continuum=nocont['bound_ms'],
+             **{f'{k}_B{group_n}': res_b_grp[k] for k in (
+                 'ms', 'plain_ms', 'bound_ms', 'library_ms')}),
         dict(name='spline_eval_adjoint', route='cuda',
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/fit/batch.py:396',
-             launches=counts['spline_eval_adjoint'],
-             max_abs_err=res_adj['max_abs_err'], ms=res_adj['ms'],
+             launches=dc['spline_eval_adjoint'],
+             launches_per_driver_group=[g['spline_eval_adjoint']
+                                        for g in per_group],
+             launches_group_fit_warm_pass=counts['spline_eval_adjoint'],
+             max_abs_err=max(res_adj['max_abs_err'],
+                             res_adj_grp['max_abs_err']),
+             ms=res_adj['ms'],
              plain_ms=res_adj['plain_ms'], bound_ms=res_adj['bound_ms'],
              bound_by='bytes', library_ms=None,
-             ms_eager=res_adj['eager_ms']),
+             ms_eager=res_adj['eager_ms'],
+             **{f'{k}_B{group_n}': res_adj_grp[k] for k in (
+                 'ms', 'plain_ms', 'bound_ms')}),
     ]
     print(smi)
     print(json.dumps(dict(kernels=kernels)))

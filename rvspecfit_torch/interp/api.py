@@ -22,6 +22,8 @@ class TemplateModel:
     geom: SplineGeometry
     parnames: tuple
     log_ids: tuple               # parameter indices interpolated in log10
+    # provenance (revision, creation_soft_version) for output headers
+    extra: dict = dataclasses.field(default_factory=dict, compare=False)
 
     @property
     def log_step(self):

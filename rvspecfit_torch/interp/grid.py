@@ -104,13 +104,15 @@ def interp_batch(state: GridInterpState, params):
     cid = state.idgrid[flat]
     all_known = inb & (cid >= 0).all(1)
 
-    # nearest template in the ptp-scaled metric (fallback + distance)
-    q = p_safe * state.ptp_inv
-    vs = state.vecs_scaled
-    d2 = ((q * q).sum(1)[:, None] - 2.0 * (q @ vs.T)
-          + (vs * vs).sum(1)[None, :])
+    # nearest template in the ptp-scaled metric (fallback + distance),
+    # from the differences: in float32 the expanded |q|^2 - 2 q.v +
+    # |v|^2 (|q|^2 ~ 100) loses ~2e-4 of the distance to cancellation,
+    # which the out-of-grid penalty (distance x badchi) turns into
+    # chi-square errors of order 10
+    diff = (p_safe * state.ptp_inv)[:, None, :] - state.vecs_scaled
+    d2 = (diff * diff).sum(-1)
     nearest = torch.argmin(d2, dim=1)
-    nn_dist = torch.sqrt(torch.clamp(d2.min(1).values, min=0.0))
+    nn_dist = torch.sqrt(d2.min(1).values)
     fallback_id = torch.where(finite, nearest, 0)
 
     known = all_known[:, None]

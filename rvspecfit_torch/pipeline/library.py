@@ -5,9 +5,9 @@ rvspecfit_tpu/pipeline/library.py.  :func:`read_template_artifacts`
 reads ``interp_{setup}.h5`` and ``interpdat_{setup}.npy`` (the names
 make_nd writes) from ``config['template_lib']`` on the host;
 :func:`template_model_from_artifacts` builds the TemplateModel on a
-device from those arrays; :func:`load_template_model` does both.  The
-NN and triangulation interpolators are not ported: their libraries
-raise.
+device from those arrays; :func:`load_template_model` does both, and
+:func:`load_template_models` for several setups.  The NN and
+triangulation interpolators are not ported: their libraries raise.
 """
 from __future__ import annotations
 
@@ -59,10 +59,13 @@ def template_model_from_artifacts(fd, dats, device=None):
     geom = SplineGeometry.from_knots(np.asarray(fd['lam'], np.float64),
                                      log_step=bool(fd['log_step']),
                                      device=device)
+    extra = dict(revision=str(fd.get('revision') or ''),
+                 creation_soft_version=str(fd.get('git_rev') or ''))
     return TemplateModel(state=state, geom=geom,
                          parnames=tuple(str(p) for p in fd['parnames']),
                          log_ids=tuple(int(x)
-                                       for x in fd.get('log_ids', (0,))))
+                                       for x in fd.get('log_ids', (0,))),
+                         extra=extra)
 
 
 def load_template_model(setup, config, device=None):
@@ -70,3 +73,10 @@ def load_template_model(setup, config, device=None):
     ``device`` (None: the CUDA card)."""
     return template_model_from_artifacts(
         *read_template_artifacts(setup, config), device=device)
+
+
+def load_template_models(config, setups, device=None):
+    """{setup: TemplateModel} of several setups from
+    ``config['template_lib']`` on ``device`` (None: the CUDA card)."""
+    return {s: load_template_model(s, config, device=device)
+            for s in setups}

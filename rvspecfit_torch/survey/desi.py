@@ -1,29 +1,707 @@
-"""DESI survey fit: the device stage of one fiber group.
+"""DESI batch-fitting driver (``rvstorch_desi_fit``).
 
-Counterpart of ``_run_group_fit`` in rvspecfit_tpu/survey/desi.py, its
-synchronous branch (``RVST_DEFER_TAIL=0``): CCF starts -> Nelder-Mead
--> gradient polish -> velocity refinement -> AD Hessian errors ->
-best-fit models.  File I/O, fiber selection, resolution matrices and
-the RVTAB/RVMOD writers are not ported yet, nor the deferred tail, the
-compile warm-up and the brute-force first guess (``ccf_init=False``).
-A CCF failure raises (the reference logs it and starts every fiber at
-the default parameters).
+Counterpart of rvspecfit_tpu/survey/desi.py, run synchronously.  Per
+group of ``--coalesce`` consecutive files:
+
+ 1. read each coadd/spectra file (io/fitsio), check its extensions;
+ 2. per-fiber S/N (SCORES, or the median of the data); select fibers
+    (fiberstatus, OBJTYPE, target bits, min S/N, targetid list, expid
+    range, optional redrock star selection);
+ 3. build the stacked arms on the host: bad-pixel and dichroic masks,
+    linear infill, large-error masking, error clamping and optional
+    per-fiber banded resolution matrices with the template LSF
+    deconvolved;
+ 4. fit the group's fibers as one batch (:func:`_run_group_fit`): CCF
+    first guess (kernel B) -> Nelder-Mead -> gradient polish ->
+    velocity refinement -> AD Hessian errors -> best-fit models (kernel
+    A and its adjoint);
+ 5. RVS_WARN bits, RVTAB + RVMOD written atomically, status lines,
+    skipexisting, per-file crash isolation (a failed group fit is
+    retried file by file).
+
+Differences from the reference, by design:
+- the stages run one after another: no lookahead reads, no prep or
+  CCF of the next group during this group's fit, no deferred tail and
+  no writer thread;
+- a template-loading failure raises, and so does a CCF failure: under
+  crash isolation that file gets a FAILURE status line (the reference
+  starts every fiber at default parameters);
+- not ported: the lock-file and dynamic queues, rank/world sharding,
+  plots, and the brute-force first guess (``--param_init``).
 """
 from __future__ import annotations
 
+import argparse
+import functools
+import hashlib
+import importlib.metadata
 import logging
+import os
+import re
+import sys
 import time
+import traceback
+import warnings
 
 import numpy as np
 
+from rvspecfit_torch import __version__, utils
+from rvspecfit_torch.device import resolve_device
 from rvspecfit_torch.fit import ccf as ccf_mod
 from rvspecfit_torch.fit import vel_fit
-from rvspecfit_torch.fit.batch import BatchedFitter
+from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
+from rvspecfit_torch.io import fitsio
+from rvspecfit_torch.pipeline import library
+
+TABLE_PREFIX = 'rvtab'
+MODEL_PREFIX = 'rvmod'
+
+bitmasks = dict(CHISQ_WARN=1, RV_WARN=2, RVERR_WARN=4, PARAM_WARN=8,
+                VSINI_WARN=16, BAD_SPECTRUM=32, BAD_HESSIAN=64)
+
+PROC_STATUS_SUCCESS = 'SUCCESS'
+PROC_STATUS_FAILURE = 'FAILURE'
+PROC_STATUS_EXISTING = 'EXISTING'
 
 # start parameters of a fiber whose CCF chi-square is not finite
 DEFAULT_START = (5000.0, 3.0, -1.0, 0.2)
-# CCF-stage column names of the parameters (reference schema)
-CCF_NAMES = dict(teff='TEFF', logg='LOGG', feh='FEH', alpha='ALPHAFE')
+# RVTAB column names of the template parameters (reference schema)
+PARAM_NAMES = dict(teff='TEFF', logg='LOGG', feh='FEH', alpha='ALPHAFE')
+
+
+def update_process_status_file(status_fname, processed_file, status,
+                               nobjects, time_sec, start=False,
+                               finished_at=None):
+    """Append one line per file, so that a restart knows what is done:
+    ``file status nobjects seconds finished_at`` (reference:
+    desi_fit.py:61-74, plus the unix time the file's outputs were
+    completed, whose differences give the steady period per file).
+    ``start=True`` truncates the file first."""
+    if start:
+        with open(status_fname, 'w'):
+            pass
+        if processed_file is None:
+            return
+    if finished_at is None:
+        finished_at = time.time()
+    with open(status_fname, 'a') as fp:
+        print(f'{processed_file} {status} {nobjects} {time_sec:.2f} '
+              f'{finished_at:.3f}', file=fp)
+
+
+# ------------------- resolution matrix handling -------------------
+# Every function takes stacked (B, width, npix) bands, so an exposure's
+# resolution matrices are prepared with a handful of array ops (one
+# batched linear solve) instead of a per-fiber loop.
+
+def _band_torows(mats):
+    """dia-convention bands (offsets +w2..-w2, column-indexed) ->
+    row-indexed bands.  (..., w, npix) -> (..., w, npix); row k of the
+    output multiplies input pixel i + (k - w2) for output pixel i."""
+    mats = np.asarray(mats)
+    w = mats.shape[-2]
+    w2 = w // 2
+    out = np.empty_like(mats)
+    for k in range(w):
+        out[..., w - 1 - k, :] = np.roll(mats[..., k, :], k - w2,
+                                         axis=-1)
+    return out
+
+
+def _band_tocolumns(rows):
+    """Inverse of :func:`_band_torows`."""
+    rows = np.asarray(rows)
+    w = rows.shape[-2]
+    w2 = w // 2
+    out = np.empty_like(rows)
+    for k in range(w):
+        out[..., k, :] = np.roll(rows[..., w - 1 - k, :], w2 - k,
+                                 axis=-1)
+    return out
+
+
+def deconvolve_resolution_matrix(mats, sigma0_angstrom=0.5,
+                                 pix_size_angstrom=0.8):
+    """Deconvolve the template LSF (sigma0) out of DESI banded
+    resolution matrices by solving the band-width-domain Gaussian
+    system, for the whole stack in one broadcast ``np.linalg.solve``
+    (reference math: desi_fit.py:694-720).
+
+    mats : (w, npix) or (B, w, npix) dia-convention bands."""
+    mats = np.asarray(mats, np.float64)
+    single = mats.ndim == 2
+    if single:
+        mats = mats[None]
+    width, npix = mats.shape[-2:]
+    sig_pix = sigma0_angstrom / pix_size_angstrom
+    xs = np.arange(width)
+    gau = np.exp(-0.5 * ((xs[None, :] - xs[:, None]) / sig_pix)**2) \
+        / np.sqrt(2 * np.pi) / sig_pix
+    w2 = width // 2
+    rows = _band_torows(mats)
+    # zero the band entries that would reach out of the spectrum
+    for i in range(w2):
+        rows[:, :w2 - i - 1, i] = 0
+        rows[:, w2 + 1 + i:, npix - 1 - i] = 0
+    rows1 = np.linalg.solve(np.broadcast_to(gau, (len(mats),) + gau.shape),
+                            rows)
+    out = _band_tocolumns(rows1)
+    return out[0] if single else out
+
+
+def prepare_resolution_band(mats, pix_size_angstrom=None,
+                            sigma0_angstrom=None):
+    """Deconvolve + edge-renormalize banded resolutions; returns
+    row-indexed band data for fit/batch.BatchArm's ``resolution``
+    (reference edge handling: desi_fit.py:723-748), vectorized over
+    the fiber axis.
+
+    mats : (w, npix) or (B, w, npix); returns the same leading shape.
+    rows[..., k, i] = M[i, i + (k - w2)]."""
+    mats = np.asarray(mats, np.float64)
+    single = mats.ndim == 2
+    if single:
+        mats = mats[None]
+    dec = deconvolve_resolution_matrix(
+        mats, sigma0_angstrom=sigma0_angstrom,
+        pix_size_angstrom=pix_size_angstrom)
+    width, npix = dec.shape[-2:]
+    w2 = width // 2
+    rows = _band_torows(dec)
+    mult = np.median(rows.sum(axis=1), axis=-1)           # (B,)
+    mult = np.where(mult == 0, 1.0, mult)
+    for i in range(w2):
+        n1 = rows[:, w2 - i:, i].sum(axis=1)
+        rows[:, :, i] *= (mult / (n1 + (n1 == 0)))[:, None]
+        j = npix - 1 - i
+        n2 = rows[:, :w2 + 1 + i, j].sum(axis=1)
+        rows[:, :, j] *= (mult / (n2 + (n2 == 0)))[:, None]
+    return rows[0] if single else rows
+
+
+# ------------------- host statistics of the arms ------------------
+# numpy copies of rvspecfit_tpu/ops/continuum.py's masked_median and
+# infill_bad_pixels: the driver's prep runs on the host in float64,
+# before any of the group's data is on a device.
+
+def masked_median(x, good):
+    """Per-row median of ``x`` over pixels where ``good`` is True and
+    ``x`` is finite (±inf dropped, unlike np.nanmedian); NaN for rows
+    with no such pixel.  x, good : (B, npix) -> (B,)."""
+    x = np.atleast_2d(np.asarray(x, np.float64))
+    good = np.atleast_2d(np.asarray(good, bool))
+    filled = np.where(good, x, np.inf)
+    filled[~np.isfinite(filled)] = np.inf
+    s = np.sort(filled, axis=1)
+    n = (s < np.inf).sum(axis=1)
+    rows = np.arange(s.shape[0])
+    n_c = np.maximum(n, 1)
+    med = 0.5 * (s[rows, (n_c - 1) // 2] + s[rows, n_c // 2])
+    return np.where(n > 0, med, np.nan)
+
+
+def infill_bad_pixels(lam, specs, badmask):
+    """Replace masked pixels by linear interpolation between the
+    nearest good neighbours; edge runs take the nearest good value.
+    Fully masked rows keep their values with non-finite ones set to 1.
+    lam : (npix,); specs, badmask : (B, npix) -> (B, npix)."""
+    specs = np.atleast_2d(np.asarray(specs, np.float64))
+    badmask = np.atleast_2d(np.asarray(badmask, bool))
+    bad_rows = badmask.any(axis=1)
+    if not bad_rows.all():
+        out = specs.copy()
+        if bad_rows.any():
+            out[bad_rows] = infill_bad_pixels(
+                lam, specs[bad_rows], badmask[bad_rows])
+        return out
+
+    b, npix = specs.shape
+    good = ~badmask
+    cols = np.arange(npix)
+    # nearest good index to the left / right via cumulative scans
+    li = np.maximum.accumulate(np.where(good, cols, -1), axis=1)
+    ri = np.flip(np.minimum.accumulate(
+        np.flip(np.where(good, cols, npix), 1), axis=1), 1)
+    li_c = np.clip(li, 0, npix - 1)
+    ri_c = np.clip(ri, 0, npix - 1)
+    rows = np.arange(b)[:, None]
+    sl = specs[rows, li_c]
+    sr = specs[rows, ri_c]
+    ll = lam[li_c]
+    lr = lam[ri_c]
+    denom = lr - ll
+    with np.errstate(invalid='ignore', divide='ignore'):
+        interp = (sl * (lr - lam[None, :]) + sr * (lam[None, :] - ll)) \
+            / np.where(denom == 0, 1.0, denom)
+    has_l = li >= 0
+    has_r = ri <= npix - 1
+    filled = np.where(has_l & has_r, np.where(denom == 0, sl, interp),
+                      np.where(has_l, sl, sr))
+    out = np.where(badmask, filled, specs)
+    allbad = ~good.any(axis=1)
+    if allbad.any():
+        logging.warning('All pixels masked for %d spectra',
+                        int(allbad.sum()))
+        orig = specs[allbad]
+        out[allbad] = np.where(np.isfinite(orig), orig, 1.0)
+    return out
+
+
+# ------------------------- file reading ---------------------------
+
+def valid_file(fp, setups):
+    """Check the file has every needed extension
+    (reference: desi_fit.py:225-245)."""
+    names = {str(n).upper() for n in fp.names()}
+    needed = {'FIBERMAP'}
+    for s in setups:
+        for kind in ('WAVELENGTH', 'FLUX', 'IVAR', 'MASK'):
+            needed.add(f'{s.upper()}_{kind}')
+    missing = needed - names
+    if missing:
+        logging.error('Missing extensions: %s', sorted(missing))
+        return False
+    return True
+
+
+def read_data(fp, setups):
+    """Per-setup flux, ivar, mask, wavelength and resolution (None
+    where the file has no RESOLUTION extension) of an open file."""
+    fluxes, ivars, masks, waves, resolutions = {}, {}, {}, {}, {}
+    for s in setups:
+        su = s.upper()
+        fluxes[s] = np.atleast_2d(fp[f'{su}_FLUX'].data)
+        ivars[s] = np.atleast_2d(fp[f'{su}_IVAR'].data)
+        masks[s] = np.atleast_2d(fp[f'{su}_MASK'].data)
+        waves[s] = np.asarray(fp[f'{su}_WAVELENGTH'].data).ravel()
+        resolutions[s] = fp[f'{su}_RESOLUTION'].data \
+            if f'{su}_RESOLUTION' in fp else None
+    return fluxes, ivars, masks, waves, resolutions
+
+
+def get_sns(data, ivars, masks):
+    """Median per-fiber S/N (reference: desi_fit.py:444-456)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        bad = (ivars <= 0) | (masks > 0)
+        xsn = data * np.sqrt(np.where(bad, 0, ivars))
+        sns = masked_median(xsn, ~bad)
+        sns[~np.isfinite(sns)] = -1e9
+    return sns
+
+
+def get_sns_from_scores(scores, setups):
+    """Per-arm S/N from the SCORES extension when available
+    (reference: desi_fit.py:1076-1091); None -> compute from data."""
+    if scores is None:
+        return None
+    for prefix in ('MEDIAN_CALIB_SNR_', 'MEDIAN_COADD_SNR_',
+                   'MEDIAN_COADD_FLUX_SNR_'):
+        if all(prefix + s.upper() in scores for s in setups):
+            return {s: np.asarray(scores[prefix + s.upper()],
+                                  np.float64) for s in setups}
+    return None
+
+
+def fiberstatus_select(fibermap):
+    """Good-fiberstatus subset (reference: desi_fit.py:524-543)."""
+    good_bits = np.array([3, 20], dtype=int)
+    good = int(np.sum(1 << good_bits))
+    if 'FIBERSTATUS' in fibermap:
+        col = fibermap['FIBERSTATUS']
+    elif 'COADD_FIBERSTATUS' in fibermap:
+        col = fibermap['COADD_FIBERSTATUS']
+    else:
+        raise RuntimeError('Fiberstatus column not found')
+    return (col & good) == col
+
+
+# Target bit-name tables (public DESI data model / desitarget
+# targetmask yamls), embedded per survey phase because the desitarget
+# package is not a dependency; the selection dispatches on whichever
+# target column the FIBERMAP carries (CMX_TARGET / SV{1,2,3}_DESI_TARGET
+# / DESI_TARGET).  --targetmask_yaml extends a table, --objtype_mask
+# gives bits directly.
+
+# bits desitarget pins at fixed positions across all survey phases
+_COMMON_TARGET_BITS = {
+    'SKY': 32, 'STD_FAINT': 33, 'STD_WD': 34, 'STD_BRIGHT': 35,
+    'BAD_SKY': 36, 'SUPP_SKY': 37,
+    'NO_TARGET': 57, 'BRIGHT_OBJECT': 58, 'IN_BRIGHT_OBJECT': 59,
+    'BGS_ANY': 60, 'MWS_ANY': 61, 'SCND_ANY': 62,
+}
+
+DESI_TARGET_BITS = dict(
+    LRG=0, ELG=1, QSO=2, LRG_1PASS=3, LRG_2PASS=4,
+    ELG_LOP=5, ELG_HIP=6, ELG_VLO=7, **_COMMON_TARGET_BITS)
+
+# SV2/SV3 desi_mask science sub-bits (sv2/sv3_targetmask.yaml)
+_SV23_BITS = dict(
+    LRG=0, ELG=1, QSO=2, LRG_LOWDENS=3,
+    ELG_LOP=5, ELG_HIP=6, ELG_VLO=7, **_COMMON_TARGET_BITS)
+# SV1: the headline science bits only
+_SV1_BITS = dict(LRG=0, ELG=1, QSO=2, **_COMMON_TARGET_BITS)
+# commissioning: the pinned convention bits only
+_CMX_BITS = dict(_COMMON_TARGET_BITS)
+
+# dispatch priority mirrors desitarget.targets.main_cmx_or_sv:
+# commissioning first, then SV, then the main survey
+TARGET_COLUMN_TABLES = (
+    ('CMX_TARGET', _CMX_BITS),
+    ('SV1_DESI_TARGET', _SV1_BITS),
+    ('SV2_DESI_TARGET', _SV23_BITS),
+    ('SV3_DESI_TARGET', _SV23_BITS),
+    ('DESI_TARGET', DESI_TARGET_BITS),
+)
+
+
+def target_column(fibermap, extra_tables=None):
+    """(column_name, bit_table) for the target column this FIBERMAP
+    carries, or (None, None) when it has none.  ``extra_tables``
+    ({column: {NAME: bit}}, from :func:`load_targetmask_yaml`) extends
+    the embedded table of the active column."""
+    for col, table in TARGET_COLUMN_TABLES:
+        if col in fibermap:
+            if extra_tables and col in extra_tables:
+                table = {**table, **extra_tables[col]}
+            return col, table
+    return None, None
+
+
+# desitarget yaml section name -> fibermap target column
+_YAML_MASK_COLUMNS = {
+    'cmx_mask': 'CMX_TARGET',
+    'sv1_desi_mask': 'SV1_DESI_TARGET',
+    'sv2_desi_mask': 'SV2_DESI_TARGET',
+    'sv3_desi_mask': 'SV3_DESI_TARGET',
+    'desi_mask': 'DESI_TARGET',
+}
+
+
+def load_targetmask_yaml(paths):
+    """{column: {NAME: bit}} tables for :func:`target_column` from
+    desitarget-format targetmask yaml file(s) (``{<mask_name>: [[NAME,
+    bit, comment, extra], ...]}``); only the ``*_desi_mask`` /
+    ``cmx_mask`` / ``desi_mask`` sections are read."""
+    import yaml
+    if isinstance(paths, str):
+        paths = [paths]
+    out = {}
+    for path in paths:
+        with open(path) as fp:
+            data = yaml.safe_load(fp)
+        found = False
+        for mask_name, rows in (data or {}).items():
+            col = _YAML_MASK_COLUMNS.get(mask_name)
+            if col is None or not isinstance(rows, list):
+                continue
+            table = out.setdefault(col, {})
+            for row in rows:
+                if isinstance(row, (list, tuple)) and len(row) >= 2:
+                    table[str(row[0])] = int(row[1])
+            found = found or bool(table)
+        if not found:
+            raise ValueError(
+                f'{path}: no recognized targetmask sections (expected '
+                f'one of {sorted(_YAML_MASK_COLUMNS)} in the desitarget '
+                'yaml schema)')
+    return out
+
+
+def objtypes_to_mask(objtypes, bit_table=None, column='DESI_TARGET'):
+    """Bitmask of the names in ``bit_table`` that match any of the
+    ``objtypes`` regexes (reference: desi_fit.py:495-522).  Raises if
+    none matches: a typo would otherwise select nothing."""
+    if bit_table is None:
+        bit_table = DESI_TARGET_BITS
+    res = [re.compile(o) for o in objtypes]
+    mask = 0
+    matched = []
+    for name, bit in bit_table.items():
+        if any(r.match(name) for r in res):
+            mask |= (1 << bit)
+            matched.append(name)
+    if not mask:
+        raise ValueError(
+            f'no {column} names match objtypes {objtypes}; '
+            f'known names: {sorted(bit_table)}. For survey-phase bits '
+            'not embedded here (SV1 experimental sub-bits, CMX '
+            'SV0_*/MINI_SV_*), pass the public desitarget yaml via '
+            '--targetmask_yaml, or give an explicit --objtype_mask.')
+    logging.info('objtypes %s -> %s names %s (mask 0x%x)',
+                 objtypes, column, matched, mask)
+    return mask
+
+
+def select_fibers_to_fit(fibermap, sns, minsn=None, fit_targetid=None,
+                         expid_range=None, zbest_path=None,
+                         zbest_select=False, objtype_mask=None,
+                         objtypes=None, target_tables=None):
+    """Fiber selection (reference: desi_fit.py:546-679, with the
+    embedded target tables in place of desitarget).  Returns (the
+    (nfibers,) selection, the redrock columns RR_Z / RR_SPECTYPE /
+    RR_SUBTYPE when ``zbest_path`` exists, else {})."""
+    n = len(fibermap['TARGETID'])
+    sel = np.ones(n, dtype=bool)
+    sel &= fiberstatus_select(fibermap)
+    if 'OBJTYPE' in fibermap:
+        sel &= np.char.strip(fibermap['OBJTYPE'].astype(str)) == 'TGT'
+    tcol, ttable = target_column(fibermap, target_tables)
+    if objtypes is not None:
+        if tcol is None:
+            raise RuntimeError(
+                'objtypes selection requested but the FIBERMAP carries '
+                'no target column (DESI_TARGET / SV*_DESI_TARGET / '
+                'CMX_TARGET)')
+        objtype_mask = (objtype_mask or 0) | objtypes_to_mask(
+            objtypes, ttable, tcol)
+    if objtype_mask is not None and tcol is not None:
+        sel &= (fibermap[tcol] & objtype_mask) > 0
+    if minsn is not None:
+        sel &= sns > minsn
+    if fit_targetid is not None:
+        sel &= np.isin(fibermap['TARGETID'], fit_targetid)
+    if expid_range is not None and 'EXPID' in fibermap:
+        lo, hi = expid_range
+        sel &= (fibermap['EXPID'] >= lo) & (fibermap['EXPID'] <= hi)
+    rr = {}
+    if zbest_path is not None and os.path.exists(zbest_path):
+        zb = fitsio.read(zbest_path)
+        ztab = zb['REDSHIFTS'].data if 'REDSHIFTS' in zb else \
+            zb['ZBEST'].data
+        order = {tid: i for i, tid in enumerate(ztab['TARGETID'])}
+        idx = np.array([order.get(t, -1) for t in fibermap['TARGETID']])
+        has = idx >= 0
+        at = np.maximum(idx, 0)
+        z = np.where(has, ztab['Z'][at], np.nan)
+        spectype = np.where(
+            has, np.char.strip(ztab['SPECTYPE'].astype(str))[at], '')
+        subtype = np.where(
+            has, np.char.strip(ztab['SUBTYPE'].astype(str))[at], '') \
+            if 'SUBTYPE' in ztab else np.full(n, '')
+        rr = dict(RR_Z=z, RR_SPECTYPE=spectype, RR_SUBTYPE=subtype)
+        if zbest_select:
+            c_kms = 299792.458
+            is_star = (spectype == 'STAR') | (np.abs(z * c_kms) < 1500.0)
+            sel &= has & is_star
+    return sel, rr
+
+
+# --------------------- per-fiber data assembly --------------------
+
+def interpolate_bad_regions(specs, masks):
+    """Linear infill of masked regions from the nearest good
+    neighbours, vectorized over fibers (the reference's per-region
+    interpolation, desi_fit.py:751-778); fully masked rows pass
+    through unchanged.  specs, masks : (npix,) or (B, npix)."""
+    specs = np.asarray(specs, np.float64)
+    single = specs.ndim == 1
+    s2 = np.atleast_2d(specs)
+    m2 = np.atleast_2d(np.asarray(masks, bool))
+    pix = np.arange(s2.shape[1], dtype=np.float64)
+    out = infill_bad_pixels(pix, s2, m2)
+    allbad = m2.all(axis=1)
+    out[allbad] = s2[allbad]
+    return out[0] if single else out
+
+
+def build_batch_arms(waves, fluxes, ivars, masks, resolutions, subset,
+                     setups, use_resolution_matrix=False,
+                     mask_dicroic=True, lsf_sigma0_angstrom=None):
+    """Stacked per-arm data of the selected fibers (the reference's
+    per-fiber logic, desi_fit.py:781-886, vectorized over fibers):
+    bad-pixel identification, dichroic mask, linear infill,
+    large-error masking, error clamping, optional per-fiber resolution
+    bands with the 5 edge pixels masked.  Returns (arms, the (nsel,)
+    mask of fibers with any good pixel)."""
+    large_error = 1000.0
+    minerr_frac = 0.3
+    idx = np.nonzero(subset)[0]
+    arms = []
+    anygood = np.zeros(len(idx), dtype=bool)
+    for s in setups:
+        wave = waves[s]
+        flux = np.array(fluxes[s][idx], dtype=np.float64)
+        ivar = np.array(ivars[s][idx], dtype=np.float64)
+        mask = masks[s][idx] > 0
+        baddat = ~np.isfinite(flux + ivar)
+        baderr = ivar <= 0
+        dicroic = ((wave > 4300) & (wave < 4450))[None, :] if mask_dicroic \
+            else np.zeros((1, len(wave)), bool)
+        edge_mask = np.zeros(len(wave), bool)
+        res_band = None
+        if use_resolution_matrix and resolutions[s] is not None:
+            sig0 = (lsf_sigma0_angstrom or {}).get(s, 0.5)
+            res_band = prepare_resolution_band(
+                np.asarray(resolutions[s])[idx],
+                pix_size_angstrom=wave[1] - wave[0], sigma0_angstrom=sig0)
+            edge_mask[:5] = True
+            edge_mask[-5:] = True
+        badall = baddat | mask | baderr | dicroic | edge_mask[None, :]
+        badall_interp = baddat | mask | baderr
+
+        flux = np.where(np.isfinite(flux), flux, 0.0)
+        medspec = masked_median(flux, ~badall)
+        fallback = np.median(np.abs(flux), axis=1)
+        medspec = np.where(np.isfinite(medspec) & (medspec != 0),
+                           medspec, fallback)
+        medspec = np.where(np.isfinite(medspec) & (medspec != 0),
+                           medspec, 1.0)
+        ivar = np.where(badall,
+                        1.0 / medspec[:, None]**2 / large_error**2, ivar)
+        flux = interpolate_bad_regions(flux, badall_interp)
+        with np.errstate(divide='ignore'):
+            espec = 1.0 / np.sqrt(ivar)
+        good = ~badall
+        anygood |= good.any(axis=1)
+        # clamp too-small errors (reference: desi_fit.py:866-874)
+        gmed = masked_median(espec, good)
+        gmed = np.where(np.isfinite(gmed), gmed, 1.0)
+        thresh = gmed * minerr_frac
+        clamp = (espec < thresh[:, None]) & good
+        espec = np.where(clamp, thresh[:, None], espec)
+        ivar = 1.0 / espec**2
+
+        arms.append(BatchArm(f'desi_{s}', wave, flux, ivar,
+                             badmask=badall, resolution=res_band,
+                             setup=f'desi_{s}'))
+    return arms, anygood
+
+
+# -------------------------- warnings ------------------------------
+
+def get_rvs_warn_batch(results, config):
+    """Quality bitmask per fiber (reference: desi_fit.py:381-430)."""
+    nf = len(results['VRAD'])
+    warn = np.zeros(nf, dtype=np.int64)
+    dchisq = results['CHISQ_C_TOT'] - results['CHISQ_TOT']
+    warn |= np.where(dchisq < 50, bitmasks['CHISQ_WARN'], 0)
+    rvedge = 5.0
+    warn |= np.where(
+        (results['VRAD'] < config['min_vel'] + rvedge)
+        | (results['VRAD'] > config['max_vel'] - rvedge),
+        bitmasks['RV_WARN'], 0)
+    warn |= np.where(results['VSINI'] > 100.0, bitmasks['VSINI_WARN'], 0)
+    warn |= np.where(results['VRAD_ERR'] > 100.0,
+                     bitmasks['RVERR_WARN'], 0)
+    warn |= np.where(results['BAD_HESSIAN'], bitmasks['BAD_HESSIAN'], 0)
+    for name, edges, thr in (('TEFF', (2300, 15000), 10),
+                             ('FEH', (-4, 1), 0.01),
+                             ('LOGG', (-0.5, 6.5), 0.01)):
+        v = results[name]
+        warn |= np.where((v < edges[0] + thr) | (v > edges[1] - thr),
+                         bitmasks['PARAM_WARN'], 0)
+    return warn
+
+
+def get_column_desc(setups):
+    """RVTAB column (dtype, description, unit) registry
+    (reference: desi_fit.py:910-959)."""
+    kms = 'km/s'
+    desc = {
+        'VRAD': (np.float32, 'Radial velocity', kms),
+        'VRAD_ERR': (np.float32, 'Radial velocity error', kms),
+        'VRAD_SKEW': (np.float32, 'Radial velocity posterior skewness',
+                      ''),
+        'VRAD_KURT': (np.float32, 'Radial velocity posterior kurtosis',
+                      ''),
+        'VSINI': (np.float32, 'Stellar rotation velocity', kms),
+        'LOGG': (np.float32, 'Log of surface gravity', ''),
+        'TEFF': (np.float32, 'Effective temperature', 'K'),
+        'FEH': (np.float32, '[Fe/H] from template fitting', ''),
+        'ALPHAFE': (np.float32, '[alpha/Fe] from template fitting', ''),
+        'LOGG_ERR': (np.float32, 'Log of surface gravity uncertainty',
+                     ''),
+        'TEFF_ERR': (np.float32, 'Effective temperature uncertainty',
+                     'K'),
+        'FEH_ERR': (np.float32,
+                    '[Fe/H] uncertainty from template fitting', ''),
+        'ALPHAFE_ERR': (np.float32,
+                        '[alpha/Fe] uncertainty from template fitting',
+                        ''),
+        'CHISQ_TOT': (np.float64, 'Total chi-square for all arms', ''),
+        'NPIX_TOT': (np.float64,
+                     'Total number of unmasked pixels fitted', ''),
+        'CHISQ_C_TOT': (np.float64, 'Total chi-square for all arms for '
+                        'polynomial only fit', ''),
+        'CHISQ_CCF': (np.float32, 'Total chi-square from CCF fit', ''),
+        'TEFF_CCF': (np.float32, 'Effective temperature from CCF fit',
+                     'K'),
+        'LOGG_CCF': (np.float32, 'Log of surface gravity from CCF fit',
+                     ''),
+        'FEH_CCF': (np.float32, '[Fe/H] from CCF fit', ''),
+        'ALPHAFE_CCF': (np.float32, '[alpha/Fe] from CCF fit', ''),
+        'VSINI_CCF': (np.float32, 'Vsini from CCF fit', kms),
+        'VRAD_CCF': (np.float32,
+                     'Initial velocity from cross-correlation', kms),
+        'TARGETID': (np.int64, 'DESI targetid', ''),
+        'EXPID': (np.int64, 'DESI exposure id', ''),
+        'SUCCESS': (bool, 'Did we succeed or fail', ''),
+        'RVS_WARN': (np.int64, 'RVSpecFit warning flag', ''),
+        'RR_Z': (np.float64, 'Redrock redshift', ''),
+        'RR_SPECTYPE': (str, 'Redrock spectype', ''),
+        'RR_SUBTYPE': (str, 'Redrock spectroscopic subtype', ''),
+    }
+    for s in setups:
+        su = s.upper()
+        desc[f'SN_{su}'] = (np.float32, f'Median S/N in the {su} arm',
+                            '')
+        desc[f'CHISQ_{su}'] = (np.float64,
+                               f'Chi-square in the {su} arm', '')
+        desc[f'CHISQ_C_{su}'] = (
+            np.float64, f'Chi-square in the {su} arm after fitting '
+            'continuum only', '')
+    return desc
+
+
+# --------------------------- main fit -----------------------------
+
+def _prepare_one(fname, config, setups=('b', 'r', 'z'), minsn=-1e9,
+                 fit_targetid=None, expid_range=None,
+                 use_resolution_matrix=False, zbest_path=None,
+                 zbest_select=False, objtype_mask=None, objtypes=None,
+                 target_tables=None, fitarm=None):
+    """Host stage of one file: read, validate, select, stack arms.
+
+    Returns a dict with what the group fit and the writers need; when
+    nothing is selected (``nsel == 0``) it holds only what
+    :func:`_write_empty` needs.
+    """
+    if fitarm is not None:
+        setups = tuple(s for s in setups if s in fitarm)
+        if not setups:
+            raise RuntimeError('--fitarm excluded every arm')
+    fp = fitsio.read(fname)
+    if not valid_file(fp, setups):
+        raise RuntimeError(f'{fname}: invalid file')
+    fibermap = fp['FIBERMAP'].data
+    scores = fp['SCORES'].data if 'SCORES' in fp else None
+    exp_fibermap = fp['EXP_FIBERMAP'].data if 'EXP_FIBERMAP' in fp \
+        else None
+    fluxes, ivars, masks, waves, resolutions = read_data(fp, setups)
+    sns = get_sns_from_scores(scores, setups) or \
+        {s: get_sns(fluxes[s], ivars[s], masks[s]) for s in setups}
+    sn_max = np.max(np.array([sns[s] for s in setups]), axis=0)
+
+    subset, rr_info = select_fibers_to_fit(
+        fibermap, sn_max, minsn=minsn, fit_targetid=fit_targetid,
+        expid_range=expid_range, zbest_path=zbest_path,
+        zbest_select=zbest_select, objtype_mask=objtype_mask,
+        objtypes=objtypes, target_tables=target_tables)
+    nsel = int(subset.sum())
+    logging.info('%s: selected %d/%d fibers', fname, nsel, len(subset))
+    prep = dict(fname=fname, setups=setups, waves=waves,
+                spectrum_header=fp[0].header, fibermap=fibermap,
+                scores=scores, exp_fibermap=exp_fibermap, sns=sns,
+                rr_info=rr_info, zbest_path=zbest_path, nsel=nsel)
+    if nsel == 0:
+        return prep
+    arms, goodmask = build_batch_arms(
+        waves, fluxes, ivars, masks, resolutions, subset, setups,
+        use_resolution_matrix=use_resolution_matrix,
+        lsf_sigma0_angstrom=config.get('lsf_sigma0_angstrom') or {})
+    prep.update(arms=arms, goodmask=goodmask, idx=np.nonzero(subset)[0])
+    return prep
 
 
 def _ccf_args(arms):
@@ -38,6 +716,13 @@ def _run_group_fit(arms, templates, config, options, banks=None):
     TemplateModel (all on one device), config (min_vel, max_vel,
     vel_step0, min_vel_step, max_vsini, min_vsini, second_minimizer,
     and template_lib where ``banks`` is None), fitter options.
+
+    The reference's synchronous branch (``RVST_DEFER_TAIL=0``): CCF
+    starts -> Nelder-Mead -> gradient polish -> velocity refinement ->
+    AD Hessian errors -> best-fit models.  A CCF failure raises (the
+    reference logs it and starts every fiber at the default
+    parameters); a fiber whose CCF chi-square is not finite starts at
+    DEFAULT_START, as in the reference.
 
     ``banks`` : optional {setup: (tfft, t2fft, info)} in-memory CCF
     banks; None loads them from the library onto the templates' device.
@@ -66,7 +751,8 @@ def _run_group_fit(arms, templates, config, options, banks=None):
     ccf_cols = dict(CHISQ_CCF=cres['best_chi'],
                     VSINI_CCF=np.where(has_vs, vs, 0.0))
     for j, p in enumerate(parnames):
-        ccf_cols[CCF_NAMES.get(p, p.upper()) + '_CCF'] = start_params[:, j]
+        ccf_cols[PARAM_NAMES.get(p, p.upper()) + '_CCF'] = \
+            start_params[:, j]
     vrad_ccf = start_vel.copy()
     t.append(time.perf_counter())
 
@@ -103,3 +789,665 @@ def _run_group_fit(arms, templates, config, options, banks=None):
                 converged=nmres['converged'], ccf_cols=ccf_cols,
                 vrad_ccf=vrad_ccf, parnames=parnames, phases=phases,
                 nm=nmres, x=tail['x'], fun=tail['fun'])
+
+
+def _finish_one(prep, fit, lo, tab_ofname, mod_ofname, config, arms,
+                cmdline=None, templates=None):
+    """Assemble one file's rows from its slice [lo, lo+nsel) of a
+    (possibly multi-file) group fit and write RVTAB/RVMOD."""
+    nf = prep['nsel']
+    sl = slice(lo, lo + nf)
+    ref = {k: np.asarray(v)[sl] for k, v in fit['ref'].items()}
+    mods = {k: {an: np.asarray(v)[sl] for an, v in d.items()}
+            for k, d in fit['mods'].items()}
+    params_b = np.asarray(fit['params'])[sl]
+    errs = np.asarray(fit['errs'])[sl]
+    idx = prep['idx']
+    sns = prep['sns']
+    setups = prep['setups']
+    fibermap = prep['fibermap']
+    goodmask = prep['goodmask']
+
+    res = {}
+    res['VRAD'] = ref['best_vel']
+    res['VRAD_ERR'] = ref['vel_err']
+    res['VRAD_SKEW'] = ref['skewness']
+    res['VRAD_KURT'] = ref['kurtosis']
+    res['VSINI'] = np.asarray(fit['vsini'])[sl]
+    for i, p in enumerate(fit['parnames']):
+        res[PARAM_NAMES.get(p, p.upper())] = params_b[:, i]
+        res[PARAM_NAMES.get(p, p.upper()) + '_ERR'] = errs[:, i]
+    res['CHISQ_TOT'] = np.sum([mods['chisq'][a.name] for a in arms],
+                              axis=0)
+    res['CHISQ_C_TOT'] = np.sum([mods['cont_chisq'][a.name]
+                                 for a in arms], axis=0)
+    res['NPIX_TOT'] = np.sum([mods['npix'][a.name] for a in arms],
+                             axis=0).astype(np.float64)
+    for s, a in zip(setups, arms):
+        res['CHISQ_%s' % s.upper()] = mods['chisq'][a.name]
+        res['CHISQ_C_%s' % s.upper()] = mods['cont_chisq'][a.name]
+        res['SN_%s' % s.upper()] = sns[s][idx]
+    res['VRAD_CCF'] = np.asarray(fit['vrad_ccf'])[sl]
+    for k, v in fit['ccf_cols'].items():
+        res[k] = np.asarray(v)[sl]
+    res['BAD_HESSIAN'] = np.asarray(fit['bad_hess'])[sl]
+    res['SUCCESS'] = np.asarray(fit['converged'])[sl] & goodmask
+    res['RVS_WARN'] = get_rvs_warn_batch(res, config)
+    res['RVS_WARN'] |= np.where(~goodmask, bitmasks['BAD_SPECTRUM'], 0)
+    res['TARGETID'] = fibermap['TARGETID'][idx]
+    if 'EXPID' in fibermap:
+        res['EXPID'] = fibermap['EXPID'][idx]
+    for k, v in prep['rr_info'].items():
+        res[k] = np.asarray(v)[idx]
+
+    _write_outputs(tab_ofname, mod_ofname, res, mods, arms,
+                   prep['waves'], fibermap, idx, setups, config,
+                   prep['fname'], scores=prep['scores'],
+                   exp_fibermap=prep['exp_fibermap'],
+                   cmdline=cmdline, templates=templates,
+                   spectrum_header=prep['spectrum_header'],
+                   zbest_path=prep['zbest_path'])
+
+
+def _load_templates(config, setups, device):
+    return library.load_template_models(
+        config, {f'desi_{s}' for s in setups}, device=device)
+
+
+def _write_empty_prep(prep, tab_ofname, mod_ofname, config, cmdline,
+                      templates):
+    _write_empty(tab_ofname, mod_ofname, prep['setups'], prep['waves'],
+                 prep['fibermap'], scores=prep['scores'],
+                 exp_fibermap=prep['exp_fibermap'], config=config,
+                 cmdline=cmdline, templates=templates,
+                 spectrum_header=prep['spectrum_header'],
+                 zbest_path=prep['zbest_path'])
+
+
+def proc_desi(fname, tab_ofname, mod_ofname, config, options,
+              setups=('b', 'r', 'z'), minsn=-1e9, fit_targetid=None,
+              expid_range=None, use_resolution_matrix=False,
+              zbest_path=None, zbest_select=False, objtype_mask=None,
+              objtypes=None, target_tables=None, templates=None,
+              banks=None, device=None, fitarm=None, cmdline=None):
+    """Fit every selected fiber of one DESI file; write RVTAB/RVMOD.
+
+    ``templates`` ({setup: TemplateModel}) and ``banks`` ({setup:
+    (tfft, t2fft, info)}) may come from memory; None loads them from
+    ``config['template_lib']`` onto ``device`` (None: the CUDA card).
+    Returns the number of fitted objects (0 when nothing is selected).
+    """
+    t0 = time.time()
+    prep = _prepare_one(fname, config, setups=setups, minsn=minsn,
+                        fit_targetid=fit_targetid,
+                        expid_range=expid_range,
+                        use_resolution_matrix=use_resolution_matrix,
+                        zbest_path=zbest_path, zbest_select=zbest_select,
+                        objtype_mask=objtype_mask, objtypes=objtypes,
+                        target_tables=target_tables, fitarm=fitarm)
+    if prep['nsel'] == 0:
+        _write_empty_prep(prep, tab_ofname, mod_ofname, config, cmdline,
+                          templates)
+        return 0
+    if templates is None:
+        templates = _load_templates(config, prep['setups'], device)
+    fit = _run_group_fit(prep['arms'], templates, config, options,
+                         banks=banks)
+    _finish_one(prep, fit, 0, tab_ofname, mod_ofname, config,
+                prep['arms'], cmdline=cmdline, templates=templates)
+    logging.info('%s: fitted %d fibers in %.1f s', fname, prep['nsel'],
+                 time.time() - t0)
+    return prep['nsel']
+
+
+def _log_crash(fname, info, throw):
+    """Crash-isolation bookkeeping: a crash log in the working
+    directory and the traceback in the log; re-raise with ``throw``
+    (reference: desi_fit.py:1311).  Call it from an except block."""
+    crashfile = 'crash_%d_%d.log' % (os.getpid(), int(time.time()))
+    with open(crashfile, 'w') as fp:
+        fp.write('File: %s\nInfo: %s\n' % (fname, info))
+        fp.write(traceback.format_exc())
+    logging.exception('Failed processing %s (crash log %s)', fname,
+                      crashfile)
+    if throw:
+        raise
+
+
+def _arm_group_key(prep):
+    """Batch-compatibility key: files whose arms share names,
+    wavelength grids and resolution band widths may be concatenated
+    into one fit batch."""
+    ks = []
+    for a in prep['arms']:
+        res = a.resolution
+        h = hashlib.sha1(
+            np.ascontiguousarray(a.lam).tobytes()).hexdigest()[:16]
+        ks.append((a.name, a.setup, h,
+                   None if res is None else int(np.asarray(res).shape[1])))
+    return (tuple(prep['setups']), tuple(ks))
+
+
+def _concat_arms(arm_lists):
+    """Concatenate per-file BatchArm lists along the fiber axis."""
+    out = []
+    for parts in zip(*arm_lists):
+        a0 = parts[0]
+        res = None
+        if a0.resolution is not None:
+            res = np.concatenate(
+                [np.asarray(p.resolution) for p in parts], axis=0)
+        out.append(BatchArm(
+            a0.name, a0.lam,
+            np.concatenate([p.flux for p in parts], axis=0),
+            np.concatenate([p.ivar for p in parts], axis=0),
+            badmask=np.concatenate([p.badmask for p in parts], axis=0),
+            resolution=res, setup=a0.setup))
+    return out
+
+
+def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
+                    templates=None, banks=None, device=None, cmdline=None,
+                    throw_exceptions=False, zbest_paths=None,
+                    **select_kw):
+    """Fit several DESI files as one batch (``--coalesce``).
+
+    The fibers of compatible files (same arm names, wavelength grids
+    and band widths: :func:`_arm_group_key`) are concatenated and
+    fitted together; every stage is elementwise over fibers, so each
+    file's rows are those of a fit of that file alone, except that
+    whether rotation is modeled is decided from the CCF result of the
+    whole group (the reference decides per spectrum,
+    desi_fit.py:293-299).
+
+    Per-file crash isolation: a file that fails to read or prepare
+    gets a crash log and a None count without sinking its group; if a
+    group fit fails, each member is retried alone.  ``select_kw`` are
+    :func:`_prepare_one`'s selection arguments.  Returns per-file
+    fitted-object counts (None = failure), aligned with ``fnames``.
+    """
+    gprep = prepare_desi_group(fnames, config, zbest_paths=zbest_paths,
+                               throw_exceptions=throw_exceptions,
+                               **select_kw)
+    return fit_desi_group(gprep, tab_ofnames, mod_ofnames, config,
+                          options, templates=templates, banks=banks,
+                          device=device, cmdline=cmdline,
+                          throw_exceptions=throw_exceptions)
+
+
+def prepare_desi_group(fnames, config, zbest_paths=None,
+                       throw_exceptions=False, **select_kw):
+    """Host stage of a coalesced group: read, select and stack every
+    member file, and partition the live ones into arm-compatible
+    units.  A member that fails to prepare gets a crash log and stays
+    None in ``preps``.  Returns {fnames, preps, units: [{members,
+    arms}]}, consumed by :func:`fit_desi_group`."""
+    zbest_paths = zbest_paths or [None] * len(fnames)
+    preps = [None] * len(fnames)
+    for i, f in enumerate(fnames):
+        try:
+            preps[i] = _prepare_one(f, config, zbest_path=zbest_paths[i],
+                                    **select_kw)
+        except Exception:
+            _log_crash(f, 'prepare', throw_exceptions)
+    groups = {}
+    for i, p in enumerate(preps):
+        if p is not None and p['nsel'] > 0:
+            groups.setdefault(_arm_group_key(p), []).append(i)
+    units = []
+    for members in groups.values():
+        arms = _concat_arms([preps[i]['arms'] for i in members]) \
+            if len(members) > 1 else preps[members[0]]['arms']
+        units.append(dict(members=members, arms=arms))
+    return dict(fnames=list(fnames), preps=preps, units=units)
+
+
+def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
+                   templates=None, banks=None, device=None, cmdline=None,
+                   throw_exceptions=False):
+    """Fit and write stage of a group prepared by
+    :func:`prepare_desi_group` (see :func:`proc_desi_group` for the
+    semantics and the return value)."""
+    preps = gprep['preps']
+    counts = [None] * len(preps)
+
+    def finish(i, fit, lo, arms):
+        try:
+            _finish_one(preps[i], fit, lo, tab_ofnames[i], mod_ofnames[i],
+                        config, arms, cmdline=cmdline, templates=templates)
+            counts[i] = preps[i]['nsel']
+        except Exception:
+            _log_crash(preps[i]['fname'], 'write', throw_exceptions)
+
+    for i, p in enumerate(preps):
+        if p is not None and p['nsel'] == 0:
+            try:
+                _write_empty_prep(p, tab_ofnames[i], mod_ofnames[i],
+                                  config, cmdline, templates)
+                counts[i] = 0
+            except Exception:
+                _log_crash(p['fname'], 'write_empty', throw_exceptions)
+    if gprep['units'] and templates is None:
+        first = gprep['units'][0]['members'][0]
+        templates = _load_templates(config, preps[first]['setups'], device)
+
+    for unit in gprep['units']:
+        members = unit['members']
+        try:
+            fit = _run_group_fit(unit['arms'], templates, config, options,
+                                 banks=banks)
+        except Exception:
+            logging.exception('group fit of %d files failed; retrying '
+                              'per-file', len(members))
+            if throw_exceptions:
+                raise
+            for i in members:
+                try:
+                    fit = _run_group_fit(preps[i]['arms'], templates,
+                                         config, options, banks=banks)
+                except Exception:
+                    _log_crash(preps[i]['fname'], 'per-file retry', False)
+                    continue
+                finish(i, fit, 0, preps[i]['arms'])
+            continue
+        lo = 0
+        for i in members:
+            finish(i, fit, lo, unit['arms'])
+            lo += preps[i]['nsel']
+    return counts
+
+
+# packages whose versions are stamped into output headers, by import
+# name and distribution name (reference: desi_fit.py:45-48, 77-90)
+DEPEND_PACKAGES = dict(numpy='numpy', scipy='scipy', torch='torch',
+                       h5py='h5py', yaml='PyYAML')
+
+# input header keywords copied into the output primary header
+# (reference: desi_fit.py:141-149)
+COPY_HEADER_KEYS = ['SPGRP', 'SPGRPVAL', 'TILEID', 'SPECTRO', 'PETAL',
+                    'NIGHT', 'EXPID', 'HPXPIXEL', 'HPXNSIDE', 'HPXNEST']
+
+
+@functools.lru_cache(maxsize=1)
+def _dep_versions():
+    ret = {'python': sys.version.split(' ')[0],
+           'rvspecfit_torch': __version__}
+    for name, dist in DEPEND_PACKAGES.items():
+        try:
+            ret[name] = importlib.metadata.version(dist)
+        except importlib.metadata.PackageNotFoundError:
+            pass
+    return ret
+
+
+def _prim_header(config=None, cmdline=None, templates=None,
+                 spectrum_header=None, zbest_path=None):
+    """Primary-header provenance cards: dependency versions, template
+    library revisions, copied input keywords
+    (reference: desi_fit.py:119-156)."""
+    cards = [('RVS_VER', __version__, 'rvspecfit_torch version'),
+             ('RVS_DATE', time.strftime('%Y-%m-%dT%H:%M:%S'),
+              'processing time')]
+    for i, (k, v) in enumerate(_dep_versions().items()):
+        cards.append(('DEPNAM%02d' % i, k, 'Software'))
+        cards.append(('DEPVER%02d' % i, v, 'Version'))
+    if templates:
+        for i, (setup, tm) in enumerate(sorted(templates.items())):
+            extra = getattr(tm, 'extra', None) or {}
+            cards.append(('TMPLCON%d' % i, setup, 'Spec arm config name'))
+            cards.append(('TMPLREV%d' % i, extra.get('revision', ''),
+                          'Spec template revision'))
+            cards.append(('TMPLSVR%d' % i,
+                          extra.get('creation_soft_version', ''),
+                          'Spec template soft version'))
+    if config is not None:
+        cards.append(('RVS_CONF', str(config.get('config_file_path', '')),
+                      'config path'))
+    if cmdline:
+        cards.append(('RVS_CMD', cmdline[:60], 'command line'))
+    if zbest_path is not None:
+        cards.append(('RR_FILE', str(zbest_path),
+                      'Redrock redshift file'))
+    if spectrum_header is not None:
+        for key in COPY_HEADER_KEYS:
+            if key in spectrum_header:
+                cards.append((key, spectrum_header[key], ''))
+    return cards
+
+
+def _write_empty(tab_ofname, mod_ofname, setups, waves, fibermap,
+                 scores=None, exp_fibermap=None, config=None,
+                 cmdline=None, templates=None, spectrum_header=None,
+                 zbest_path=None):
+    """Zero-selection outputs with the full column structure, so
+    downstream concatenation tools see a uniform schema
+    (reference: desi_fit.py:1106-1134)."""
+    col_desc = get_column_desc([s.upper() for s in setups])
+    cols, units, comments = [], {}, {}
+    for k, (dtype, descr, unit) in col_desc.items():
+        arr = np.zeros(0, dtype=np.dtype('U8') if dtype is str else dtype)
+        cols.append((k, arr))
+        comments[k] = descr
+        if unit:
+            units[k] = unit
+    idx0 = np.zeros(0, dtype=int)
+    fm_cols = [(k, np.asarray(v)[idx0]) for k, v in fibermap.items()]
+    hdr = _prim_header(config, cmdline, templates, spectrum_header,
+                       zbest_path)
+    hdus = [dict(kind='image', data=None, header=hdr),
+            dict(kind='table', data=cols, name='RVTAB', units=units,
+                 comments=comments),
+            dict(kind='table', data=fm_cols, name='FIBERMAP')]
+    if scores is not None:
+        hdus.append(dict(kind='table', name='SCORES',
+                         data=[(k, np.asarray(v)[idx0])
+                               for k, v in scores.items()]))
+    if exp_fibermap is not None:
+        hdus.append(dict(kind='table', name='EXP_FIBERMAP',
+                         data=[(k, np.asarray(v)[idx0])
+                               for k, v in exp_fibermap.items()]))
+    fitsio.write(tab_ofname, hdus)
+
+    mhdus = [dict(kind='image', data=None, header=hdr)]
+    for s in setups:
+        mhdus.append(dict(kind='image', data=waves[s].astype(np.float64),
+                          name=f'{s.upper()}_WAVELENGTH'))
+        mhdus.append(dict(kind='image', data=None,
+                          name=f'{s.upper()}_MODEL'))
+    fitsio.write(mod_ofname, mhdus)
+
+
+def _write_outputs(tab_ofname, mod_ofname, res, mods, arms, waves,
+                   fibermap, idx, setups, config, src_fname,
+                   scores=None, exp_fibermap=None, cmdline=None,
+                   templates=None, spectrum_header=None,
+                   zbest_path=None):
+    """RVTAB (rows ``res`` with the reference's column dtypes,
+    descriptions and units, a FIBERMAP subset, SCORES and EXP_FIBERMAP
+    of the fitted targets) and RVMOD (per-arm wavelengths and float32
+    best-fit models)."""
+    col_desc = get_column_desc([s.upper() for s in setups])
+    cols, units, comments = [], {}, {}
+    for k, v in res.items():
+        if k == 'BAD_HESSIAN':
+            continue
+        v = np.asarray(v)
+        if v.dtype == object:
+            v = v.astype(str)
+        if k in col_desc:
+            dtype, descr, unit = col_desc[k]
+            if dtype is not str and v.dtype.kind not in 'US':
+                v = v.astype(dtype)
+            comments[k] = descr
+            if unit:
+                units[k] = unit
+        elif v.dtype.kind == 'f':
+            v = v.astype(np.float32)
+        cols.append((k, v))
+    fm_keep = ['TARGETID', 'TARGET_RA', 'TARGET_DEC', 'REF_ID',
+               'REF_CAT', 'FIBER', 'DESI_TARGET', 'PMRA', 'PMDEC']
+    fm_cols = [(k, np.asarray(fibermap[k])[idx]) for k in fm_keep
+               if k in fibermap]
+    prim_hdr = _prim_header(config, cmdline, templates, spectrum_header,
+                            zbest_path)
+    hdus = [dict(kind='image', data=None, header=prim_hdr),
+            dict(kind='table', data=cols, name='RVTAB',
+                 units=units, comments=comments),
+            dict(kind='table', data=fm_cols, name='FIBERMAP')]
+    if scores is not None:
+        hdus.append(dict(
+            kind='table', name='SCORES',
+            data=[(k, np.asarray(v)[idx]) for k, v in scores.items()]))
+    if exp_fibermap is not None and 'TARGETID' in exp_fibermap:
+        sub = np.isin(exp_fibermap['TARGETID'],
+                      np.asarray(fibermap['TARGETID'])[idx])
+        hdus.append(dict(
+            kind='table', name='EXP_FIBERMAP',
+            data=[(k, np.asarray(v)[sub])
+                  for k, v in exp_fibermap.items()]))
+    fitsio.write(tab_ofname, hdus)
+
+    mhdus = [dict(kind='image', data=None, header=prim_hdr)]
+    for s, a in zip(setups, arms):
+        mhdus.append(dict(kind='image', data=waves[s].astype(np.float64),
+                          name=f'{s.upper()}_WAVELENGTH'))
+        mhdus.append(dict(kind='image',
+                          data=mods['models'][a.name].astype(np.float32),
+                          name=f'{s.upper()}_MODEL'))
+    fitsio.write(mod_ofname, mhdus)
+
+
+def proc_desi_wrapper(*args, **kwargs):
+    """Crash isolation around :func:`proc_desi`: log, write a crash
+    log and return None (reference: desi_fit.py:1311)."""
+    throw = kwargs.pop('throw_exceptions', False)
+    try:
+        return proc_desi(*args, **kwargs)
+    except Exception:
+        _log_crash(args[0] if args else '?',
+                   'Args: %s %s' % (args, kwargs), throw)
+        return None
+
+
+def output_paths(fname, output_dir, output_tab_prefix=TABLE_PREFIX,
+                 output_mod_prefix=MODEL_PREFIX):
+    """(RVTAB path, RVMOD path) of an input file: ``coadd-``/``spectra-``
+    and ``.fits`` are taken off its name."""
+    base = os.path.basename(fname)
+    for pref in ('coadd-', 'spectra-'):
+        if base.startswith(pref):
+            base = base[len(pref):]
+    base = base.replace('.fits', '')
+    return (os.path.join(output_dir, f'{output_tab_prefix}-{base}.fits'),
+            os.path.join(output_dir, f'{output_mod_prefix}-{base}.fits'))
+
+
+def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
+              output_mod_prefix=MODEL_PREFIX, config=None, options=None,
+              skipexisting=False, status_fname=None, coalesce=1,
+              templates=None, banks=None, device=None,
+              throw_exceptions=False, cmdline=None, zbest_select=False,
+              **select_kw):
+    """Process a sequence of files, one after another (reference:
+    desi_fit.py:1392-1551, without its reader and writer threads).
+
+    ``coalesce``: fit up to this many consecutive compatible files as
+    one batch (:func:`proc_desi_group`); 1 fits file by file through
+    :func:`proc_desi_wrapper`.  ``skipexisting`` skips a file whose
+    outputs both exist (status EXISTING).  ``status_fname`` gets one
+    line per file (:func:`update_process_status_file`); the seconds of
+    a coalesced group are shared equally by its files.
+    ``zbest_select`` selects star-like fibers with the ``redrock-``
+    file beside each ``coadd-`` file.  ``templates``/``banks``: as in
+    :func:`proc_desi`; the templates are loaded once, before the first
+    file, and a loading failure raises.  ``select_kw``:
+    :func:`_prepare_one`'s selection arguments.
+    """
+    os.makedirs(output_dir, exist_ok=True)
+    if status_fname:
+        update_process_status_file(status_fname, None, None, 0, 0,
+                                   start=True)
+    options = options or {}
+
+    def status(f, nobj, seconds, code=None):
+        if status_fname:
+            update_process_status_file(
+                status_fname, f, code or (PROC_STATUS_SUCCESS if nobj
+                                          is not None else
+                                          PROC_STATUS_FAILURE),
+                nobj or 0, seconds)
+
+    work = []
+    for f in files:
+        t0 = time.time()
+        tab, mod = output_paths(f, output_dir, output_tab_prefix,
+                                output_mod_prefix)
+        if skipexisting and os.path.exists(tab) and os.path.exists(mod):
+            logging.info('skipping existing %s', f)
+            status(f, 0, time.time() - t0, PROC_STATUS_EXISTING)
+            continue
+        work.append((f, tab, mod))
+    if not work:
+        return
+    if templates is None:
+        templates = _load_templates(
+            config, select_kw.get('setups', ('b', 'r', 'z')), device)
+
+    def zbest_path(f):
+        if not zbest_select:
+            return None
+        cand = os.path.join(os.path.dirname(f), os.path.basename(f)
+                            .replace('coadd-', 'redrock-'))
+        return cand if os.path.exists(cand) else None
+
+    coalesce = max(1, int(coalesce or 1))
+    for i in range(0, len(work), coalesce):
+        grp = work[i:i + coalesce]
+        t0 = time.time()
+        if coalesce == 1:
+            f, tab, mod = grp[0]
+            counts = [proc_desi_wrapper(
+                f, tab, mod, config, options, templates=templates,
+                banks=banks, cmdline=cmdline,
+                zbest_path=zbest_path(f), zbest_select=zbest_select,
+                throw_exceptions=throw_exceptions, **select_kw)]
+        else:
+            counts = proc_desi_group(
+                [g[0] for g in grp], [g[1] for g in grp],
+                [g[2] for g in grp], config, options, templates=templates,
+                banks=banks, cmdline=cmdline,
+                throw_exceptions=throw_exceptions,
+                zbest_paths=[zbest_path(g[0]) for g in grp],
+                zbest_select=zbest_select, **select_kw)
+        dt = (time.time() - t0) / len(grp)
+        for (f, _, _), nobj in zip(grp, counts):
+            status(f, nobj, dt)
+
+
+def main(args=None):
+    """``rvstorch_desi_fit``: fit DESI coadd/spectra files and write
+    RVTAB/RVMOD files.  Runs on the CUDA card unless ``--device cpu``
+    is given, and raises without a card."""
+    if args is None:
+        args = sys.argv[1:]
+    cmdline = ' '.join(['rvstorch_desi_fit'] + list(args))
+    parser = argparse.ArgumentParser(description='Fit DESI spectra')
+    parser.add_argument('input_files', nargs='*', default=[])
+    parser.add_argument('--input_file_from', type=str, default=None,
+                        help='text file with one input file per line')
+    parser.add_argument('--output_dir', type=str, required=True)
+    parser.add_argument('--config', type=str, default=None)
+    parser.add_argument('--templ_lib', type=str, default=None)
+    parser.add_argument('--setups', type=str, default='b,r,z')
+    parser.add_argument('--fitarm', type=str, default=None,
+                        help='comma-separated subset of arms to fit '
+                        '(e.g. b,r)')
+    parser.add_argument('--minsn', type=float, default=-1e9)
+    parser.add_argument('--npoly', type=int, default=10)
+    parser.add_argument('--targetid', type=int, default=None)
+    parser.add_argument('--targetid_file_from', type=str, default=None)
+    parser.add_argument('--minexpid', type=int, default=None)
+    parser.add_argument('--maxexpid', type=int, default=None)
+    parser.add_argument('--zbest_select', action='store_true',
+                        default=False,
+                        help='select STAR-like objects using the '
+                        'redrock file next to the coadd')
+    parser.add_argument('--output_tab_prefix', type=str,
+                        default=TABLE_PREFIX,
+                        help='prefix of the output table files')
+    parser.add_argument('--output_mod_prefix', type=str,
+                        default=MODEL_PREFIX,
+                        help='prefix of the output model files')
+    parser.add_argument('--targetmask_yaml', type=str, default=None,
+                        action='append',
+                        help='desitarget-format targetmask yaml(s) whose '
+                        '*_desi_mask/cmx_mask bit names extend the '
+                        'embedded tables for --objtypes; repeatable')
+    parser.add_argument('--objtype_mask', type=int, default=None,
+                        help='explicit target-column bitmask')
+    parser.add_argument('--objtypes', type=str, default=None,
+                        help='comma-separated regexes matched against '
+                        "target bit names, e.g. 'MWS_.*,STD_.*'")
+    parser.add_argument('--version', action='store_true', default=False,
+                        help='print the software version and exit')
+    parser.add_argument('--no_ccf_continuum_normalize',
+                        dest='ccf_continuum_normalize',
+                        action='store_false', default=True)
+    parser.add_argument('--resolution_matrix', action='store_true',
+                        default=False)
+    parser.add_argument('--no-resolution_matrix',
+                        dest='resolution_matrix', action='store_false')
+    parser.add_argument('--nthreads', type=int, default=None,
+                        help='ignored (reference compatibility): '
+                        'fibers are fitted as one device batch')
+    parser.add_argument('--coalesce', type=int, default=2,
+                        help='fit up to N consecutive compatible files '
+                        'as one batch; 1 fits file by file')
+    parser.add_argument('--skipexisting', action='store_true',
+                        default=False)
+    parser.add_argument('--throw_exceptions', action='store_true',
+                        default=False)
+    parser.add_argument('--process_status_file', type=str, default=None)
+    parser.add_argument('--log', type=str, default=None)
+    parser.add_argument('--log_level', type=str, default='INFO')
+    parser.add_argument('--device', type=str, default=None,
+                        help="torch device, e.g. 'cpu' (default: the "
+                        'CUDA card; raises without one)')
+    args = parser.parse_args(args)
+
+    if args.version:
+        print(__version__)
+        return
+    device = resolve_device(args.device)
+    logging.basicConfig(filename=args.log,
+                        level=getattr(logging, args.log_level))
+
+    override = {'ccf_continuum_normalize': args.ccf_continuum_normalize}
+    if args.templ_lib:
+        override['template_lib'] = args.templ_lib
+    config = utils.read_config(args.config, override)
+
+    fit_targetid = None
+    if args.targetid is not None:
+        fit_targetid = np.array([args.targetid])
+    elif args.targetid_file_from:
+        fit_targetid = np.loadtxt(args.targetid_file_from,
+                                  dtype=np.int64, ndmin=1)
+    expid_range = None
+    if args.minexpid is not None or args.maxexpid is not None:
+        expid_range = (args.minexpid if args.minexpid is not None
+                       else -10**18,
+                       args.maxexpid if args.maxexpid is not None
+                       else 10**18)
+
+    if args.input_files:
+        files = utils.FileQueue(file_list=args.input_files)
+    elif args.input_file_from:
+        files = utils.FileQueue(file_from=args.input_file_from)
+    else:
+        parser.error('provide input files or --input_file_from')
+
+    proc_many(files, args.output_dir,
+              output_tab_prefix=args.output_tab_prefix,
+              output_mod_prefix=args.output_mod_prefix,
+              config=config, options={'npoly': args.npoly},
+              skipexisting=args.skipexisting,
+              status_fname=args.process_status_file,
+              coalesce=args.coalesce, device=device,
+              throw_exceptions=args.throw_exceptions, cmdline=cmdline,
+              zbest_select=args.zbest_select,
+              setups=tuple(args.setups.split(',')),
+              minsn=args.minsn, fit_targetid=fit_targetid,
+              expid_range=expid_range,
+              objtype_mask=args.objtype_mask,
+              objtypes=(args.objtypes.split(',')
+                        if args.objtypes else None),
+              target_tables=(load_targetmask_yaml(args.targetmask_yaml)
+                             if args.targetmask_yaml else None),
+              use_resolution_matrix=args.resolution_matrix,
+              fitarm=(tuple(args.fitarm.split(','))
+                      if args.fitarm else None))
+
+
+if __name__ == '__main__':
+    main()

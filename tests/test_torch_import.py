@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax():
     assert {'rvspecfit_torch.ops.spline_eval', 'rvspecfit_torch.fit.batch',
             'rvspecfit_torch.convert', 'rvspecfit_torch.ops.clip',
             'rvspecfit_torch.serializer', 'rvspecfit_torch.pipeline.library',
-            'rvspecfit_torch.survey.desi'} <= set(mods)
+            'rvspecfit_torch.survey.desi', 'rvspecfit_torch.io.fitsio',
+            'rvspecfit_torch.utils', 'rvspecfit_torch.frozendict'} <= set(mods)
     # h5py and yaml are missing on the card's machine too
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

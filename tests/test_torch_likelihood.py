@@ -115,6 +115,31 @@ def test_interp_batch_matches_reference(ref_tm):
                                    rtol=1e-15)
 
 
+def test_outside_distance_holds_in_float32():
+    """Just outside the grid the float32 nearest-template distance
+    agrees with float64 to float32 precision (the out-of-grid penalty
+    multiplies it by badchi, ~1e4): differences of the scaled
+    parameters, not the expanded |q|^2 - 2 q.v + |v|^2, whose
+    cancellation cost ~1e-3 of the distance."""
+    lam, uvecs, idgrid, vecs, specs, _ = rsim.make_template_grid(
+        6, 6, 6, 4, npix=64)
+    states = {dt: grid.GridInterpState.build(uvecs, idgrid, vecs, specs,
+                                             device='cpu', dtype=dt)
+              for dt in (torch.float32, torch.float64)}
+    rng = np.random.RandomState(2)
+    p = np.stack([np.log10(rng.uniform(4500, 9500, 64)),
+                  rng.uniform(1, 4.8, 64), rng.uniform(-1.9, -0.1, 64),
+                  1.0 + rng.uniform(0.001, 0.05, 64)], 1)
+    out = {dt: grid.interp_batch(st, torch.as_tensor(p, dtype=dt))[1]
+           for dt, st in states.items()}
+    want = out[torch.float64].numpy()
+    assert (want > 0).all()
+    # atol: float32 rounding of the parameters themselves (~1e-7 of
+    # the scaled log10 teff, ~10)
+    np.testing.assert_allclose(out[torch.float32].numpy(), want,
+                               rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize('vs', [0.0, 0.3, 7.0, 150.0])
 def test_rotation_broadening_matches_reference(vs):
     log_step = 1e-4
