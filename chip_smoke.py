@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the rvspecfit_torch group fit and DESI driver on one CUDA card
-and check them.
+"""Drive the rvspecfit_torch group fit, DESI and WEAVE drivers and the
+single-object fit on one CUDA card and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
@@ -41,8 +41,27 @@ and the CUDA toolkit):
    kernels against their plain versions at a 1000-fiber group's shapes,
    and the driver's RVTAB on the card against the CPU float64 run for
    an 8-fiber coadd and a 64-fiber coadd with per-fiber resolution
-   matrices (--resolution_matrix, width-11 Gaussian bands).
+   matrices (--resolution_matrix, width-11 Gaussian bands).  Beside
+   each, witnesses of the Nelder-Mead's end points: the plain versions
+   in float32, and in float64 on the card from the card's and from the
+   CPU's CCF starts (ROADMAP C.1).
+6. The single-object fit on 8 objects of the 3-arm layout at full
+   width: fit/ccf.fit (kernel B at one fiber row) -> vel_fit.process
+   (scan, float64-bookkept Nelder-Mead, BFGS with the autograd
+   gradient, refinement, models, AD Hessian: kernel A in both modes
+   and its adjoint), firstguess on 2 of them and one process with a
+   Gaussian resolution matrix per arm; kernel B timed at B = 1.  Checks
+   RV recovery, every kernel launched, and the card against the CPU
+   float64 run of the same calls; prints seconds per call and stage,
+   BFGS calls and launches per call.
+7. The WEAVE driver, survey/weave.proc_many, over a 500-fiber red +
+   blue pair (two 1024-px arms inside the synthetic grid's range):
+   status line, WEAVE_RV columns, RV recovery, fibers/s; an 8-fiber
+   pair on the card against the CPU.
+8. The DESI driver with ``--param_init bruteforce`` (ccf_init=False) on
+   an 8-fiber coadd: RVTAB schema and RV recovery.
 
+Every path's kernel launches are counted from 0 just before it runs.
 Prints, last, the card, a JSON line of the kernels and then the ok
 line.  Exits non-zero, printing no result, without a CUDA device or on
 any failure.
@@ -182,17 +201,18 @@ def make_bank(continuum=True):
                                      continuum=continuum, device='cpu')
 
 
-def make_template_model(device, wresol=2.0):
+def make_template_model(device, wresol=2.0, dtype=None):
     """The 864-template grid at 4096 px with lines broadened by a
     Gaussian of ``wresol`` A, through the library's artifact path (a
-    regular-grid library's arrays, made in memory)."""
+    regular-grid library's arrays, made in memory); ``dtype`` overrides
+    the device's working dtype (float64 on the card for a witness)."""
     from rvspecfit_torch import simulation
     from rvspecfit_torch.pipeline.library import \
         template_model_from_artifacts
     return template_model_from_artifacts(
         *simulation.template_artifacts(6, 6, 6, 4, npix=4096, lam0=4550.0,
                                        lam1=5450.0, wresol=wresol),
-        device=device)
+        device=device, dtype=dtype)
 
 
 def make_workload(device):
@@ -225,13 +245,20 @@ def spline_bound_ms(u, nm1, rpc):
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def ccf_bound_ms(nb, nt, nf, nv, naccumulators):
-    """Least time of kernel B's work: its GEMM (M = B T, N = V, K = 2F,
-    one per accumulator) issued three times (3xTF32) at the TF32 peak,
-    against the bytes of its inputs and output."""
+def ccf_bound(nb, nt, nf, nv, naccumulators):
+    """Least time of kernel B's work and what bounds it: its GEMM (M =
+    B T, N = V, K = 2F, one per accumulator) issued three times
+    (3xTF32) at the TF32 peak, against the bytes of its inputs and
+    output.  Returns (ms, 'operations' or 'bytes')."""
     flops = 3 * naccumulators * 2.0 * nb * nt * nv * 2 * nf
     nbytes = 8 * 2 * (nt + nb) * nf + 4 * 2 * nf * nv + 4 * nb * nt * nv
-    return 1e3 * max(flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S)
+    t_ops, t_bytes = flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), \
+        'operations' if t_ops >= t_bytes else 'bytes'
+
+
+def ccf_bound_ms(nb, nt, nf, nv, naccumulators):
+    return ccf_bound(nb, nt, nf, nv, naccumulators)[0]
 
 
 def compare(got, want):
@@ -331,39 +358,53 @@ def check_kernel_b(arms, banks, device):
     """Kernel B vs plain on the first arm of ``arms`` (all its fibers)
     with each of ``banks`` ({mode: device bank}; the path's continuum
     mode and, from a bank without continuum built from the same grid,
-    the no-continuum mode); times both, and the continuum contraction as
-    one fp32 torch.matmul (library_ms)."""
-    import torch
-    from rvspecfit_torch.ops import ccf_chisq
+    the no-continuum mode); see kernel_b_case."""
     result = {}
     for mode, bank in banks.items():
         args, cont = kernel_b_args(arms, bank)
         check(cont == (mode == 'continuum'),
               f'the {mode} bank has continuum={cont}')
-        err, scale = compare(ccf_chisq.ccf_chisq(*args, continuum=cont),
-                             ccf_chisq.ccf_chisq_plain(*args, continuum=cont))
-        ms = cuda_time(lambda: ccf_chisq.ccf_chisq(*args, continuum=cont), 10)
-        plain_ms = cuda_time(lambda: ccf_chisq.ccf_chisq_plain(
-            *args, continuum=cont), 3)
-        shape = (args[2].shape[0], args[0].shape[0], args[0].shape[1],
-                 args[4].shape[1])
-        bound = ccf_bound_ms(*shape, 1 if cont else 2)
-        library_ms = None
-        if cont:
-            ops, e = ccf_chisq.contraction_operands(*args, continuum=True)
-            library_ms = cuda_time(lambda: torch.matmul(ops[0], e), 5)
-            del ops, e
-        log(f'kernel B {mode}: at B,T,F,V = {shape}: max|diff| {err:.3e}, '
-            f'{err / scale:.3e} of max|out| (limit 1e-4); kernel '
-            f'{ms:.3f} ms, plain {plain_ms:.3f} ms, library '
-            f'{library_ms if library_ms is None else round(library_ms, 3)}'
-            f' ms, bound {bound:.3f} ms (3xTF32 FLOP) -> '
-            f'{100 * bound / ms:.1f}% of it')
-        check(np.isfinite(err) and err <= 1e-4 * scale,
-              f'kernel B ({mode}) disagrees with its plain version')
-        result[mode] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound, library_ms=library_ms)
+        result[mode] = kernel_b_case(args, cont, f'kernel B {mode}')
     return result
+
+
+def kernel_b_case(args, cont, label, graph=False):
+    """Kernel B's wrapper vs its plain version on ``args``, both timed,
+    and the continuum contraction as one fp32 torch.matmul
+    (library_ms).  ``graph``: time the wrapper from CUDA-graph replays
+    over L2_COPIES copies of its inputs (calls of a few microseconds,
+    inputs from HBM), beside the eager time."""
+    import torch
+    from rvspecfit_torch.ops import ccf_chisq
+
+    def call(*a):
+        return ccf_chisq.ccf_chisq(*a, continuum=cont)
+    err, scale = compare(call(*args),
+                         ccf_chisq.ccf_chisq_plain(*args, continuum=cont))
+    eager_ms = cuda_time(lambda: call(*args), 10)
+    ms = cuda_time(cold_inputs(call, *args), 2 * L2_COPIES, graph=True) \
+        if graph else eager_ms
+    plain_ms = cuda_time(lambda: ccf_chisq.ccf_chisq_plain(
+        *args, continuum=cont), 3)
+    shape = (args[2].shape[0], args[0].shape[0], args[0].shape[1],
+             args[4].shape[1])
+    bound, bound_by = ccf_bound(*shape, 1 if cont else 2)
+    library_ms = None
+    if cont:
+        ops, e = ccf_chisq.contraction_operands(*args, continuum=True)
+        library_ms = cuda_time(lambda: torch.matmul(ops[0], e), 5)
+        del ops, e
+    log(f'{label}: at B,T,F,V = {shape}: max|diff| {err:.3e}, '
+        f'{err / scale:.3e} of max|out| (limit 1e-4); kernel '
+        f'{ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.3f} ms, '
+        f'library '
+        f'{library_ms if library_ms is None else round(library_ms, 4)}'
+        f' ms, bound {bound:.4f} ms ({bound_by}) -> '
+        f'{100 * bound / ms:.1f}% of it')
+    check(np.isfinite(err) and err <= 1e-4 * scale,
+          f'{label} disagrees with its plain version')
+    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
 
 
 def adjoint_inputs(tm, arms, truth, device):
@@ -457,11 +498,10 @@ def plain_versions():
     """The path's calls of the kernels run their plain versions instead
     (a witness run: it launches no kernel; the polish and the Hessian
     differentiate the plain evaluation)."""
-    from rvspecfit_torch.fit import batch, likelihood
+    from rvspecfit_torch.fit import likelihood
     from rvspecfit_torch.ops import ccf_chisq, spline_eval
     plain = spline_eval.spline_eval_index_plain
     with mock.patch.object(likelihood, 'spline_eval_index', plain), \
-            mock.patch.object(batch, 'spline_eval_index', plain), \
             mock.patch.object(ccf_chisq, 'ccf_chisq',
                               ccf_chisq.ccf_chisq_plain):
         yield
@@ -708,10 +748,10 @@ def group_fits(records):
     from rvspecfit_torch.survey import desi
     real = desi._run_group_fit
 
-    def run(arms, templates, config, options, banks=None):
+    def run(arms, templates, config, options, **kw):
         before = kernel_counts()
         t0 = time.perf_counter()
-        out = real(arms, templates, config, options, banks=banks)
+        out = real(arms, templates, config, options, **kw)
         wall = time.perf_counter() - t0
         after = kernel_counts()
         records.append(dict(
@@ -816,43 +856,119 @@ def run_driver(workdir, tm, bank_d):
                 wall=wall, recovered=recovered, truth=group_truth)
 
 
+def runs_with_witnesses(name, run, tms, witness64=None):
+    """One driver run per key of the card-vs-CPU comparison, each
+    through ``run(key, template model, device) -> output table``:
+    'cuda' (float32, kernels), 'cpu' (float64, plain versions) and
+    'witness', the card in float32 with the plain versions in place of
+    the kernels (it launches none), which tells float32 arithmetic from
+    a kernel at fault.  ``witness64``, a float64 template model on the
+    card, adds 'witness64' and 'witness64cpu', the plain versions in
+    float64 on the card (a float64 objective) from the kernel run's CCF
+    starts and from the CPU run's (which tells the starts from the
+    arithmetic), and 'cpustarts', the kernel run again from the CPU
+    run's CCF starts.  Returns {key: table}."""
+    tabs, cres = {}, {'cuda': [], 'cpu': []}
+    keys = ('cuda', 'cpu', 'witness') + (
+        ('witness64', 'witness64cpu', 'cpustarts') if witness64 else ())
+    for key in keys:
+        dev = 'cpu' if key == 'cpu' else 'cuda'
+        tm_k = witness64 if key.startswith('witness64') else tms[dev]
+        counts = kernel_counts()
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            if key.startswith('witness'):
+                stack.enter_context(plain_versions())
+            if key in cres:
+                stack.enter_context(ccf_result(record=cres[key]))
+            if key.startswith('witness64') or key == 'cpustarts':
+                stack.enter_context(ccf_result(
+                    replay=cres['cuda' if key == 'witness64' else
+                                'cpu'][0]))
+            tabs[key] = run(key, tm_k, dev)
+        log(f'{name}: driver on {key} {time.perf_counter() - t0:.2f} s')
+        if key.startswith('witness'):
+            check(counts == kernel_counts(),
+                  f'the {key} run launched a kernel')
+    return tabs
+
+
+def spread_against_cpu(name, tabs, vel, pars, err):
+    """Each run of ``tabs`` against the CPU's: |dv| over max(1 km/s,
+    sigma/2) and |dp| / sigma per fiber and parameter, sigma the CPU's
+    errors (columns ``vel``, each parameter of ``pars``, and each with
+    the suffix ``err``), logged for the card's run and every witness.
+    Returns (dv, dp) of the card's run and the dict of NM end-point
+    numbers (max |dp|/sigma and fibers over 0.5 for each run)."""
+    c = tabs['cpu']
+    lim = np.maximum(1.0, 0.5 * c[vel + err])
+
+    def spread(t):
+        dv = np.abs(t[vel] - c[vel]) / lim
+        dp = np.stack([np.abs(t[p] - c[p]) / c[p + err] for p in pars], 1)
+        return dv, dp
+    (dv, dp), (wdv, wdp) = spread(tabs['cuda']), spread(tabs['witness'])
+    good = np.isfinite(dp).all(1)
+    over = (dp > 0.5).any(1)
+    log(f'{name}: {len(c[vel])} fibers, card float32 vs CPU float64: max '
+        f'|dv|/limit {dv.max():.4f} (limit max(1 km/s, sigma/2)); max '
+        f'|dp|/sigma {np.nanmax(dp):.4f}, over 0.5 for {int(over.sum())} '
+        f'fibers ({int(good.sum())} with finite CPU errors); witness '
+        f'(float32, plain versions): max |dv|/limit {wdv.max():.4f}, max '
+        f'|dp|/sigma {np.nanmax(wdp):.4f}, over 0.5 for '
+        f'{int((wdp > 0.5).any(1).sum())}')
+    nm_check = dict(max_dp=float(np.nanmax(dp)), over=int(over.sum()),
+                    witness32_max_dp=float(np.nanmax(wdp)),
+                    witness32_over=int((wdp > 0.5).any(1).sum()))
+    for key, what in (
+            ('witness64', 'a float64 objective (plain versions in float64 '
+             'on the card) from the kernel run\'s CCF starts'),
+            ('witness64cpu', 'a float64 objective from the CPU run\'s CCF '
+             'starts'),
+            ('cpustarts', 'the kernels (float32) from the CPU run\'s CCF '
+             'starts')):
+        if key not in tabs:
+            continue
+        w64dv, w64dp = spread(tabs[key])
+        nm_check[key + '_max_dp'] = float(np.nanmax(w64dp))
+        nm_check[key + '_over'] = int((w64dp > 0.5).any(1).sum())
+        log(f'{name}: {what}: max |dv|/limit {w64dv.max():.4f}, max '
+            f'|dp|/sigma {np.nanmax(w64dp):.4f}, over 0.5 for '
+            f'{int((w64dp > 0.5).any(1).sum())} fibers; at the '
+            f'{int(over.sum())} fibers the kernel run left over 0.5: '
+            f'{np.round(np.nanmax(w64dp[over], 1), 4).tolist()}')
+    return dv, dp, nm_check
+
+
 def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
-                       config=CONFIG, check_params=True):
+                       config=CONFIG, check_params=True, witness64=None):
     """One coadd through proc_many on the card (float32, kernels) and on
-    the CPU (float64, plain versions): same columns, TARGETID and
-    SUCCESS; RVS_WARN equal but for BAD_HESSIAN, whose flips are held
-    to the one-point test (hessians_at_one_point, which also holds the
-    chi-square at the CPU optimum); |dv| <= max(1 km/s, sigma/2), sigma
-    the CPU's errors.  With ``check_params``, the parameters within
-    sigma/2 of the CPU's too; else logged only.  A witness beside it,
-    the card in float32 with the plain versions in place of the
-    kernels (it launches none), tells float32 arithmetic from a kernel
-    at fault."""
+    the CPU (float64, plain versions), with the witnesses of
+    runs_with_witnesses: same columns, TARGETID and SUCCESS; RVS_WARN
+    equal but for BAD_HESSIAN, whose flips are held to the one-point
+    test (hessians_at_one_point, which also holds the chi-square at the
+    CPU optimum); |dv| <= max(1 km/s, sigma/2), sigma the CPU's errors.
+    With ``check_params``, the parameters within sigma/2 of the CPU's
+    too; else logged only."""
     from rvspecfit_torch.io import fitsio
     from rvspecfit_torch.survey import desi
     path = write_coadd(os.path.join(workdir, f'coadd-{name}.fits'),
                        arms_data, bands)
-    tabs, recs = {}, {}
-    for key in ('cuda', 'cpu', 'witness'):
+    recs = {}
+
+    def run(key, tm_k, dev):
         records = []
         outdir = os.path.join(workdir, f'out-{name}-{key}')
-        dev = 'cpu' if key == 'cpu' else 'cuda'
-        counts = kernel_counts()
-        t0 = time.perf_counter()
-        with group_fits(records), (plain_versions() if key == 'witness'
-                                   else contextlib.nullcontext()):
+        with group_fits(records):
             desi.proc_many([path], outdir, config=config, options=OPTIONS,
-                           coalesce=COALESCE, templates=per_setup(tms[dev]),
+                           coalesce=COALESCE, templates=per_setup(tm_k),
                            banks=per_setup(banks[dev]),
                            throw_exceptions=True,
                            use_resolution_matrix=bands is not None)
-        log(f'{name}: driver on {key} {time.perf_counter() - t0:.2f} s')
-        if key == 'witness':
-            check(counts == kernel_counts(),
-                  'the witness run launched a kernel')
-        tabs[key] = fitsio.read(desi.output_paths(path, outdir)[0])[
-            'RVTAB'].data
         recs[key] = records[0]
+        return fitsio.read(desi.output_paths(path, outdir)[0])[
+            'RVTAB'].data
+    tabs = runs_with_witnesses(name, run, tms, witness64)
     g, c = tabs['cuda'], tabs['cpu']
     bh = desi.bitmasks['BAD_HESSIAN']
     check(list(g) == list(c), f'{name}: RVTAB columns differ')
@@ -862,31 +978,442 @@ def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
           f'{name}: SUCCESS differs')
     check(np.array_equal(g['RVS_WARN'] & ~bh, c['RVS_WARN'] & ~bh),
           f'{name}: RVS_WARN differs beyond BAD_HESSIAN')
-    lim = np.maximum(1.0, 0.5 * c['VRAD_ERR'])
-    pars = ('TEFF', 'LOGG', 'FEH', 'ALPHAFE')
-
-    def spread(t):
-        dv = np.abs(t['VRAD'] - c['VRAD']) / lim
-        dp = np.stack([np.abs(t[p] - c[p]) / c[p + '_ERR']
-                       for p in pars], 1)
-        return dv, dp
-    (dv, dp), (wdv, wdp) = spread(g), spread(tabs['witness'])
-    good = np.isfinite(dp).all(1)
+    dv, dp, nm_check = spread_against_cpu(
+        name, tabs, 'VRAD', ('TEFF', 'LOGG', 'FEH', 'ALPHAFE'), '_ERR')
     flips = int(((g['RVS_WARN'] ^ c['RVS_WARN']) & bh).astype(bool).sum())
-    log(f'{name}: {len(c["TARGETID"])} fibers, card float32 vs CPU '
-        f'float64: max |dv|/limit {dv.max():.4f} (limit max(1 km/s, '
-        f'sigma/2)); max |dp|/sigma {np.nanmax(dp):.4f}, over 0.5 for '
-        f'{int((dp > 0.5).any(1).sum())} fibers ({int(good.sum())} with '
-        f'finite CPU errors); witness (float32, plain versions): max '
-        f'|dv|/limit {wdv.max():.4f}, max |dp|/sigma {np.nanmax(wdp):.4f}, '
-        f'over 0.5 for {int((wdp > 0.5).any(1).sum())}; BAD_HESSIAN flips '
-        f'at own optima {flips}; SUCCESS {int(g["SUCCESS"].sum())}/'
-        f'{len(g["SUCCESS"])} on both')
+    log(f'{name}: BAD_HESSIAN flips at own optima {flips}; SUCCESS '
+        f'{int(g["SUCCESS"].sum())}/{len(g["SUCCESS"])} on both')
     check((dv <= 1).all(), f'{name}: card velocities disagree with CPU')
     if check_params:
+        good = np.isfinite(dp).all(1)
         check((dp[good] <= 0.5).all(),
               f'{name}: card parameters disagree with CPU')
     hessians_at_one_point(recs['cpu']['arms'], tms, recs['cpu']['out'])
+    return nm_check
+
+
+# ------------------------------------------------------------------
+# the single-object fit: SpecData -> ccf.fit -> vel_fit.process
+
+NOBJ = 8
+NFIRSTGUESS = 2
+# the resolution-matrix object: resolution_exposure's first fiber, whose
+# lines are RES_OBJ_SIGMA A wide, fitted with the narrow templates'
+# RES_SIGMA0 A lines and the Gaussian LSF that makes up the difference
+RES_OBJ_SIGMA = 0.35
+
+
+def single_objects(seed=7):
+    """NOBJ objects of the 3-arm layout at S/N 50, each as 3 SpecData:
+    (objects, truth)."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.fit.spec_data import SpecData
+    arms_data, truth = simulation.make_exposure(NOBJ, npix_arm=NPIX_ARM,
+                                                snr=50.0, seed=seed)
+    return [[SpecData(n, lam, fl[i], 1.0 / np.sqrt(iv[i]))
+             for n, (lam, fl, iv) in arms_data.items()]
+            for i in range(NOBJ)], truth
+
+
+@contextlib.contextmanager
+def process_stages(record):
+    """Append to ``record`` {stage: [seconds]} for each stage of
+    vel_fit.process (scan, nm, bfgs, refine, models, hessian; each
+    waits for the card) and {'bfgs_calls': [objective-and-gradient
+    calls]}."""
+    import scipy.optimize
+    import torch
+    from rvspecfit_torch.fit import likelihood, vel_fit
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.setdefault(name, []).append(time.perf_counter() - t0)
+            if name == 'bfgs':
+                record.setdefault('bfgs_calls', []).append(out.nfev)
+            return out
+        return run
+    with mock.patch.object(vel_fit, 'find_best',
+                           timed('scan', vel_fit.find_best)), \
+            mock.patch.object(vel_fit.nm, 'minimize_batch',
+                              timed('nm', vel_fit.nm.minimize_batch)), \
+            mock.patch.object(scipy.optimize, 'minimize',
+                              timed('bfgs', scipy.optimize.minimize)), \
+            mock.patch.object(vel_fit, '_minimum_sampler',
+                              timed('refine', vel_fit._minimum_sampler)), \
+            mock.patch.object(likelihood.FusedChisq, 'full_output',
+                              timed('models',
+                                    likelihood.FusedChisq.full_output)), \
+            mock.patch.object(likelihood.FusedChisq, 'hessian',
+                              timed('hessian',
+                                    likelihood.FusedChisq.hessian)):
+        yield
+
+
+def single_at_one_point(sds, templates, res_cpu, resol=None):
+    """The chi-square and the Hessian errors of one object at the CPU
+    run's optimum, on the card (float32, kernels) and on the CPU: |dchi2|
+    and max |rel diff| of the errors, and each side's BAD_HESSIAN."""
+    from rvspecfit_torch.fit.likelihood import FusedChisq
+    from rvspecfit_torch.fit.vel_fit import uncertainties_from_hessian
+    names = templates['cpu'][sds[0].name].parnames
+    params = np.array([res_cpu['param'][p] for p in names])
+    chi, err, bad = {}, {}, {}
+    for key, tms in templates.items():
+        f = FusedChisq(sds, tms, CONFIG, options=OPTIONS,
+                       resol_mats=resol and resol[key])
+        chi[key] = f.chisq_one(res_cpu['vel'], params)
+        h = f.hessian(res_cpu['vel'], params)
+        err[key], _, bad[key] = uncertainties_from_hessian(
+            h.double().cpu().numpy())
+    rel = float(np.abs(err['cuda'] / err['cpu'] - 1).max())
+    return abs(chi['cuda'] - chi['cpu']), rel, bad['cuda'], bad['cpu']
+
+
+def run_single_object(models, banks):
+    """The single-object path on the card: ccf.fit -> vel_fit.process on
+    each of NOBJ objects, firstguess on NFIRSTGUESS of them and one
+    process with a Gaussian resolution matrix per arm (resolParams); its
+    kernel launches counted from 0.  Then the CPU float64 run of the same
+    calls.  Checks RV recovery, every kernel launched, and the card
+    against the CPU (velocities within max(1 km/s, sigma/2); chi-square
+    within CHI_TOL and Hessian errors within ERR_TOL at the CPU optimum;
+    parameters logged, see ROADMAP C.1)."""
+    import torch
+    from rvspecfit_torch.fit import ccf, vel_fit
+    from rvspecfit_torch.fit.spec_data import SpecData
+    from rvspecfit_torch.ops.resolution import gaussian_resolution_matrix
+    objs, truth = single_objects()
+    names = [sd.name for sd in objs[0]]
+    tms = {k: {n: models[k] for n in names} for k in ('cuda', 'cpu')}
+    bks = {k: {n: banks[k] for n in names} for k in ('cuda', 'cpu')}
+    res_objs, res_truth = resolution_exposure(1, seed=12)[::2]
+    res_sds = [SpecData(n, lam, fl[0], 1.0 / np.sqrt(iv[0]))
+               for n, (lam, fl, iv) in res_objs.items()]
+    narrow = {k: {n: models['narrow_' + k] for n in names}
+              for k in ('cuda', 'cpu')}
+    width = np.sqrt(RES_OBJ_SIGMA**2 - RES_SIGMA0**2)
+    resol = {k: {sd.name: gaussian_resolution_matrix(sd.lam, width=width)
+                 for sd in res_sds} for k in ('cuda', 'cpu')}
+
+    out = {}
+    for key in ('cuda', 'cpu'):
+        calls, guesses = [], []
+        if key == 'cuda':
+            reset_counts()
+            torch.cuda.synchronize()
+        t_phase = time.perf_counter()
+        for sds in objs:
+            rec = {}
+            c0 = kernel_counts()
+            t0 = time.perf_counter()
+            g = ccf.fit(sds, CONFIG, banks=bks[key])
+            t1 = time.perf_counter()
+            c1 = kernel_counts()
+            with process_stages(rec):
+                r = vel_fit.process(sds, g['best_par'], config=CONFIG,
+                                    options=OPTIONS, templates=tms[key])
+            t2 = time.perf_counter()
+            c2 = kernel_counts()
+            calls.append(dict(
+                res=r, ccf=g, ccf_s=t1 - t0, process_s=t2 - t1,
+                stages={k: float(np.sum(v)) for k, v in rec.items()},
+                ccf_launches={k: c1[k] - c0[k] for k in c0},
+                process_launches={k: c2[k] - c1[k] for k in c0}))
+        t_fit = time.perf_counter()
+        # the CPU's float64 firstguess takes ~20 s an object: one is
+        # enough to compare with
+        for sds in objs[:NFIRSTGUESS if key == 'cuda' else 1]:
+            guesses.append(vel_fit.firstguess(sds, config=CONFIG,
+                                              options=OPTIONS,
+                                              templates=tms[key]))
+        t_guess = time.perf_counter()
+        r_res = vel_fit.process(res_sds, START, config=CONFIG,
+                                options=OPTIONS, templates=narrow[key],
+                                resolParams=resol[key])
+        t_end = time.perf_counter()
+        out[key] = dict(calls=calls, guesses=guesses, res=r_res,
+                        seconds=dict(fit=t_fit - t_phase,
+                                     firstguess=t_guess - t_fit,
+                                     resolution=t_end - t_guess,
+                                     phase=t_end - t_phase))
+        if key == 'cuda':
+            out['counts'] = kernel_counts()
+        log(f'single-object phase on {key}: ' + ' '.join(
+            f'{k}={v:.3f}s' for k, v in out[key]['seconds'].items()))
+
+    counts = out['counts']
+    log(f'single-object phase kernel launches: {counts}')
+    check(all(v > 0 for v in counts.values()),
+          f'a kernel of the single-object path was not launched: {counts}')
+    card, cpu = out['cuda'], out['cpu']
+    # a witness of ccf.fit: the plain version of kernel B on the card
+    # (float32) tells float32 arithmetic from the kernel's own error
+    counts0 = kernel_counts()
+    with plain_versions():
+        plain = [ccf.fit(sds, CONFIG, banks=bks['cuda']) for sds in objs]
+    check(counts0 == kernel_counts(), 'the plain ccf.fit launched a kernel')
+    fits = {'kernel': [c['ccf'] for c in card['calls']], 'plain': plain,
+            'cpu': [c['ccf'] for c in cpu['calls']]}
+    vel = {k: np.array([r['best_vel'] for r in v]) for k, v in fits.items()}
+    same = {k: sum(r['best_par'] == q['best_par']
+                   for r, q in zip(fits[k], fits['cpu']))
+            for k in ('kernel', 'plain')}
+    dvel = lambda a, b: np.abs(vel[a] - vel[b]).max()
+    dcurve = lambda a, b: max(np.abs(x['best_ccf'] - y['best_ccf']).max()
+                              for x, y in zip(fits[a], fits[b]))
+    rise = [np.partition(r['best_ccf'] - r['best_ccf'].min(), 2)[1:3]
+            for r in fits['cpu']]
+    log(f'single-object ccf.fit best_vel, max over objects: |kernel B - '
+        f'CPU| {dvel("kernel", "cpu"):.4f} km/s, |plain float32 - CPU| '
+        f'{dvel("plain", "cpu"):.4f}, |kernel B - plain float32| '
+        f'{dvel("kernel", "plain"):.4f}; same template as the CPU: kernel '
+        f'B {same["kernel"]}/{NOBJ}, plain float32 {same["plain"]}/{NOBJ}; '
+        f'best curves max|kernel B - plain float32| '
+        f'{dcurve("kernel", "plain"):.4g}, max|plain float32 - CPU| '
+        f'{dcurve("plain", "cpu"):.4g}; the CPU curves\' two next-lowest '
+        f'points lie {np.min(rise):.4g}..{np.max(rise):.4g} above their '
+        f'minimum')
+    for i, (c, p) in enumerate(zip(card['calls'], cpu['calls'])):
+        r = c['res']
+        log(f'  object {i}: ccf.fit {c["ccf_s"]:.3f} s, process '
+            f'{c["process_s"]:.3f} s (' + ' '.join(
+                f'{k}={v:.3f}s' for k, v in c['stages'].items()
+                if k != 'bfgs_calls')
+            + '; BFGS objective+gradient calls '
+            f'{c["stages"].get("bfgs_calls", 0):.0f}); launches ccf.fit {c["ccf_launches"]}, process '
+            f'{c["process_launches"]}; vel {r["vel"]:.3f} +- '
+            f'{r["vel_err"]:.3f} (truth {truth["vel"][i]:.3f}, CPU '
+            f'{p["res"]["vel"]:.3f}); CPU process {p["process_s"]:.3f} s')
+    rv = np.array([c['res']['vel'] for c in card['calls']])
+    sig = np.array([c['res']['vel_err'] for c in card['calls']])
+    ok = np.abs(rv - truth['vel']) < np.maximum(10.0, 5 * sig)
+    check(ok.all(), f'single-object RV recovery {int(ok.sum())}/{NOBJ}')
+    vc = np.array([p['res']['vel'] for p in cpu['calls']])
+    sc = np.array([p['res']['vel_err'] for p in cpu['calls']])
+    dv = np.abs(rv - vc) / np.maximum(1.0, 0.5 * sc)
+    dchi, rel, flips = [], [], 0
+    for sds, p in zip(objs, cpu['calls']):
+        d, e, bc, bp = single_at_one_point(sds, tms, p['res'])
+        dchi.append(d)
+        rel.append(e if not (bc or bp) else 0.0)
+        flips += int(bc != bp)
+    d, e, bc, bp = single_at_one_point(res_sds, narrow, cpu['res'], resol)
+    dchi.append(d)
+    rel.append(e if not (bc or bp) else 0.0)
+    flips += int(bc != bp)
+    names4 = list(card['calls'][0]['res']['param'])
+    dp = np.array([[abs(c['res']['param'][k] - p['res']['param'][k])
+                    / p['res']['param_err'][k] for k in names4]
+                   for c, p in zip(card['calls'] + [dict(res=card['res'])],
+                                   cpu['calls'] + [dict(res=cpu['res'])])])
+    r_res = card['res']
+    dv_res = abs(r_res['vel'] - cpu['res']['vel']) / max(
+        1.0, 0.5 * cpu['res']['vel_err'])
+    log(f'single-object: RV recovery {int(ok.sum())}/{NOBJ} within max(10, '
+        f'5 sigma); card vs CPU float64: max |dv|/limit '
+        f'{max(dv.max(), dv_res):.4f} (limit max(1 km/s, sigma/2)); at the '
+        f'CPU optimum |dchi2| max {max(dchi):.4g} (limit {CHI_TOL}), errors '
+        f'max |rel diff| {max(rel):.4g} (limit {ERR_TOL}, good Hessians), '
+        f'BAD_HESSIAN differing {flips} (logged); parameters at each run\'s own optimum max '
+        f'|dp|/sigma {np.nanmax(dp):.4f}, over 0.5 for '
+        f'{int((dp > 0.5).any(1).sum())} of {len(dp)} (logged: ROADMAP C.1)')
+    log(f'  resolution-matrix object: vel {r_res["vel"]:.3f} +- '
+        f'{r_res["vel_err"]:.3f} (truth {res_truth["vel"][0]:.3f}, CPU '
+        f'{cpu["res"]["vel"]:.3f}); firstguess card '
+        f'{card["guesses"]}, CPU {cpu["guesses"]}')
+    check((dv <= 1).all() and dv_res <= 1,
+          'single-object velocities on the card disagree with the CPU')
+    check(abs(r_res['vel'] - res_truth['vel'][0]) < max(
+        10.0, 5 * r_res['vel_err']), 'resolution-matrix object: RV')
+    check(max(dchi) <= CHI_TOL, 'single-object chi-square at the CPU '
+          'optimum disagrees with float64')
+    check(max(rel) <= ERR_TOL, 'single-object Hessian errors at the CPU '
+          'optimum disagree with float64')
+    out['max_dp'] = float(np.nanmax(dp))
+    for gs in card['guesses']:
+        check(set(gs) >= set(names4), f'firstguess gave {gs}')
+    return out
+
+
+def kernel_b_single(sd, bank):
+    """Kernel B at one fiber row, as ccf.fit launches it on the
+    SpecData ``sd`` (prepare_arm_batch at B = 1)."""
+    from rvspecfit_torch.fit.batch import BatchArm
+    args, cont = kernel_b_args([BatchArm(sd.name, sd.lam, sd.spec[None],
+                                         sd.espec[None]**-2.0)], bank)
+    return kernel_b_case(args, cont, 'kernel B at B = 1 (ccf.fit)',
+                         graph=True)
+
+
+# ------------------------------------------------------------------
+# the WEAVE driver: file pairs -> survey/weave.proc_many -> WEAVE_RV
+
+WEAVE_LAYOUT = {'b': (4600.0, 4900.0), 'r': (4900.0, 5150.0)}
+WEAVE_NFIB = 500
+WEAVE_OPTIONS = {'npoly': 15}
+
+
+def write_weave_pair(workdir, nfib, seed):
+    """A WEAVE RED + BLUE pair of ``nfib`` fibers x NPIX_ARM px on
+    WEAVE_LAYOUT (inside the synthetic grid's 4550-5450 A) in
+    tests/test_weave.py's layout, written with the port's fitsio:
+    (comma-joined names, truth)."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.io import fitsio
+    arms, truth = simulation.make_exposure(nfib, npix_arm=NPIX_ARM,
+                                           snr=50.0, seed=seed,
+                                           layout=WEAVE_LAYOUT)
+    fnames = []
+    for s, cam in (('r', 'RED'), ('b', 'BLUE')):
+        lam, flux, ivar = arms[s]
+        hd = [('CAMERA', f'WEAVE{cam}', ''), ('OBID', 'smoke_ob.01', ''),
+              ('CRVAL1', lam[0] * 1e-10, ''),
+              ('CD1_1', (lam[1] - lam[0]) * 1e-10, ''),
+              ('CRPIX1', 1.0, ''), ('CUNIT1', 'm', '')]
+        fib = [('TARGID', np.array([f'"star_{i}"' for i in range(nfib)])),
+               ('TARGCAT', np.array(['GA_LRhighlat'] * nfib))]
+        fname = os.path.join(workdir, f'weave{seed}_{cam}.fits')
+        fitsio.write(fname, [
+            dict(kind='image', data=None, header=hd),
+            dict(kind='image', data=flux.astype(np.float32),
+                 name=f'{cam}_DATA', header=hd),
+            dict(kind='image', data=ivar.astype(np.float32),
+                 name=f'{cam}_IVAR'),
+            dict(kind='table', data=fib, name='FIBTABLE')])
+        fnames.append(fname)
+    return ','.join(fnames), truth
+
+
+def weave_columns(parnames, setups):
+    """The WEAVE_RV columns the reference writes
+    (rvspecfit_tpu/survey/weave.py:197-208), in order."""
+    cols = ['brickname', 'target_id', 'vrad', 'vrad_err', 'vsini']
+    for p in parnames:
+        cols += [p, p + '_err']
+    cols.append('chisq_tot')
+    for s in setups:
+        cols += [f'chisq_{s}', f'chisq_c_{s}', f'sn_{s}']
+    return cols
+
+
+def run_weave(workdir, models, banks, witness64):
+    """survey/weave.proc_many over a WEAVE_NFIB-fiber pair on the card,
+    launches counted from 0: the status line, the WEAVE_RV columns, RV
+    recovery; then an 8-fiber pair on the card against the CPU with the
+    witnesses of runs_with_witnesses (``witness64`` the float64 template
+    model on the card): velocities within max(1 km/s, sigma/2),
+    parameters logged."""
+    import torch
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import weave
+    grp, truth = write_weave_pair(workdir, WEAVE_NFIB, seed=40)
+    kw = lambda k: dict(options=WEAVE_OPTIONS, throw_exceptions=True,
+                        templates={f'weave_{s}': models[k]
+                                   for s in WEAVE_LAYOUT},
+                        banks={f'weave_{s}': banks[k]
+                               for s in WEAVE_LAYOUT})
+    outdir = os.path.join(workdir, 'weave-out')
+    status = os.path.join(workdir, 'weave-status.txt')
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    weave.proc_many([grp], outdir, CONFIG, status_fname=status, **kw('cuda'))
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    log(f'WEAVE: {WEAVE_NFIB} fibers x 2 arms x {NPIX_ARM} px in '
+        f'{wall:.3f} s -> {WEAVE_NFIB / wall:.1f} fibers/s; kernel '
+        f'launches {counts}')
+    check(all(v > 0 for v in counts.values()),
+          f'a kernel of the WEAVE path was not launched: {counts}')
+    ofname = weave.output_path(grp, outdir)
+    lines = read_status(status)
+    check(len(lines) == 1 and lines[0][:3] == [ofname, 'SUCCESS',
+                                              str(WEAVE_NFIB)],
+          f'WEAVE status lines: {lines}')
+    tab = fitsio.read(ofname)['WEAVE_RV'].data
+    parnames = models['cuda'].parnames
+    check(list(tab) == weave_columns(parnames, sorted(WEAVE_LAYOUT)),
+          f'WEAVE_RV columns {list(tab)}')
+    ok = np.abs(tab['vrad'] - truth['vel']) < np.maximum(
+        10.0, 5 * tab['vrad_err'])
+    log(f'WEAVE RV recovery {int(ok.sum())}/{WEAVE_NFIB} within max(10, 5 '
+        f'sigma); WEAVE_RV has the reference\'s {len(tab)} columns; status '
+        f'{lines[0][:4]}')
+    check(ok.sum() >= 0.98 * WEAVE_NFIB,
+          f'WEAVE RV recovery {ok.sum()}/{WEAVE_NFIB}')
+
+    grp8, _ = write_weave_pair(workdir, 8, seed=41)
+
+    def run8(key, tm_k, dev):
+        out8 = os.path.join(workdir, f'weave8-{key}')
+        kw8 = dict(kw(dev), templates={f'weave_{s}': tm_k
+                                       for s in WEAVE_LAYOUT})
+        weave.proc_many([grp8], out8, CONFIG, device=dev, **kw8)
+        return fitsio.read(weave.output_path(grp8, out8))['WEAVE_RV'].data
+    tabs = runs_with_witnesses('WEAVE 8-fiber pair', run8, models,
+                               witness64)
+    g, c = tabs['cuda'], tabs['cpu']
+    check(list(g) == list(c) and np.array_equal(g['target_id'],
+                                                c['target_id']),
+          'WEAVE 8-fiber pair: columns or targets differ')
+    dv, dp, nm_check = spread_against_cpu('WEAVE 8-fiber pair', tabs,
+                                          'vrad', parnames, '_err')
+    for key, t in tabs.items():
+        dpk = np.stack([np.abs(t[p] - c[p]) / c[p + '_err']
+                        for p in parnames], 1)
+        log(f'WEAVE 8-fiber pair, {key}: per fiber max |dp|/sigma_CPU '
+            f'{np.round(np.nanmax(dpk, 1), 4).tolist()}, vsini '
+            f'{np.round(t["vsini"], 3).tolist()} km/s')
+    log('WEAVE 8-fiber pair: parameters logged, not checked (PERF.md)')
+    check((dv <= 1).all(), 'WEAVE velocities on the card disagree with CPU')
+    return dict(counts=counts, wall=wall, recovered=int(ok.sum()),
+                nm_check=nm_check)
+
+
+def run_bruteforce(workdir, tm, bank_d):
+    """The DESI driver with ``--param_init bruteforce`` (ccf_init=False)
+    on an 8-fiber coadd on the card, launches counted from 0: the RVTAB
+    schema (no CCF columns but VRAD_CCF) and RV recovery."""
+    import torch
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import desi
+    arms_data, truth = simulation.make_exposure(8, npix_arm=NPIX_ARM,
+                                                snr=50.0, seed=9)
+    path = write_coadd(os.path.join(workdir, 'coadd-bruteforce.fits'),
+                       arms_data)
+    outdir = os.path.join(workdir, 'out-bruteforce')
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    desi.proc_many([path], outdir, config=CONFIG, options=OPTIONS,
+                   coalesce=COALESCE, templates=per_setup(tm),
+                   banks=per_setup(bank_d), throw_exceptions=True,
+                   ccf_init=False)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    log(f'DESI --param_init bruteforce: 8 fibers in {wall:.3f} s; kernel '
+        f'launches {counts}')
+    check(counts['ccf_chisq'] == 0 and all(
+        v > 0 for k, v in counts.items() if k != 'ccf_chisq'),
+        f'bruteforce path launches: {counts}')
+    rv = fitsio.read(desi.output_paths(path, outdir)[0])['RVTAB'].data
+    desc = desi.get_column_desc([s.upper() for s in SETUPS])
+    want = [k for k in desc if k not in OPTIONAL_COLUMNS
+            and not (k.endswith('_CCF') and k != 'VRAD_CCF')]
+    check(set(rv) == set(want) and all(
+        rv[k].dtype == np.dtype(desc[k][0]) for k in want),
+        f'bruteforce RVTAB columns {sorted(rv)}')
+    ok = np.abs(rv['VRAD'] - truth['vel']) < np.maximum(
+        10.0, 5 * rv['VRAD_ERR'])
+    log(f'DESI bruteforce RV recovery {int(ok.sum())}/8; RVTAB has the '
+        'schema without the CCF columns but VRAD_CCF')
+    check(ok.sum() >= 0.98 * 8, f'bruteforce RV recovery {ok.sum()}/8')
+    return dict(counts=counts, wall=wall)
+
 
 def main():
     import torch
@@ -960,22 +1487,43 @@ def main():
         drv['records'] = group = None
         cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
                                                snr=50.0, seed=7)
-        driver_against_cpu(workdir, 'coadd8', cmp_arms,
-                           {'cuda': tm, 'cpu': tm_cpu},
-                           {'cuda': bank_d, 'cpu': bank_cpu})
+        # ROADMAP C.1: the Nelder-Mead's end points (float64 bookkeeping)
+        # against the float64 run, beside float32 and float64 witnesses
+        tm64 = make_template_model(device, dtype=torch.float64)
+        nm8 = driver_against_cpu(workdir, 'coadd8', cmp_arms,
+                                 {'cuda': tm, 'cpu': tm_cpu},
+                                 {'cuda': bank_d, 'cpu': bank_cpu},
+                                 witness64=tm64)
         res_data, bands, _ = resolution_exposure(NFIB_RES, seed=8)
         narrow = {key: make_template_model(d, wresol=RES_SIGMA0)
                   for key, d in (('cuda', device), ('cpu', cpu))}
+        narrow64 = make_template_model(device, wresol=RES_SIGMA0,
+                                       dtype=torch.float64)
         # parameters at each run's own optimum are logged, not checked:
-        # over 64 fibers the float32 Nelder-Mead ends up to ~1 sigma
-        # from the float64 one with or without the kernels (the
-        # witness, PERF.md); the chi-square and the Hessian are checked
-        # at one point instead
-        driver_against_cpu(
+        # over 64 fibers the Nelder-Mead ends up to ~0.8 sigma from the
+        # float64 one with or without the kernels, and with a float64
+        # objective from the card's CCF starts too (the witnesses,
+        # PERF.md, ROADMAP C.1); the chi-square and the Hessian are
+        # checked at one point instead
+        nm64 = driver_against_cpu(
             workdir, f'coadd{NFIB_RES}res', res_data, narrow,
             {'cuda': bank_d, 'cpu': bank_cpu}, bands=bands,
             config=dict(CONFIG, lsf_sigma0_angstrom={
-                s: RES_SIGMA0 for s in SETUPS}), check_params=False)
+                s: RES_SIGMA0 for s in SETUPS}), check_params=False,
+            witness64=narrow64)
+        del narrow64
+        log(f'NM end points (ROADMAP C.1), max |dp|/sigma and fibers over '
+            f'0.5: coadd8 {nm8}; coadd{NFIB_RES}res {nm64}')
+
+        models = {'cuda': tm, 'cpu': tm_cpu, 'narrow_cuda': narrow['cuda'],
+                  'narrow_cpu': narrow['cpu']}
+        bks = {'cuda': bank_d, 'cpu': bank_cpu}
+        single = run_single_object(models, bks)
+        objs, _ = single_objects()
+        res_b1 = kernel_b_single(objs[0][0], bank_d)
+        wv = run_weave(workdir, models, bks, tm64)
+        del tm64
+        bf = run_bruteforce(workdir, tm, bank_d)
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -984,6 +1532,11 @@ def main():
     cont, nocont = res_b['continuum'], res_b['no-continuum']
     g_shared, g_row = res_a_grp['shared'], res_a_grp['per-row']
     group_n = COALESCE * NFIBERS
+    sc, wc, bc = single['counts'], wv['counts'], bf['counts']
+    calls = single['cuda']['calls']
+
+    def per_call(name, key='process_launches'):
+        return [c[key][name] for c in calls]
     kernels = [
         dict(name='spline_eval', route='cuda',
              source='rvspecfit_torch/csrc/spline_eval.cu',
@@ -993,6 +1546,15 @@ def main():
              launches_shared_mode=dc['spline_eval_shared'],
              launches_per_driver_group=[g['spline_eval'] for g in per_group],
              launches_group_fit_warm_pass=counts['spline_eval'],
+             launches_single_object_phase=sc['spline_eval'],
+             launches_per_process_call_per_row_mode=per_call(
+                 'spline_eval_per_row'),
+             launches_per_process_call_shared_mode=per_call(
+                 'spline_eval_shared'),
+             launches_weave_file=wc['spline_eval'],
+             launches_weave_file_per_row_mode=wc['spline_eval_per_row'],
+             launches_weave_file_shared_mode=wc['spline_eval_shared'],
+             launches_desi_bruteforce=bc['spline_eval'],
              max_abs_err=max(r['max_abs_err'] for r in
                              (*res_a.values(), *res_a_grp.values())),
              ms=shared['ms'], plain_ms=shared['plain_ms'],
@@ -1014,16 +1576,24 @@ def main():
              launches=dc['ccf_chisq'],
              launches_per_driver_group=[g['ccf_chisq'] for g in per_group],
              launches_group_fit_warm_pass=counts['ccf_chisq'],
-             max_abs_err=max(cont['max_abs_err'], res_b_grp['max_abs_err']),
+             launches_single_object_phase=sc['ccf_chisq'],
+             launches_per_ccf_fit=per_call('ccf_chisq', 'ccf_launches'),
+             launches_weave_file=wc['ccf_chisq'],
+             launches_desi_bruteforce=bc['ccf_chisq'],
+             max_abs_err=max(cont['max_abs_err'], res_b_grp['max_abs_err'],
+                             res_b1['max_abs_err']),
              ms=cont['ms'],
              plain_ms=cont['plain_ms'], bound_ms=cont['bound_ms'],
-             bound_by='operations', library_ms=cont['library_ms'],
+             bound_by=cont['bound_by'], library_ms=cont['library_ms'],
              max_abs_err_no_continuum=nocont['max_abs_err'],
              ms_no_continuum=nocont['ms'],
              plain_ms_no_continuum=nocont['plain_ms'],
              bound_ms_no_continuum=nocont['bound_ms'],
              **{f'{k}_B{group_n}': res_b_grp[k] for k in (
-                 'ms', 'plain_ms', 'bound_ms', 'library_ms')}),
+                 'ms', 'plain_ms', 'bound_ms', 'library_ms')},
+             **{f'{k}_B1': res_b1[k] for k in (
+                 'max_abs_err', 'ms', 'eager_ms', 'plain_ms', 'bound_ms',
+                 'bound_by', 'library_ms')}),
         dict(name='spline_eval_adjoint', route='cuda',
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/fit/batch.py:396',
@@ -1031,6 +1601,10 @@ def main():
              launches_per_driver_group=[g['spline_eval_adjoint']
                                         for g in per_group],
              launches_group_fit_warm_pass=counts['spline_eval_adjoint'],
+             launches_single_object_phase=sc['spline_eval_adjoint'],
+             launches_per_process_call=per_call('spline_eval_adjoint'),
+             launches_weave_file=wc['spline_eval_adjoint'],
+             launches_desi_bruteforce=bc['spline_eval_adjoint'],
              max_abs_err=max(res_adj['max_abs_err'],
                              res_adj_grp['max_abs_err']),
              ms=res_adj['ms'],

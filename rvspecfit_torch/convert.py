@@ -13,7 +13,7 @@ import torch
 
 from rvspecfit_torch.device import (complex_dtype_for, dtype_for,
                                     resolve_device)
-from rvspecfit_torch.fit.spec_data import ArmState
+from rvspecfit_torch.fit.spec_data import ArmState, SpecData
 from rvspecfit_torch.interp.api import TemplateModel
 from rvspecfit_torch.interp.grid import GridInterpState
 from rvspecfit_torch.ops.chisq import basis_products
@@ -61,6 +61,33 @@ def ccf_bank(tfft, t2fft, info, device=None):
                                    dtype=complex_dtype_for(device),
                                    device=device)
     return to(tfft), to(t2fft), info
+
+
+def banded_matrix(ref):
+    """rvspecfit_tpu BandedMatrix -> BandedMatrix with float64 numpy
+    bands (host, as the port's builders return them)."""
+    return BandedMatrix(tuple(int(o) for o in ref.offsets),
+                        np.array(ref.bands, np.float64))
+
+
+def spec_data(ref):
+    """rvspecfit_tpu SpecData -> SpecData (host arrays)."""
+    return SpecData(ref.name, np.array(ref.lam), np.array(ref.spec),
+                    np.array(ref.espec), badmask=np.array(ref.badmask),
+                    resolution=None if ref.resolution is None
+                    else banded_matrix(ref.resolution))
+
+
+def host(tree):
+    """A reference result (dicts, lists and tuples of device arrays and
+    scalars) with every array as numpy."""
+    if isinstance(tree, dict):
+        return {k: host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host(v) for v in tree)
+    if hasattr(tree, 'shape') and hasattr(tree, 'dtype'):
+        return np.asarray(tree)
+    return tree
 
 
 def arm_state(ref, device=None):

@@ -28,16 +28,16 @@ import numpy as np
 import torch
 
 from rvspecfit_torch.fit import neldermead as nm
+from rvspecfit_torch.fit.find_best import scan_stats
 from rvspecfit_torch.fit.likelihood import (chisq_trials_core,
-                                            doppler_u, overlap_check,
-                                            scan_core, template_stages)
+                                            grad_hessian, hessian_core,
+                                            models_core, overlap_check,
+                                            scan_core)
 from rvspecfit_torch.fit.spec_data import ArmState
-from rvspecfit_torch.fit.vel_fit import (SIMPLEX_SEED,
+from rvspecfit_torch.fit.vel_fit import (SIMPLEX_SEED, prior_rows,
                                          uncertainties_from_hessian)
-from rvspecfit_torch.ops import chisq as chisq_mod
 from rvspecfit_torch.ops import vsini as vsini_mod
 from rvspecfit_torch.ops.resolution import BandedMatrix
-from rvspecfit_torch.ops.spline_eval import spline_eval_index
 
 
 class BatchArm:
@@ -74,63 +74,6 @@ class BatchArm:
         med = np.median(np.where(bad, np.nan, esp), axis=1)
         med = np.where(np.isfinite(med) & (med > 0), med, 1.0)
         return np.where(bad, 1e9 * med[:, None], esp)
-
-
-def scan_stats(vels, mask, chi):
-    """Minimum + posterior moments of (B, V) velocity scans.
-
-    Returns (B, 5) [best_vel, vel_err, best_chi, skewness, kurtosis];
-    uniform grids per fiber, masked entries ignored; quadratic minimum
-    refinement with fallbacks to the grid point (edge, non-convex, or
-    vertex escaping the bracket).
-    """
-    b, v = chi.shape
-    rows = torch.arange(b, device=chi.device)
-    chi_m = torch.where(mask, chi, torch.inf)
-    i1 = torch.argmin(chi_m, dim=1)
-    best_chi = chi_m[rows, i1]
-    step = vels[:, 1] - vels[:, 0]
-    ic = torch.clamp(i1, 1, v - 2)
-    y0, y1, y2 = chi_m[rows, ic - 1], chi_m[rows, ic], chi_m[rows, ic + 1]
-    denom = y0 - 2 * y1 + y2
-    offset = 0.5 * (y0 - y2) / torch.where(denom == 0, 1.0, denom)
-    interior = (i1 >= 1) & (i1 <= v - 2) & torch.isfinite(y0) \
-        & torch.isfinite(y2)
-    good = interior & (denom > 0) & (offset.abs() < 1)
-    best_vel = torch.where(good, vels[rows, ic] + offset * step,
-                           vels[rows, i1])
-    dchi = chi_m - best_chi[:, None]
-    probs = torch.where(mask, torch.exp(-0.5 * torch.clamp(dchi, 0, 1400)),
-                        0.0)
-    probs = probs / probs.sum(1, keepdim=True)
-    dv = vels - best_vel[:, None]
-    err = torch.sqrt((probs * dv * dv).sum(1))
-    safe = err > 1e-10
-    err_s = torch.where(safe, err, 1.0)
-    skew = torch.where(safe, (probs * dv**3).sum(1) / err_s**3, 0.0)
-    kurt = torch.where(safe, (probs * dv**4).sum(1) / err_s**4, 0.0)
-    return torch.stack([best_vel, err, best_chi, skew, kurt], dim=1)
-
-
-def grad_hessian(f, x):
-    """Per-fiber gradient (B, n) and Hessian (B, n, n) at x (B, n) of
-    f: (B, n) -> (B,) whose fibers are independent: one backward of
-    f.sum() with the graph kept, then one backward of each gradient
-    column summed over fibers (Hessian row j)."""
-    n = x.shape[1]
-    x = x.detach().requires_grad_(True)
-    with torch.enable_grad():
-        g, = torch.autograd.grad(f(x).sum(), x, create_graph=True)
-        rows = [torch.autograd.grad(g[:, j].sum(), x,
-                                    retain_graph=j < n - 1)[0]
-                for j in range(n)]
-    return g.detach(), torch.stack(rows, dim=1)
-
-
-def prior_rows(names, priors):
-    """[(index, mean, sigma)] of the parameters that have a prior."""
-    return [(i, float(priors[p][0]), float(priors[p][1]))
-            for i, p in enumerate(names or ()) if priors and p in priors]
 
 
 class BatchedFitter:
@@ -219,7 +162,7 @@ class BatchedFitter:
         chi = self._scan(self.arms, vels, self._tensor(params0),
                          self._vsinis(vsini0))
         st = scan_stats(vels, torch.ones_like(vels, dtype=torch.bool),
-                        chi).double().cpu().numpy()
+                        chi)[0].double().cpu().numpy()
         return dict(best_vel=st[:, 0], vel_err=st[:, 1], best_chi=st[:, 2],
                     skewness=st[:, 3], kurtosis=st[:, 4])
 
@@ -264,7 +207,10 @@ class BatchedFitter:
         ladder of padded tile widths exists to bound XLA's compiled
         shapes; an eager tile is exactly the unconverged set.)  Each
         restart rebuilds a fresh simplex (seed SIMPLEX_SEED + restart)
-        around an unconverged fiber's best vertex.
+        around an unconverged fiber's best vertex.  The simplexes, their
+        values and every step's arithmetic are float64 on the device;
+        only the objective's trial points are in the working dtype
+        (neldermead.in_working_dtype).
 
         Starts: ``x0`` (B, nvec), or the mapper's start vector with
         per-fiber velocities ``best_vel0``.  xatol defaults to 8% of
@@ -278,18 +224,24 @@ class BatchedFitter:
         x0 = np.asarray(x0, np.float64)
         b, nvec = x0.shape
         scales = mapper.scales().astype(np.float64)
-        xatol = self._tensor(scales * 0.08 if xatol is None else xatol)
-        simplex = self._tensor(nm.build_simplex(x0, scales, SIMPLEX_SEED))
-        fvals = torch.zeros((b, nvec + 1), dtype=self.dtype,
+        f64 = lambda a: torch.as_tensor(np.array(a, np.float64),
+                                        dtype=torch.float64,
+                                        device=self.device)
+        xatol = f64(scales * 0.08 if xatol is None else xatol)
+        simplex = f64(nm.build_simplex(x0, scales, SIMPLEX_SEED))
+        fvals = torch.zeros((b, nvec + 1), dtype=torch.float64,
                             device=self.device)
         done = torch.zeros(b, dtype=torch.bool, device=self.device)
         evals = 0
 
+        def objective(idx):
+            return nm.in_working_dtype(
+                self._objective(mapper, priors, idx), self.dtype)
+
         def init(idx):
             nonlocal evals
-            fun = self._objective(mapper, priors, idx)
-            fvals[idx], done[idx] = nm.nm_init(fun, simplex[idx], fatol,
-                                               xatol)
+            fvals[idx], done[idx] = nm.nm_init(objective(idx),
+                                               simplex[idx], fatol, xatol)
             evals += idx.numel() * (nvec + 1)
 
         init(torch.arange(b, device=self.device))
@@ -300,7 +252,7 @@ class BatchedFitter:
                     break
                 ib = torch.argmin(fvals[undone], dim=1)
                 xb = simplex[undone, ib].double().cpu().numpy()
-                simplex[undone] = self._tensor(nm.build_simplex(
+                simplex[undone] = f64(nm.build_simplex(
                     xb, scales, SIMPLEX_SEED + restart))
                 init(undone)
             nit = 0
@@ -310,8 +262,8 @@ class BatchedFitter:
                     break
                 logging.info('NM restart %d nit %d: %d/%d unconverged',
                              restart, nit, undone.numel(), b)
-                fun = self._objective(mapper, priors, undone)
-                s, f, d, it = nm.nm_chunk(fun, simplex[undone],
+                s, f, d, it = nm.nm_chunk(objective(undone),
+                                          simplex[undone],
                                           fvals[undone], done[undone],
                                           fatol, xatol, nm_chunk)
                 simplex[undone], fvals[undone], done[undone] = s, f, d
@@ -425,7 +377,7 @@ class BatchedFitter:
             grid = torch.where(mask, grid, grid[:, :1])
             chi = self._scan(self._arms_at(idx), grid, params_t[idx],
                              vs_t[idx])
-            new = scan_stats(grid, mask, chi)
+            new = scan_stats(grid, mask, chi)[0]
             stats[idx] = new
             best[idx] = new[:, 0]
             err = new[:, 1]
@@ -451,51 +403,32 @@ class BatchedFitter:
 
     # -------------------------------------------------------------
     def best_models(self, best_vel, params, vsinis=None):
-        """Best-fit models of every fiber and arm at the optimum.
+        """Best-fit models of every fiber and arm at the optimum
+        (likelihood.models_core).
 
         Returns dict of per-arm {name: (B, npix)} models, raw_models,
         cont_models (continuum-only fit), and masked true chisq,
         cont_chisq, npix, red_chisq — computed from the arms this
         fitter was built with."""
-        vel = self._tensor(best_vel)
-        stage = template_stages(self.templates, self._tensor(params),
-                                self._vsinis(vsinis), self.use_vsini,
-                                self.half_widths)
-        flat = []
-        for arm in self.arms:
-            geom = self.templates[arm.setup].geom
-            val = spline_eval_index(geom, stage[arm.setup][0],
-                                    doppler_u(arm, geom, vel))
-            ctempl = torch.ones_like(val)
-            if arm.band is not None:
-                val = arm.band.matvec(val)
-                ctempl = arm.band.matvec(ctempl)
-            models = []
-            for t in (val, ctempl):
-                _, coef = chisq_mod.chisq_continuum_marg_batch(
-                    arm.dvec, t * arm.espec_inv, arm.polys, arm.polys_prod,
-                    arm.log_espec_sum, with_coeffs=True)
-                models.append((coef @ arm.polys) * t)
-            flat.append([x.double().cpu().numpy()
-                         for x in (models[0], val, models[1])])
+        mods = models_core(self.arms, self.templates,
+                           self._tensor(best_vel), self._tensor(params),
+                           self._vsinis(vsinis), use_vsini=self.use_vsini,
+                           half_widths=self.half_widths)
+        flat = [[x.double().cpu().numpy() for x in m] for m in mods]
         return self._models_finalize(flat, self.batch_arms)
 
     # -------------------------------------------------------------
     def hessians(self, best_vel, params, vsinis=None, priors=None,
                  parnames=None):
         """(B, ndim, ndim) exact AD Hessians of 0.5 (-2logL + priors)
-        with respect to the parameters at velocities ``best_vel``."""
-        rows_p = prior_rows(parnames, priors)
-        vel = self._tensor(best_vel)
-        vs = self._vsinis(vsinis)
-
-        def half_chisq(p):
-            chi = self._chisq_at(vel, p, vs)
-            for i, mu, sig in rows_p:
-                chi = chi + ((p[:, i] - mu) / sig)**2
-            return 0.5 * chi
-
-        return grad_hessian(half_chisq, self._tensor(params))[1]
+        with respect to the parameters at velocities ``best_vel``
+        (likelihood.hessian_core)."""
+        return hessian_core(self.arms, self.templates,
+                            self._tensor(best_vel), self._tensor(params),
+                            self._vsinis(vsinis),
+                            prior_rows(parnames, priors),
+                            badchi=self.badchi, use_vsini=self.use_vsini,
+                            half_widths=self.half_widths)
 
     def hessian_errors(self, best_vel, params, vsinis=None, priors=None,
                        parnames=None):

@@ -1,6 +1,6 @@
-"""Batched FFT cross-correlation first guess.
+"""FFT cross-correlation first guess, batched and single-object.
 
-Counterpart of the batched path of rvspecfit_tpu/fit/ccf.py.  Per arm,
+Counterpart of rvspecfit_tpu/fit/ccf.py (``fit_batch`` and ``fit``).  Per arm,
 the exposure is preprocessed and rFFT'd on the device
 (ops/continuum.preprocess_fft_batch) and every (fiber, template,
 velocity) chi-square
@@ -14,10 +14,13 @@ evaluated directly at the velocity grid's fractional lags through two
 template and parabola-refined velocity come back to the host.  A
 kernel failure raises: there is no fallback path.  The banks come from
 the caller or, through :func:`get_ccf_info`, from make_ccf's files.
+:func:`fit` is the single-object form: the same chi-squares and
+reduction at one fiber row (kernel B at B = 1).
 """
 from __future__ import annotations
 
 import functools
+import logging
 import os
 
 import numpy as np
@@ -34,12 +37,18 @@ def get_ccf_info(spec_setup, config, device=None):
     """One setup's CCF bank from make_ccf's files in
     ``config['template_lib']``: (tfft, t2fft, models, info) with complex
     (T, F) rFFT tensors on ``device`` (None: the CUDA card), the host
-    (T, npoints) template models (memory-mapped) and the info dict."""
-    lib = config['template_lib']
+    (T, npoints) template models (memory-mapped) and the info dict.
+    Loaded once per library, setup, mode and device."""
     continuum = config.get('ccf_continuum_normalize')
     if continuum is None:
         continuum = True
-    device = resolve_device(device)
+    return _load_ccf_info(os.path.abspath(config['template_lib']),
+                          spec_setup, bool(continuum),
+                          str(resolve_device(device)))
+
+
+@functools.lru_cache(maxsize=16)
+def _load_ccf_info(lib, spec_setup, continuum, device):
     info = serializer.load_dict_from_hdf5(os.path.join(
         lib, make_ccf.get_ccf_info_name(spec_setup, continuum)))
     mods = np.load(os.path.join(
@@ -119,6 +128,15 @@ def ccf_reduce(chis, vel_grid):
     return tid, best_vel, take(pix), row
 
 
+def check_same_templates(ref, info):
+    """Raise unless two setups' banks hold the same templates."""
+    if (list(ref['parnames']) != list(info['parnames'])
+            or not np.array_equal(ref['params'], info['params'])
+            or not np.array_equal(ref['vsinis'], info['vsinis'])):
+        raise RuntimeError('CCF template parameters differ between '
+                           'setups')
+
+
 def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
     """Preprocess + rFFT one stacked arm on the bank's device and build
     its DFT matrices.  ``bank`` is (tfft, t2fft, info) with complex
@@ -127,7 +145,7 @@ def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
     device = tfft.device
     ccfconf = info['ccfconf']
     maxvel = config.get('max_vel') or 1000
-    sfft_conj, ivfft_conj, sse = continuum_mod.preprocess_fft_batch(
+    sfft_conj, ivfft_conj, sse, proc = continuum_mod.preprocess_fft_batch(
         lam, np.atleast_2d(fluxes), np.atleast_2d(especs), badmask=badmask,
         ccfconf=ccfconf, device=device)
     nvelgrid = 2 * int(maxvel / (config.get('vel_step0') or 2)) + 1
@@ -135,8 +153,36 @@ def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
     ecos, esin = dft_mats(ccfconf, vel_grid, device, sse.dtype)
     return dict(setup=setup, info=info, tfft=tfft, t2fft=t2fft,
                 sfft_conj=sfft_conj, ivfft_conj=ivfft_conj, sse=sse,
-                vel_grid=vel_grid, ecos=ecos, esin=esin,
+                proc=proc, vel_grid=vel_grid, ecos=ecos, esin=esin,
                 continuum=bool(ccfconf['continuum']))
+
+
+def _load_banks(setups, config, device):
+    """{setup: (tfft, t2fft, info)} and {setup: host template models}
+    from ``config['template_lib']``."""
+    banks, mods = {}, {}
+    for s in setups:
+        tfft, t2fft, mods[s], info = get_ccf_info(s, config, device)
+        banks[s] = (tfft, t2fft, info)
+    return banks, mods
+
+
+def _reduce_arms(prep):
+    """Sum the prepared arms' kernel-B chi-squares and reduce them
+    (:func:`ccf_reduce`): (best_id, best_vel, best_chi, best_row (B, V),
+    sse (B,)), best_chi and best_row without sse."""
+    for p in prep[1:]:
+        check_same_templates(prep[0]['info'], p['info'])
+    total = total_sse = None
+    for p in prep:
+        cur = ccf_chisq.ccf_chisq(p['tfft'], p['t2fft'], p['sfft_conj'],
+                                  p['ivfft_conj'], p['ecos'], p['esin'],
+                                  continuum=p['continuum'])
+        total = cur if total is None else total + cur
+        total_sse = p['sse'] if total_sse is None else total_sse + p['sse']
+    return ccf_reduce(total, torch.as_tensor(
+        prep[0]['vel_grid'], dtype=total.dtype, device=total.device)) + (
+            total_sse,)
 
 
 def fit_batch(arm_batches, config, banks=None, device=None):
@@ -152,41 +198,73 @@ def fit_batch(arm_batches, config, banks=None, device=None):
     (B,), best_chi (B,), vel_grid — host arrays.
     """
     if banks is None:
-        banks = {}
-        for s, *_ in arm_batches:
-            tfft, t2fft, _, info = get_ccf_info(s, config, device)
-            banks[s] = (tfft, t2fft, info)
+        banks, _ = _load_banks([a[0] for a in arm_batches], config, device)
     prep = [prepare_arm_batch(s, lam, fl, er, bm, config, banks[s])
             for s, lam, fl, er, bm in arm_batches]
+    tid, bvel, bchi, _, sse = _reduce_arms(prep)
     info0 = prep[0]['info']
-    for p in prep[1:]:
-        cur = p['info']
-        if (list(info0['parnames']) != list(cur['parnames'])
-                or not np.array_equal(info0['params'], cur['params'])
-                or not np.array_equal(info0['vsinis'], cur['vsinis'])):
-            raise RuntimeError('CCF template parameters differ between '
-                               'setups')
-    total = None
-    total_sse = None
-    for p in prep:
-        cur = ccf_chisq.ccf_chisq(p['tfft'], p['t2fft'], p['sfft_conj'],
-                                  p['ivfft_conj'], p['ecos'], p['esin'],
-                                  continuum=p['continuum'])
-        total = cur if total is None else total + cur
-        total_sse = p['sse'] if total_sse is None else total_sse + p['sse']
-    vel_grid = prep[0]['vel_grid']
-    tid, bvel, bchi, _ = ccf_reduce(
-        total, torch.as_tensor(vel_grid, dtype=total.dtype,
-                               device=total.device))
     best_id = tid.cpu().numpy()
-    best_chi = (bchi + total_sse).double().cpu().numpy()
-    params = np.asarray(info0['params'])[best_id]
     vsinis = np.asarray(info0['vsinis'], np.float64)[best_id]
     if info0.get('vsini_is_none') is not None:
         vsinis = np.where(np.asarray(info0['vsini_is_none'],
                                      bool)[best_id], np.nan, vsinis)
     return dict(parnames=[str(p) for p in info0['parnames']],
-                best_params=params,
+                best_params=np.asarray(info0['params'])[best_id],
                 best_vel=bvel.double().cpu().numpy(),
-                best_vsini=vsinis, best_id=best_id, best_chi=best_chi,
-                vel_grid=vel_grid)
+                best_vsini=vsinis, best_id=best_id,
+                best_chi=(bchi + sse).double().cpu().numpy(),
+                vel_grid=prep[0]['vel_grid'])
+
+
+def fit(specdata, config, banks=None, device=None):
+    """Cross-correlate one object's datasets against the template bank:
+    :func:`fit_batch`'s chi-squares and reduction at one fiber row
+    (kernel B at B = 1).
+
+    specdata : SpecData or list of them (name = setup); banks : optional
+    {setup: (tfft, t2fft, info)} in-memory banks, whose template models
+    are the inverse rFFTs of tfft, else loaded with their models from
+    the library onto ``device`` (None: the CUDA card).
+
+    Returns dict of best_par, best_vel, best_ccf (V,), best_vsini (None
+    for a template without rotation), best_model {setup: (npoints,)},
+    proc_spec {setup: (npoints,)} and vel_grid.  Raises where the best
+    chi-square is not finite or the setups' banks differ.
+    """
+    if not isinstance(specdata, (list, tuple)):
+        specdata = [specdata]
+    mods = {}
+    if banks is None:
+        banks, mods = _load_banks([sd.name for sd in specdata], config,
+                                  device)
+    prep = [prepare_arm_batch(sd.name, sd.lam, sd.spec, sd.espec,
+                              sd.badmask[None], config, banks[sd.name])
+            for sd in specdata]
+    tid, bvel, bchi, row, sse = _reduce_arms(prep)
+    if not np.isfinite(float(bchi[0] + sse[0])):
+        logging.error('Cross-correlation failed')
+        raise RuntimeError('Cross-correlation step failed')
+    best_id, best_vel = int(tid[0]), float(bvel[0])
+    best_model = {}
+    for p in prep:
+        ccfconf = p['info']['ccfconf']
+        npoints = int(ccfconf['npoints'])
+        model = np.asarray(mods[p['setup']][best_id]) if mods else \
+            np.fft.irfft(p['tfft'][best_id].cpu().numpy(), n=npoints)
+        velstep = (np.exp((ccfconf['logl1'] - ccfconf['logl0'])
+                          / npoints) - 1) * 3e5
+        best_model[p['setup']] = np.roll(model, int(best_vel / velstep))
+    info0 = prep[0]['info']
+    vsini = float(np.asarray(info0['vsinis'])[best_id])
+    if info0.get('vsini_is_none') is not None and \
+            bool(np.asarray(info0['vsini_is_none'])[best_id]):
+        vsini = None
+    return dict(best_par=dict(zip([str(p) for p in info0['parnames']],
+                                  np.asarray(info0['params'])[best_id])),
+                best_vel=best_vel,
+                best_ccf=(row[0].double() + sse[0].double()).cpu().numpy(),
+                best_vsini=vsini,
+                best_model=best_model,
+                proc_spec={p['setup']: p['proc'][0].double().cpu().numpy()
+                           for p in prep},
+                vel_grid=prep[0]['vel_grid'])

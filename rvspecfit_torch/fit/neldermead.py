@@ -10,6 +10,12 @@ and the convergence test is scipy's with a per-dimension ``xatol``.
 
 The objective is ``fun(x (B, K, n)) -> (B, K)``: instance b evaluates
 its own K candidate points.
+
+The bookkeeping is float64 on every device: the simplexes, their
+values, the centroid, the candidate points and the convergence test.
+Only the objective runs in the working dtype (float32 on the card),
+through :func:`in_working_dtype`, so no simplex step is rounded to
+float32.
 """
 from __future__ import annotations
 
@@ -182,3 +188,44 @@ def nm_chunk(fun, simplex, fvals, done, fatol, xatol, chunk):
                                      xatol)
         it += 1
     return simplex, fvals, done, it
+
+
+def in_working_dtype(fun, dtype):
+    """``fun`` called with its trial points cast to ``dtype`` and its
+    values cast back to float64 (a no-op pair where ``dtype`` is
+    float64)."""
+    return lambda x: fun(x.to(dtype)).to(torch.float64)
+
+
+def minimize_batch(fun, simplex, fatol=1e-3, xatol=1e-2, maxiter=2000,
+                   dtype=None):
+    """Minimize ``fun`` from a batch of starting simplexes.
+
+    simplex : (B, n+1, n) tensor; the bookkeeping runs in float64 on
+        its device and ``fun`` gets its points in ``dtype`` (default:
+        the simplex's dtype), see :func:`in_working_dtype`
+    fatol, xatol : scipy's absolute tolerances (``xatol`` scalar or per
+        dimension)
+    maxiter : iteration cap; the loop runs :func:`nm_chunk` for up to
+        64 iterations at a time, stopping once every instance converged
+
+    Returns dict(x (B, n), fun (B,), converged (B,), nit,
+    final_simplex (B, n+1, n)) as float64 tensors, each simplex sorted
+    by value (row 0 the best vertex) as the reference returns it.
+    """
+    fun = in_working_dtype(fun, dtype or simplex.dtype)
+    simplex = simplex.to(torch.float64)
+    xatol = torch.as_tensor(np.asarray(xatol, np.float64),
+                            device=simplex.device)
+    fvals, done = nm_init(fun, simplex, fatol, xatol)
+    nit = 0
+    while nit < maxiter and not bool(done.all()):
+        simplex, fvals, done, it = nm_chunk(fun, simplex, fvals, done,
+                                            fatol, xatol,
+                                            min(64, maxiter - nit))
+        nit += it
+    order = torch.argsort(fvals, dim=1, stable=True)
+    fvals = fvals.gather(1, order)
+    simplex = simplex.gather(1, order[:, :, None].expand_as(simplex))
+    return dict(x=simplex[:, 0], fun=fvals[:, 0], converged=done, nit=nit,
+                final_simplex=simplex)

@@ -10,6 +10,7 @@ plain versions.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -21,9 +22,16 @@ from rvspecfit_torch.ops.resolution import BandedMatrix
 from rvspecfit_torch.ops.spline import fractional_index
 
 
+_objid_counter = itertools.count(1)
+
+
 class SpecData:
-    """One observed spectrum: name, wavelengths, flux, errors, mask,
-    optional resolution (BandedMatrix with (noff, npix) bands)."""
+    """One observed spectrum: name (the template setup), wavelengths,
+    flux, errors, mask, optional resolution (BandedMatrix with (noff,
+    npix) bands).  Hashable by identity, so it can key caches."""
+
+    __slots__ = ('name', 'lam', 'spec', 'espec', 'badmask', 'resolution',
+                 '_objid')
 
     def __init__(self, name, lam, spec, espec, badmask=None,
                  resolution=None):
@@ -33,10 +41,27 @@ class SpecData:
         self.espec = np.ascontiguousarray(espec, dtype=np.float64)
         self.badmask = np.zeros(len(self.spec), dtype=bool) \
             if badmask is None else np.ascontiguousarray(badmask, bool)
+        if resolution is not None and not isinstance(resolution,
+                                                     BandedMatrix):
+            raise TypeError('resolution must be a BandedMatrix')
         self.resolution = resolution
         if not (len(self.lam) == len(self.spec) == len(self.espec)
                 == len(self.badmask)):
             raise ValueError('inconsistent array lengths')
+        self._objid = next(_objid_counter)
+
+    def __hash__(self):
+        return self._objid
+
+    def __eq__(self, other):
+        return self is other
+
+    def __len__(self):
+        return len(self.lam)
+
+    def __repr__(self):
+        return (f'SpecData({self.name!r}, npix={len(self.lam)}, '
+                f'lam=[{self.lam[0]:.1f}..{self.lam[-1]:.1f}])')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,16 +116,27 @@ class ArmState:
                    band=band)
 
     @classmethod
-    def build(cls, sd: SpecData, geom, npoly=5, rbf=True, device=None):
-        """Single-object state (fiber axis of length 1) from a
-        SpecData."""
-        band = sd.resolution
+    def build(cls, sd: SpecData, geom, npoly=5, rbf=True,
+              espec_systematic=None, resol_matrix=None, device=None,
+              dtype=None):
+        """Single-object state (fiber axis of length 1) from a SpecData.
+
+        ``espec_systematic`` is added to the errors in quadrature;
+        ``resol_matrix`` is a per-call resolution (BandedMatrix),
+        exclusive with the SpecData's own."""
+        espec = sd.espec
+        if espec_systematic is not None:
+            espec = np.sqrt(np.asarray(espec_systematic)**2 + espec**2)
+        if resol_matrix is not None and sd.resolution is not None:
+            raise ValueError('resol_params cannot be combined with a '
+                             'per-SpecData resolution')
+        band = resol_matrix if resol_matrix is not None else sd.resolution
         if band is not None:
             band = BandedMatrix(tuple(band.offsets),
-                                np.asarray(band.bands)[None])
-        return cls.from_host(sd.name, sd.name, sd.lam, sd.spec, sd.espec,
+                                band.host_bands()[None])
+        return cls.from_host(sd.name, sd.name, sd.lam, sd.spec, espec,
                              geom, npoly=npoly, rbf=rbf, band=band,
-                             device=device)
+                             device=device, dtype=dtype)
 
     def take(self, idx):
         """The state of the fibers at ``idx`` (a long tensor)."""

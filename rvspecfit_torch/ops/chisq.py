@@ -72,3 +72,25 @@ def chisq_continuum_marg_batch(dvec, templ_over_espec, polys, polys_prod,
     if with_coeffs:
         return chisq, a / scale
     return chisq
+
+
+def chisq_continuum_marg(dvec, templ_over_espec, polys, log_espec_sum,
+                         with_coeffs=False):
+    """Continuum-marginalized -2 log L of one dataset and one template.
+
+    dvec, templ_over_espec : (npix,); polys : (npoly, npix);
+    log_espec_sum : scalar.  Returns the scalar chisq [and the (npoly,)
+    continuum coefficients], with the design rows S = polys * t / s
+    formed explicitly as the reference's single-trial form does.
+    """
+    npoly = polys.shape[0]
+    scale = torch.clamp(templ_over_espec.abs().amax(),
+                        min=torch.finfo(templ_over_espec.dtype).tiny)
+    st = polys * (templ_over_espec / scale)[None, :]      # (npoly, npix)
+    a, logdet = chol_solve_logdet(st @ st.T, st @ dvec)
+    resid = dvec - a @ st
+    chisq = (logdet + 2.0 * npoly * torch.log(scale)
+             + 2.0 * log_espec_sum + resid @ resid)
+    if with_coeffs:
+        return chisq, a / scale
+    return chisq

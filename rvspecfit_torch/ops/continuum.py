@@ -233,14 +233,14 @@ def _resample_aux(lam, ccfconf):
     return xind, rw, insub
 
 
-def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
-                         maxerr=10, niter=40, device=None):
-    """Preprocess and rFFT one stacked arm on ``device``.
+def preprocess_batch(lam, specs, especs, badmask=None, ccfconf=None,
+                     maxerr=10, niter=40, device=None):
+    """Mask, infill and continuum-normalize one stacked arm on
+    ``device`` and resample it onto the CCF log-lambda grid with its
+    inverse variance.
 
     lam : (npix,); specs, especs, badmask : (B, npix) host arrays.
-    Returns (sfft_conj (B, F) complex, ivfft_conj (B, F) complex,
-    sse (B,)): the conjugated rFFTs of spec*ivar and ivar on the CCF
-    grid and sum(spec^2 ivar).
+    Returns (proc (B, npoints), pivar (B, npoints)) tensors.
     """
     device = resolve_device(device)
     dtype = dtype_for(device)
@@ -283,7 +283,21 @@ def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
     liv, riv = civar[:, lic], civar[:, ric]
     pivar = insub * (liv * riv / (lw**2 * riv + rw**2 * liv
                                   + ((liv * riv) == 0)))
+    return proc, pivar
+
+
+def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
+                         maxerr=10, niter=40, device=None):
+    """Preprocess (:func:`preprocess_batch`) and rFFT one stacked arm on
+    ``device``.  Returns (sfft_conj (B, F) complex, ivfft_conj (B, F)
+    complex, sse (B,), proc (B, npoints)): the conjugated rFFTs of spec*ivar
+    and ivar on the CCF grid, sum(spec^2 ivar) and the preprocessed
+    spectra."""
+    proc, pivar = preprocess_batch(lam, specs, especs, badmask=badmask,
+                                   ccfconf=ccfconf, maxerr=maxerr,
+                                   niter=niter, device=device)
     sse = (proc * proc * pivar).sum(1)
     sfft = torch.fft.rfft(proc * pivar, dim=1)
     ivfft = torch.fft.rfft(pivar, dim=1)
-    return (torch.conj_physical(sfft), torch.conj_physical(ivfft), sse)
+    return (torch.conj_physical(sfft), torch.conj_physical(ivfft), sse,
+            proc)

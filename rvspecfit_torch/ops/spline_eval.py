@@ -12,12 +12,15 @@ through :func:`spline_eval_index`:
   (velocities) share one fiber's coefficient row, which is indexed,
   never broadcast in memory.
 
-The evaluation is linear in the coefficients, out = K(u) c, and the
-queries u (velocities) are never differentiated.  So in per-row mode
-the autograd pair :class:`SplineEval` / :class:`SplineEvalAdjoint`
-gives exact derivatives of any order through two kernels: the backward
-of K(u) c is the adjoint K(u)^T g (:func:`spline_eval_index_vjp`), and
-the backward of the adjoint is K(u) again.
+The evaluation is linear in the coefficients, out = K(u) c.  So in
+per-row mode the autograd pair :class:`SplineEval` /
+:class:`SplineEvalAdjoint` gives exact derivatives of any order in the
+coefficients through two kernels: the backward of K(u) c is the adjoint
+K(u)^T g (:func:`spline_eval_index_vjp`), and the backward of the
+adjoint is K(u) again.  The derivative in the queries (the velocity's
+gradient, which the single-object fit's BFGS needs) is kernel A again:
+on every interval d/du of the cubic is a cubic of the same form, whose
+coefficients :func:`derivative_coeffs` gives, so d out/du = K(u) c'.
 
 On a CPU tensor the wrappers run the plain versions (whose own
 autograd serves); on a CUDA tensor they launch ``csrc/spline_eval.cu``
@@ -187,6 +190,34 @@ def spline_eval_index_vjp(geom, u, g, nm1):
     return out
 
 
+def derivative_coeffs(geom, coeffs):
+    """(C, 4, n-1) coefficients of d/du of every interval's cubic, in
+    the same form: with s = dxl, r = dxr = h - s, the cubic A s^3 +
+    B r^3 + C s + D r has d/du = (3A s^2 - 3B r^2 + C - D) ds/du, ds/du
+    = step (linear knots) or step (xl + s) (log knots), a cubic in s
+    that is written back as A' s^3 + B' r^3 + C' s + D' r."""
+    nm1 = coeffs.shape[-1]
+    a, b, c, d = coeffs.unbind(1)
+    i = torch.arange(nm1, dtype=coeffs.dtype, device=coeffs.device)
+    step = geom.step
+    if geom.log_step:
+        xl = geom.x0 * torch.exp(i * step)
+        h = xl * math.expm1(step)
+    else:
+        xl = None
+        h = torch.full_like(i, step)
+    q2, q1, q0 = 3 * (a - b), 6 * b * h, c - d - 3 * b * h * h
+    if xl is None:
+        p3, p2, p1, p0 = torch.zeros_like(q2), step * q2, step * q1, \
+            step * q0
+    else:
+        p3, p2 = step * q2, step * (xl * q2 + q1)
+        p1, p0 = step * (xl * q1 + q0), step * xl * q0
+    b2 = p2 / (3 * h)
+    d2 = (p0 - b2 * h**3) / h
+    return torch.stack([p3 + b2, b2, p1 + 3 * h * h * b2 + d2, d2], 1)
+
+
 # the two functions an autograd pair is built from: forward(geom, coeffs,
 # u) and adjoint(geom, u, g, nm1)
 Route = collections.namedtuple('Route', 'forward adjoint')
@@ -197,22 +228,26 @@ PLAIN = Route(spline_eval_index_plain, spline_eval_index_vjp_plain)
 
 class SplineEval(torch.autograd.Function):
     """out = K(u) coeffs in per-row mode; the backward with respect to
-    the coefficients is the adjoint.  ``route`` picks the kernels or
+    the coefficients is the adjoint, with respect to the queries K(u)
+    of the derivative's coefficients.  ``route`` picks the kernels or
     the plain versions."""
 
     @staticmethod
     def forward(ctx, coeffs, u, geom, route):
-        ctx.save_for_backward(u)
+        ctx.save_for_backward(coeffs, u)
         ctx.geom, ctx.route, ctx.nm1 = geom, route, coeffs.shape[-1]
         return route.forward(geom, coeffs, u)
 
     @staticmethod
     def backward(ctx, g):
-        u, = ctx.saved_tensors
-        dc = None
+        coeffs, u = ctx.saved_tensors
+        dc = du = None
         if ctx.needs_input_grad[0]:
             dc = SplineEvalAdjoint.apply(u, g, ctx.geom, ctx.route, ctx.nm1)
-        return dc, None, None, None
+        if ctx.needs_input_grad[1]:
+            du = g * SplineEval.apply(derivative_coeffs(ctx.geom, coeffs),
+                                      u, ctx.geom, ctx.route)
+        return dc, du, None, None
 
 
 class SplineEvalAdjoint(torch.autograd.Function):
@@ -227,6 +262,10 @@ class SplineEvalAdjoint(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gd):
         u, = ctx.saved_tensors
+        if ctx.needs_input_grad[0]:
+            raise NotImplementedError('spline_eval: the mixed second '
+                                      'derivative in u and the '
+                                      'coefficients is not implemented')
         dg = None
         if ctx.needs_input_grad[1]:
             dg = SplineEval.apply(gd, u, ctx.geom, ctx.route)
@@ -237,17 +276,15 @@ def spline_eval_index(geom, coeffs, u, rows_per_coeff=1):
     """Kernel A on CUDA tensors, its plain version on CPU tensors.
 
     Same contract as :func:`spline_eval_index_plain`.  CUDA inputs must
-    be float32 on one device.  Per-row mode is differentiable with
-    respect to ``coeffs`` through the kernel pair; ``u`` and shared mode
-    are not differentiated (a CUDA call that asks for it raises).
+    be float32 on one device.  Per-row mode is differentiable through
+    kernel launches (:class:`SplineEval`); shared mode is not
+    differentiated (a CUDA call that asks for it raises).
     """
     if u.device.type == 'cpu':
         return spline_eval_index_plain(geom, coeffs, u, rows_per_coeff)
-    grad = torch.is_grad_enabled()
-    if grad and u.requires_grad:
-        raise NotImplementedError('spline_eval: u is not differentiated')
     if rows_per_coeff == 1:
         return SplineEval.apply(coeffs, u, geom, KERNELS)
-    if grad and coeffs.requires_grad:
+    if torch.is_grad_enabled() and (coeffs.requires_grad
+                                    or u.requires_grad):
         raise NotImplementedError('spline_eval: shared mode has no adjoint')
     return _launch(geom, coeffs, u, rows_per_coeff)

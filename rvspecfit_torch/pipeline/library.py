@@ -43,11 +43,12 @@ def read_template_artifacts(setup, config):
     return fd, dats
 
 
-def template_model_from_artifacts(fd, dats, device=None):
+def template_model_from_artifacts(fd, dats, device=None, dtype=None):
     """TemplateModel on ``device`` (None: the CUDA card) from the interp
     dict of a regular-grid library (keys as make_nd writes them:
     interpolation_type, lam, log_step, parnames, log_ids, log_spec,
-    uvecs {dim0, ...}, idgrid, vec) and its (nspec, npix) spectra."""
+    uvecs {dim0, ...}, idgrid, vec) and its (nspec, npix) spectra;
+    ``dtype`` overrides the device's working dtype."""
     _check_type(fd)
     device = resolve_device(device)
     uvdict = fd['uvecs']
@@ -55,10 +56,10 @@ def template_model_from_artifacts(fd, dats, device=None):
     state = GridInterpState.build(
         uvecs, np.asarray(fd['idgrid']), np.asarray(fd['vec']),
         np.array(dats), log_spec=bool(fd.get('log_spec', True)),
-        device=device)
+        device=device, dtype=dtype)
     geom = SplineGeometry.from_knots(np.asarray(fd['lam'], np.float64),
                                      log_step=bool(fd['log_step']),
-                                     device=device)
+                                     device=device, dtype=dtype)
     extra = dict(revision=str(fd.get('revision') or ''),
                  creation_soft_version=str(fd.get('git_rev') or ''))
     return TemplateModel(state=state, geom=geom,

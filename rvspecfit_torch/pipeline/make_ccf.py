@@ -1,11 +1,14 @@
-"""CCF template-bank core (offline, host).
+"""CCF template-bank core and the per-spectrum preprocessing.
 
 Counterpart of the bank-building core of
 rvspecfit_tpu/pipeline/make_ccf.py: Morton-curve subsampling of the
 template set, continuum normalization (ops/continuum.fit_continuum)
 and resampling onto the power-of-two log-lambda CCF grid, and the names of
-the bank's files (fit/ccf.get_ccf_info reads them).  Writing the
-on-disk artifacts is not ported yet.
+the bank's files (fit/ccf.get_ccf_info reads them); and of its
+single-spectrum functions, :func:`get_continuum`, :func:`interp_masker`
+and :func:`preprocess_data`, thin wrappers over the batched device
+versions in ops/continuum.py.  Writing the on-disk artifacts is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -70,6 +73,37 @@ def get_ccf_config(logl0=None, logl1=None, npoints=None, splinestep=1000,
         ret['splinestep'] = max(
             splinestep, 3e5 * (np.exp((logl1 - logl0) / maxcontpts) - 1))
     return ret
+
+
+def get_continuum(lam0, spec0, espec0, ccfconf=None, device=None):
+    """Robust smooth continuum of one spectrum (host array): a quadratic
+    spline in log-flux with nodes every ``ccfconf['splinestep']`` km/s,
+    fitted with a soft-L1 loss on ``device`` (None: the CUDA card)."""
+    return continuum_mod.fit_continuum(lam0, spec0, espec0, ccfconf,
+                                       device=device)[0]
+
+
+def interp_masker(lam, spec, badmask):
+    """``spec`` with its masked pixels filled by linear interpolation
+    between the nearest good neighbours (edge runs take the nearest good
+    value), on the host in float64."""
+    to = lambda a, dt=torch.float64: torch.as_tensor(np.asarray(a),
+                                                     dtype=dt)
+    return continuum_mod._infill(
+        to(lam), to(np.atleast_2d(spec)),
+        to(np.atleast_2d(badmask), torch.bool))[0].numpy()
+
+
+def preprocess_data(lam, spec0, espec, ccfconf=None, badmask=None,
+                    maxerr=10, device=None):
+    """One observed spectrum masked, infilled, continuum-normalized and
+    resampled onto the CCF log-lambda grid with its inverse variance,
+    on ``device`` (None: the CUDA card): host (proc_spec, proc_ivar)."""
+    proc, pivar = continuum_mod.preprocess_batch(
+        lam, np.asarray(spec0)[None], np.asarray(espec)[None],
+        badmask=None if badmask is None else np.asarray(badmask)[None],
+        ccfconf=ccfconf, maxerr=maxerr, device=device)
+    return proc[0].double().cpu().numpy(), pivar[0].double().cpu().numpy()
 
 
 def to_power_two(i):

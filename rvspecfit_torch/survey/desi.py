@@ -27,7 +27,11 @@ Differences from the reference, by design:
   crash isolation that file gets a FAILURE status line (the reference
   starts every fiber at default parameters);
 - not ported: the lock-file and dynamic queues, rank/world sharding,
-  plots, and the brute-force first guess (``--param_init``).
+  and plots.
+
+``--param_init bruteforce`` replaces the CCF by the brute-force start
+of the first fiber (fit/vel_fit.firstguess), which seeds every fiber
+of the group, as in the reference.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from rvspecfit_torch.device import resolve_device
 from rvspecfit_torch.fit import ccf as ccf_mod
 from rvspecfit_torch.fit import vel_fit
 from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
+from rvspecfit_torch.fit.spec_data import SpecData
 from rvspecfit_torch.io import fitsio
 from rvspecfit_torch.pipeline import library
 
@@ -711,7 +716,8 @@ def _ccf_args(arms):
             for a in arms]
 
 
-def _run_group_fit(arms, templates, config, options, banks=None):
+def _run_group_fit(arms, templates, config, options, banks=None,
+                   ccf_init=True):
     """Fit a stacked fiber batch: list of BatchArm, setup ->
     TemplateModel (all on one device), config (min_vel, max_vel,
     vel_step0, min_vel_step, max_vsini, min_vsini, second_minimizer,
@@ -722,7 +728,9 @@ def _run_group_fit(arms, templates, config, options, banks=None):
     AD Hessian errors -> best-fit models.  A CCF failure raises (the
     reference logs it and starts every fiber at the default
     parameters); a fiber whose CCF chi-square is not finite starts at
-    DEFAULT_START, as in the reference.
+    DEFAULT_START, as in the reference.  Without ``ccf_init`` the first
+    fiber's brute-force start (vel_fit.firstguess) seeds every fiber at
+    velocity 0, and no CCF columns are returned.
 
     ``banks`` : optional {setup: (tfft, t2fft, info)} in-memory CCF
     banks; None loads them from the library onto the templates' device.
@@ -735,29 +743,18 @@ def _run_group_fit(arms, templates, config, options, banks=None):
     device = next(iter(templates.values())).geom.h.device
     t = [time.perf_counter()]
 
-    cres = ccf_mod.fit_batch(_ccf_args(arms), config, banks=banks,
-                             device=device)
-    order = [cres['parnames'].index(p) for p in parnames]
-    start_params = np.array(cres['best_params'], np.float64)[:, order]
-    start_vel = np.array(cres['best_vel'], np.float64)
-    vs = cres['best_vsini']
-    has_vs = np.isfinite(vs)
-    start_vsini = np.where(has_vs, vs, 0.0)
-    bad = ~np.isfinite(cres['best_chi'])
-    if bad.any():
-        logging.warning('CCF failed for %d fibers', bad.sum())
-        start_params[bad] = DEFAULT_START[:len(parnames)]
-        start_vel[bad] = 0.0
-    ccf_cols = dict(CHISQ_CCF=cres['best_chi'],
-                    VSINI_CCF=np.where(has_vs, vs, 0.0))
-    for j, p in enumerate(parnames):
-        ccf_cols[PARAM_NAMES.get(p, p.upper()) + '_CCF'] = \
-            start_params[:, j]
+    if ccf_init:
+        start_params, start_vel, start_vsini, has_vs, ccf_cols = \
+            ccf_starts(arms, parnames, config, banks, device)
+    else:
+        start_params, start_vel, start_vsini, has_vs = \
+            bruteforce_starts(arms, parnames, templates, config, options)
+        ccf_cols = {}
     vrad_ccf = start_vel.copy()
     t.append(time.perf_counter())
 
-    # rotation is modeled only when the CCF bank's best templates
-    # carried vsini
+    # rotation is modeled only when the CCF bank's best templates (or
+    # the brute-force start) carried vsini
     fit_vsini = bool(has_vs.any())
     bf = BatchedFitter(arms, templates, config, options=options,
                        use_vsini=fit_vsini)
@@ -789,6 +786,46 @@ def _run_group_fit(arms, templates, config, options, banks=None):
                 converged=nmres['converged'], ccf_cols=ccf_cols,
                 vrad_ccf=vrad_ccf, parnames=parnames, phases=phases,
                 nm=nmres, x=tail['x'], fun=tail['fun'])
+
+
+def ccf_starts(arms, parnames, config, banks, device):
+    """Per-fiber starts from the batched CCF: (params (B, ndim), vel
+    (B,), vsini (B,), has_vsini (B,), CCF columns)."""
+    cres = ccf_mod.fit_batch(_ccf_args(arms), config, banks=banks,
+                             device=device)
+    order = [cres['parnames'].index(p) for p in parnames]
+    start_params = np.array(cres['best_params'], np.float64)[:, order]
+    start_vel = np.array(cres['best_vel'], np.float64)
+    vs = cres['best_vsini']
+    has_vs = np.isfinite(vs)
+    bad = ~np.isfinite(cres['best_chi'])
+    if bad.any():
+        logging.warning('CCF failed for %d fibers', bad.sum())
+        start_params[bad] = DEFAULT_START[:len(parnames)]
+        start_vel[bad] = 0.0
+    ccf_cols = dict(CHISQ_CCF=cres['best_chi'],
+                    VSINI_CCF=np.where(has_vs, vs, 0.0))
+    for j, p in enumerate(parnames):
+        ccf_cols[PARAM_NAMES.get(p, p.upper()) + '_CCF'] = \
+            start_params[:, j]
+    return start_params, start_vel, np.where(has_vs, vs, 0.0), has_vs, \
+        ccf_cols
+
+
+def bruteforce_starts(arms, parnames, templates, config, options):
+    """Every fiber starts at the first fiber's brute-force start
+    (vel_fit.firstguess over its arms) and velocity 0, as in the
+    reference: (params, vel, vsini, has_vsini)."""
+    nf = arms[0].nfibers
+    guess = vel_fit.firstguess(
+        [SpecData(a.setup, a.lam, a.flux[0], 1.0 / np.sqrt(a.ivar[0]))
+         for a in arms], config=config, options=options,
+        templates=templates)
+    start_params = np.tile([guess[p] for p in parnames], (nf, 1)) \
+        .astype(np.float64)
+    has_vs = np.full(nf, guess.get('vsini') is not None)
+    start_vsini = np.full(nf, float(guess.get('vsini') or 0.0))
+    return start_params, np.zeros(nf), start_vsini, has_vs
 
 
 def _finish_one(prep, fit, lo, tab_ofname, mod_ofname, config, arms,
@@ -869,13 +906,16 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
               expid_range=None, use_resolution_matrix=False,
               zbest_path=None, zbest_select=False, objtype_mask=None,
               objtypes=None, target_tables=None, templates=None,
-              banks=None, device=None, fitarm=None, cmdline=None):
+              banks=None, device=None, fitarm=None, cmdline=None,
+              ccf_init=True):
     """Fit every selected fiber of one DESI file; write RVTAB/RVMOD.
 
     ``templates`` ({setup: TemplateModel}) and ``banks`` ({setup:
     (tfft, t2fft, info)}) may come from memory; None loads them from
     ``config['template_lib']`` onto ``device`` (None: the CUDA card).
-    Returns the number of fitted objects (0 when nothing is selected).
+    ``ccf_init=False`` starts from the brute-force first guess
+    (:func:`_run_group_fit`).  Returns the number of fitted objects (0
+    when nothing is selected).
     """
     t0 = time.time()
     prep = _prepare_one(fname, config, setups=setups, minsn=minsn,
@@ -892,7 +932,7 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
     if templates is None:
         templates = _load_templates(config, prep['setups'], device)
     fit = _run_group_fit(prep['arms'], templates, config, options,
-                         banks=banks)
+                         banks=banks, ccf_init=ccf_init)
     _finish_one(prep, fit, 0, tab_ofname, mod_ofname, config,
                 prep['arms'], cmdline=cmdline, templates=templates)
     logging.info('%s: fitted %d fibers in %.1f s', fname, prep['nsel'],
@@ -949,7 +989,7 @@ def _concat_arms(arm_lists):
 def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
                     templates=None, banks=None, device=None, cmdline=None,
                     throw_exceptions=False, zbest_paths=None,
-                    **select_kw):
+                    ccf_init=True, **select_kw):
     """Fit several DESI files as one batch (``--coalesce``).
 
     The fibers of compatible files (same arm names, wavelength grids
@@ -972,7 +1012,8 @@ def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
     return fit_desi_group(gprep, tab_ofnames, mod_ofnames, config,
                           options, templates=templates, banks=banks,
                           device=device, cmdline=cmdline,
-                          throw_exceptions=throw_exceptions)
+                          throw_exceptions=throw_exceptions,
+                          ccf_init=ccf_init)
 
 
 def prepare_desi_group(fnames, config, zbest_paths=None,
@@ -1004,7 +1045,7 @@ def prepare_desi_group(fnames, config, zbest_paths=None,
 
 def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
                    templates=None, banks=None, device=None, cmdline=None,
-                   throw_exceptions=False):
+                   throw_exceptions=False, ccf_init=True):
     """Fit and write stage of a group prepared by
     :func:`prepare_desi_group` (see :func:`proc_desi_group` for the
     semantics and the return value)."""
@@ -1035,7 +1076,7 @@ def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
         members = unit['members']
         try:
             fit = _run_group_fit(unit['arms'], templates, config, options,
-                                 banks=banks)
+                                 banks=banks, ccf_init=ccf_init)
         except Exception:
             logging.exception('group fit of %d files failed; retrying '
                               'per-file', len(members))
@@ -1044,7 +1085,8 @@ def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
             for i in members:
                 try:
                     fit = _run_group_fit(preps[i]['arms'], templates,
-                                         config, options, banks=banks)
+                                         config, options, banks=banks,
+                                         ccf_init=ccf_init)
                 except Exception:
                     _log_crash(preps[i]['fname'], 'per-file retry', False)
                     continue
@@ -1247,9 +1289,11 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
               skipexisting=False, status_fname=None, coalesce=1,
               templates=None, banks=None, device=None,
               throw_exceptions=False, cmdline=None, zbest_select=False,
-              **select_kw):
+              ccf_init=True, **select_kw):
     """Process a sequence of files, one after another (reference:
     desi_fit.py:1392-1551, without its reader and writer threads).
+    ``ccf_init=False`` starts every group from the brute-force first
+    guess instead of the CCF (``--param_init bruteforce``).
 
     ``coalesce``: fit up to this many consecutive compatible files as
     one batch (:func:`proc_desi_group`); 1 fits file by file through
@@ -1310,7 +1354,8 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                 f, tab, mod, config, options, templates=templates,
                 banks=banks, cmdline=cmdline,
                 zbest_path=zbest_path(f), zbest_select=zbest_select,
-                throw_exceptions=throw_exceptions, **select_kw)]
+                throw_exceptions=throw_exceptions, ccf_init=ccf_init,
+                **select_kw)]
         else:
             counts = proc_desi_group(
                 [g[0] for g in grp], [g[1] for g in grp],
@@ -1318,7 +1363,7 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                 banks=banks, cmdline=cmdline,
                 throw_exceptions=throw_exceptions,
                 zbest_paths=[zbest_path(g[0]) for g in grp],
-                zbest_select=zbest_select, **select_kw)
+                zbest_select=zbest_select, ccf_init=ccf_init, **select_kw)
         dt = (time.time() - t0) / len(grp)
         for (f, _, _), nobj in zip(grp, counts):
             status(f, nobj, dt)
@@ -1370,6 +1415,9 @@ def main(args=None):
                         "target bit names, e.g. 'MWS_.*,STD_.*'")
     parser.add_argument('--version', action='store_true', default=False,
                         help='print the software version and exit')
+    parser.add_argument('--param_init', type=str, default='CCF',
+                        help='how the parameters are initialized: CCF '
+                        'or bruteforce')
     parser.add_argument('--no_ccf_continuum_normalize',
                         dest='ccf_continuum_normalize',
                         action='store_false', default=True)
@@ -1398,6 +1446,9 @@ def main(args=None):
     if args.version:
         print(__version__)
         return
+    if args.param_init not in ('CCF', 'bruteforce'):
+        parser.error('Unknown param_init value; only known ones are '
+                     'CCF and bruteforce')
     device = resolve_device(args.device)
     logging.basicConfig(filename=args.log,
                         level=getattr(logging, args.log_level))
@@ -1436,6 +1487,7 @@ def main(args=None):
               coalesce=args.coalesce, device=device,
               throw_exceptions=args.throw_exceptions, cmdline=cmdline,
               zbest_select=args.zbest_select,
+              ccf_init=args.param_init == 'CCF',
               setups=tuple(args.setups.split(',')),
               minsn=args.minsn, fit_targetid=fit_targetid,
               expid_range=expid_range,

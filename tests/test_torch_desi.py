@@ -656,11 +656,55 @@ def test_main_needs_the_card_unless_told_cpu(monkeypatch, tmp_path):
                                     ['--rank', '0'], ['--world', '2'],
                                     ['--coordinator', 'h:1'], ['--doplot'],
                                     ['--figure_dir', 'f'],
-                                    ['--param_init', 'bruteforce']])
+                                    ['--param_init', 'random']])
 def test_left_out_options_are_refused(option, tmp_path):
     with pytest.raises(SystemExit):
         desi.main(['x.fits', '--output_dir', str(tmp_path),
                    '--device', 'cpu'] + option)
+
+
+def test_bruteforce_start_is_the_reference_firstguess(coadds,
+                                                     desi_library):
+    """``--param_init bruteforce``: every fiber starts at fiber 0's
+    vel_fit.firstguess and velocity 0; that guess equals the
+    reference's firstguess on the same arms."""
+    from rvspecfit_tpu.fit import vel_fit as rvf
+    from rvspecfit_tpu.fit.spec_data import SpecData as RSpecData
+    from rvspecfit_tpu.pipeline import library as rlib
+    cfg = utils.read_config(None, {'template_lib': desi_library})
+    prep = desi._prepare_one(coadds['a'][0], cfg)
+    arms = prep['arms']
+    setups = [a.setup for a in arms]
+    templates = library.load_template_models(cfg, setups, device='cpu')
+    parnames = templates[setups[0]].parnames
+    params, vel, vsini, has_vs = desi.bruteforce_starts(
+        arms, parnames, templates, cfg, {'npoly': 10})
+    want = rvf.firstguess(
+        [RSpecData(a.setup, a.lam, a.flux[0], 1.0 / np.sqrt(a.ivar[0]))
+         for a in arms], config=cfg, options={'npoly': 10},
+        templates=rlib.load_template_models(cfg, set(setups)))
+    np.testing.assert_array_equal(
+        params, np.tile([want[p] for p in parnames], (len(vel), 1)))
+    assert (vel == 0).all()
+    assert has_vs.all() == ('vsini' in want)
+    np.testing.assert_array_equal(vsini, want.get('vsini') or 0.0)
+
+
+def test_param_init_bruteforce_runs_main(coadds, desi_library, tmp_path):
+    """``main --param_init bruteforce`` on the CPU: every selected fiber
+    recovered within max(10 km/s, 5 sigma), no CCF columns but
+    VRAD_CCF (0), the status line SUCCESS."""
+    status = str(tmp_path / 'status.txt')
+    _main([coadds['a'][0]], tmp_path / 'out', desi_library,
+          '--param_init', 'bruteforce', '--process_status_file', status,
+          '--throw_exceptions')
+    rv = fitsio.read(str(tmp_path / 'out' / 'rvtab-a.fits'))['RVTAB'].data
+    truth = coadds['a'][1]
+    dv = rv['VRAD'] - truth['vel'][:NFIB - 1]
+    assert (np.abs(dv) < np.maximum(10, 5 * rv['VRAD_ERR'])).all()
+    assert not any(k.endswith('_CCF') and k != 'VRAD_CCF' for k in rv)
+    assert (rv['VRAD_CCF'] == 0).all()
+    assert [ln[1:3] for ln in _status(status)] == [['SUCCESS', '4']]
 
 
 def test_version_and_ignored_nthreads(capsys, tmp_path):

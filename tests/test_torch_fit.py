@@ -97,8 +97,8 @@ def test_scan_stats_match_reference():
     mask[2, 15:] = False
     ref = jax.vmap(rbatch._device_scan_stats)(
         jnp.asarray(vels), jnp.asarray(mask), jnp.asarray(chi))
-    got = batch.scan_stats(torch.as_tensor(vels), torch.as_tensor(mask),
-                           torch.as_tensor(chi))
+    got, _ = batch.scan_stats(torch.as_tensor(vels), torch.as_tensor(mask),
+                              torch.as_tensor(chi))
     np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-12)
 
 

@@ -312,3 +312,128 @@ def test_kernel_pair_derivatives_match_plain_pair(cuda_device, log_step):
         out[name] = (y.detach(), dc.detach(), dg)
     for got, want in zip(out['cuda'], out['plain']):
         _assert_adjoint_close(got, want)
+
+
+@pytest.mark.parametrize('log_step', [True, False])
+def test_velocity_gradient_through_kernels_matches_plain(cuda_device,
+                                                         log_step):
+    """d out/du through the CUDA pair (kernel A on the derivative's
+    coefficients) against the plain pair's, float32 on the card."""
+    geom, u, g = _adjoint_case(log_step, 5, 1024, 4095, seed=6,
+                               device=cuda_device)
+    u = torch.nan_to_num(u, nan=100.0)
+    c = torch.as_tensor(np.random.RandomState(7).normal(size=(5, 4, 4095)),
+                        dtype=torch.float32, device=cuda_device)
+    out = {}
+    for name, route in (('cuda', spline_eval.KERNELS),
+                        ('plain', spline_eval.PLAIN)):
+        uu = u.clone().requires_grad_(True)
+        y = spline_eval.SplineEval.apply(c, uu, geom, route)
+        out[name], = torch.autograd.grad(y, uu, g)
+    _assert_close(out['cuda'], out['plain'], A_TOL)
+
+
+def _single_object(device, seed=3):
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.fit.spec_data import SpecData
+    tm = simulation.build_template_model(3, 3, 3, 2, npix=512,
+                                         device=device)
+    arms, truth = simulation.make_exposure(1, npix_arm=300, seed=seed)
+    sds = [SpecData(n, lam, fl[0], 1.0 / np.sqrt(iv[0]))
+           for n, (lam, fl, iv) in arms.items()]
+    return sds, {n: tm for n in arms}, truth
+
+
+def _ccf_contraction(sds, cfg, bank):
+    """Kernel B's (T, V) chi-squares (without sse) in ccf.fit, summed
+    over the arms, on the CPU in float64."""
+    out = 0.0
+    for sd in sds:
+        p = ccf.prepare_arm_batch(sd.name, sd.lam, sd.spec, sd.espec,
+                                  sd.badmask[None], cfg, bank)
+        out = out + ccf_chisq.ccf_chisq_plain(
+            p['tfft'], p['t2fft'], p['sfft_conj'], p['ivfft_conj'],
+            p['ecos'], p['esin'], continuum=p['continuum']).numpy()[0]
+    return out
+
+
+# kernel B against its plain version in ccf.fit's best chi-square
+# curve, relative to max|contraction|: on the H100 2.9e-6 here and
+# 3.6e-6 at chip_smoke.py's full width (B_TOL, 1e-4, is the kernel's
+# contract on random inputs, too loose to see a velocity shift here)
+CCF_CURVE_TOL = 4e-6
+
+
+def test_single_object_ccf_fit_on_the_card(cuda_device, monkeypatch):
+    """ccf.fit on the card (kernel B at one fiber row, once per arm)
+    against two witnesses on the same input: the card with kernel B's
+    plain version (float32 cuBLAS), which tells the kernel's own error
+    from float32 arithmetic, and the CPU float64 run.  The same template
+    in all three, and the kernel run's best chi-square curve within
+    CCF_CURVE_TOL of max|contraction| of the plain run's (both share the
+    card's float32 preprocessing, so they differ by the contraction
+    alone); a velocity shift of one grid step would break that.  The
+    velocities are printed (pytest -s), not held: the contraction's
+    terms reach 4e6 while the curve rises by ~1 per 5 km/s step at its
+    minimum, so float32 rounding alone moves the parabola's vertex by
+    steps (on the H100 the plain float32 run by 7.3 km/s, the kernel
+    by 1.3; ROADMAP C)."""
+    from rvspecfit_torch import convert, simulation
+    bank = simulation.build_ccf_bank(3, 3, 3, 2, npix=512, every=2,
+                                     step=1.0, device='cpu')
+    sds, _, truth = _single_object('cpu')
+    cfg = dict(max_vel=1000, vel_step0=5)
+    res = {}
+    for key in ('kernel', 'plain', 'cpu'):
+        dev = 'cpu' if key == 'cpu' else 'cuda'
+        b = convert.ccf_bank(*bank, device=dev)
+        with monkeypatch.context() as m:
+            if key == 'plain':
+                m.setattr(ccf_chisq, 'ccf_chisq', ccf_chisq.ccf_chisq_plain)
+            before = ccf_chisq.launches
+            res[key] = ccf.fit(sds, cfg, banks={sd.name: b for sd in sds})
+            assert ccf_chisq.launches == before + (
+                len(sds) if key == 'kernel' else 0)
+    assert res['kernel']['best_par'] == res['plain']['best_par'] \
+        == res['cpu']['best_par']
+    out = _ccf_contraction(sds, cfg, convert.ccf_bank(*bank, device='cpu'))
+    tol = CCF_CURVE_TOL * np.abs(out).max()
+    row = out[np.argmin(out.min(1))]
+    curve = {k: r['best_ccf'] for k, r in res.items()}
+    diff = np.abs(curve['kernel'] - curve['plain']).max()
+    shift = np.abs(row[1:] - row[:-1]).max()
+    print(f'ccf.fit best_vel: kernel {res["kernel"]["best_vel"]!r}, plain '
+          f'float32 {res["plain"]["best_vel"]!r}, CPU float64 '
+          f'{res["cpu"]["best_vel"]!r} km/s; best curve max|kernel - '
+          f'plain| {diff!r}, max|plain - CPU| '
+          f'{np.abs(curve["plain"] - curve["cpu"]).max()!r}, limit '
+          f'{tol!r}; a one-step shift changes it by up to {shift!r}')
+    assert shift > tol
+    assert diff <= tol
+    assert abs(res['cpu']['best_vel'] - truth['vel'][0]) < 30.0
+
+
+def test_process_on_the_card(cuda_device):
+    """One vel_fit.process on the card with the BFGS stage: kernel A in
+    both modes and its adjoint launch; the velocity within max(1 km/s,
+    sigma/2) of the CPU float64 run's, and the truth recovered."""
+    from rvspecfit_torch.fit import vel_fit
+    cfg = dict(min_vel=-1000, max_vel=1000, vel_step0=5, max_vsini=500,
+               min_vsini=1e-2, min_vel_step=0.2, second_minimizer=True)
+    start = dict(teff=6000.0, logg=3.0, feh=-1.0, alpha=0.5)
+    res = {}
+    for dev in ('cuda', 'cpu'):
+        sds, templates, truth = _single_object(dev)
+        before = (spline_eval.row_launches, spline_eval.shared_launches,
+                  spline_eval.adjoint_launches)
+        res[dev] = vel_fit.process(sds, start, config=cfg,
+                                   options={'npoly': 6},
+                                   templates=templates)
+        after = (spline_eval.row_launches, spline_eval.shared_launches,
+                 spline_eval.adjoint_launches)
+        if dev == 'cuda':
+            assert all(a > b for a, b in zip(after, before))
+    got, want = res['cuda'], res['cpu']
+    assert abs(got['vel'] - want['vel']) <= max(1.0, 0.5 * want['vel_err'])
+    assert abs(want['vel'] - truth['vel'][0]) < max(10.0,
+                                                    3 * want['vel_err'])
