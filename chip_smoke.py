@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the rvspecfit_torch group fit, DESI and WEAVE drivers and the
-single-object fit on one CUDA card and check them.
+"""Drive the rvspecfit_torch group fit, DESI and WEAVE drivers, the
+single-object fit and an NN template library on one CUDA card, in
+float64 (the port's working type), and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
@@ -10,13 +11,13 @@ and the CUDA toolkit):
 1. Builds the CUDA kernels from rvspecfit_torch/csrc with nvcc
    (sm_90a, one nvcc per source, all started together) into
    rvspecfit_torch/_build/.
-2. Compares each kernel with its plain PyTorch version on the card at
-   the main path's shapes (kernel A in both modes, its adjoint at the
-   polish's shape, kernel B in both modes), and times both with CUDA
-   events beside the least time the card could take for the work
-   (bound_ms) and, for kernel B, one fp32 torch.matmul of its
-   materialized contraction (library_ms, a yardstick the port never
-   calls).
+2. Compares each kernel, in its float64 and its float32 form, with its
+   plain PyTorch version on the card at the main path's shapes (kernel
+   A in both modes, its adjoint at the polish's shape, kernel B in both
+   modes), and times both with CUDA events beside the least time the
+   card could take for the work (bound_ms) and, for kernel B, one
+   torch.matmul of its materialized contraction in the same dtype
+   (library_ms, a yardstick the port never calls).
 3. Drives survey/desi._run_group_fit on bench.py's workload: a
    synthetic 500-fiber, 3-arm exposure against the 864-template grid
    (built through pipeline/library.template_model_from_artifacts) ->
@@ -24,11 +25,14 @@ and the CUDA toolkit):
    gradient polish (kernel A and its adjoint, AD Hessians) -> velocity
    refinement (kernel A, shared mode) -> AD Hessian errors -> best-fit
    models; a cold pass, then a timed warm pass whose kernel launches
-   are counted (kernel A's per mode and in all).
+   are counted, in float64 (only float64 kernels may launch) and then
+   in float32 (a template model and bank built with dtype=float32: the
+   float32 kernels), for the cost of float64.
 4. Checks RV recovery against the injected velocities, that the polish
    raised no fiber's objective, and the group fit on 8 fibers
-   (velocities, polished parameters, errors) against the CPU float64
-   run of the same code.
+   (velocities and polished parameters within sigma/2, the Hessian at
+   one point) against the CPU float64 run of the same code; the
+   float32 run of the same 8 fibers is logged beside it.
 5. Drives the DESI driver, survey/desi.proc_many, over 4 coadd files of
    500 fibers in bench.py's format, written with the port's FITS module
    into a temporary directory, at coalesce 2 (two groups of 1000
@@ -37,14 +41,13 @@ and the CUDA toolkit):
    launches are counted per run and per group.  Checks the status
    lines, the RVTAB schema and rows, RV recovery per file and RVMOD;
    prints per-file seconds, the steady fibers/s from the status file's
-   completion times and each group's phases.  Then holds the three
-   kernels against their plain versions at a 1000-fiber group's shapes,
-   and the driver's RVTAB on the card against the CPU float64 run for
-   an 8-fiber coadd and a 64-fiber coadd with per-fiber resolution
-   matrices (--resolution_matrix, width-11 Gaussian bands).  Beside
-   each, witnesses of the Nelder-Mead's end points: the plain versions
-   in float32, and in float64 on the card from the card's and from the
-   CPU's CCF starts (ROADMAP C.1).
+   completion times and each group's phases; then the same files in
+   float32 for the time.  Holds the kernels against their plain
+   versions at a 1000-fiber group's shapes, and the driver's RVTAB on
+   the card against the CPU float64 run for an 8-fiber coadd and a
+   64-fiber coadd with per-fiber resolution matrices
+   (--resolution_matrix, width-11 Gaussian bands): velocities and
+   parameters within sigma/2 (ROADMAP C.1).
 6. The single-object fit on 8 objects of the 3-arm layout at full
    width: fit/ccf.fit (kernel B at one fiber row) -> vel_fit.process
    (scan, float64-bookkept Nelder-Mead, BFGS with the autograd
@@ -52,19 +55,30 @@ and the CUDA toolkit):
    and its adjoint), firstguess on 2 of them and one process with a
    Gaussian resolution matrix per arm; kernel B timed at B = 1.  Checks
    RV recovery, every kernel launched, and the card against the CPU
-   float64 run of the same calls; prints seconds per call and stage,
-   BFGS calls and launches per call.
+   float64 run of the same calls: ccf.fit's template and velocity
+   (within 0.01 km/s, ROADMAP C.2), velocities and parameters within
+   sigma/2; prints seconds per call and stage, BFGS calls and launches
+   per call; then ccf.fit and process in float32 for the time and
+   ccf.fit's float32 velocities.
 7. The WEAVE driver, survey/weave.proc_many, over a 500-fiber red +
    blue pair (two 1024-px arms inside the synthetic grid's range):
-   status line, WEAVE_RV columns, RV recovery, fibers/s; an 8-fiber
-   pair on the card against the CPU.
+   status line, WEAVE_RV columns, RV recovery, fibers/s (and in
+   float32 for the time); an 8-fiber pair on the card against the CPU
+   (velocities and parameters within sigma/2).
 8. The DESI driver with ``--param_init bruteforce`` (ccf_init=False) on
    an 8-fiber coadd: RVTAB schema and RV recovery.
+9. An NN template library (simulation.nn_template_artifacts: the
+   reference trainer's default widths, the grid's principal components
+   in its output layer, seeded hidden layers; no trainer) through
+   pipeline/library, two 500-fiber coadds of spectra drawn from that
+   model at known parameters and velocities, through
+   survey/desi.proc_many at coalesce 2 with a CCF bank of the model at
+   the grid's nodes: RV recovery per file, every kernel launched.
 
 Every path's kernel launches are counted from 0 just before it runs.
-Prints, last, the card, a JSON line of the kernels and then the ok
-line.  Exits non-zero, printing no result, without a CUDA device or on
-any failure.
+Prints, last, the card, a JSON line of the kernels (each in its
+float64 and float32 form) and then the ok line.  Exits non-zero,
+printing no result, without a CUDA device or on any failure.
 """
 import concurrent.futures
 import contextlib
@@ -86,6 +100,8 @@ CONFIG = dict(min_vel=-1000, max_vel=1000, vel_step0=5, max_vsini=500,
 OPTIONS = {'npoly': 10}
 START = dict(teff=6000.0, logg=3.0, feh=-1.0, alpha=0.5)
 PHASES = ('ccf', 'nm', 'polish', 'refine', 'hessian', 'models')
+# the kernels' forms: the working type first
+FORMS = ('float64', 'float32')
 
 
 class SmokeFailure(Exception):
@@ -153,13 +169,15 @@ def environment():
 
 
 def build_kernels():
+    import torch
     from rvspecfit_torch.ops import ccf_chisq, cuda_build, spline_eval
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as ex:
         list(ex.map(cuda_build.load, ('spline_eval', 'ccf_chisq')))
-    spline_eval.build()
-    spline_eval.build_adjoint()
-    ccf_chisq.build()
+    for dtype in (torch.float64, torch.float32):
+        spline_eval.build(dtype)
+        spline_eval.build_adjoint(dtype)
+        ccf_chisq.build(dtype)
     log(f'kernel build: {time.perf_counter() - t0:.2f} s')
     for name, info in cuda_build.build_log.items():
         log(f'  {name}: nvcc {info["seconds"]:.2f} s; ptxas: '
@@ -205,7 +223,7 @@ def make_template_model(device, wresol=2.0, dtype=None):
     """The 864-template grid at 4096 px with lines broadened by a
     Gaussian of ``wresol`` A, through the library's artifact path (a
     regular-grid library's arrays, made in memory); ``dtype`` overrides
-    the device's working dtype (float64 on the card for a witness)."""
+    the device's working dtype (float32 for the float32 runs)."""
     from rvspecfit_torch import simulation
     from rvspecfit_torch.pipeline.library import \
         template_model_from_artifacts
@@ -215,50 +233,51 @@ def make_template_model(device, wresol=2.0, dtype=None):
         device=device, dtype=dtype)
 
 
-def make_workload(device):
+def make_workload(device, dtype=None):
     t0 = time.perf_counter()
-    tm = make_template_model(device)
+    tm = make_template_model(device, dtype=dtype)
     arms, truth = make_arms()
     bank = make_bank()
     log(f'workload: {NFIBERS} fibers x {len(arms)} arms x {NPIX_ARM} px, '
-        f'{tm.state.dats.shape[0]} templates x {tm.geom.n} px, CCF bank '
-        f'{bank[0].shape[0]} x {bank[0].shape[1]} frequencies '
-        f'({time.perf_counter() - t0:.1f} s)')
+        f'{tm.state.dats.shape[0]} templates x {tm.geom.n} px '
+        f'({tm.state.dats.dtype}), CCF bank {bank[0].shape[0]} x '
+        f'{bank[0].shape[1]} frequencies ({time.perf_counter() - t0:.1f} s)')
     return tm, arms, truth, bank
 
 
-# peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s and
-# TF32 tensor-core FLOP/s
+# peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s, TF32
+# and FP64 tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 TF32_FLOPS = 495e12
+FP64_FLOPS = 67e12
 
 
 def spline_bound_ms(u, nm1, rpc):
     """Least time of kernel A's work on these inputs from HBM: u read
-    and out written once, plus the 16 B of (A, B, C, D) of every
+    and out written once, plus the 4 coefficients (A, B, C, D) of every
     distinct interval each coefficient row's queries touch."""
     import torch
+    es = u.element_size()
     idx = torch.clamp(torch.floor(torch.nan_to_num(u)), 0, nm1 - 1)
     idx = idx.reshape(-1, rpc * u.shape[1]).sort(1).values
     knots = float((idx.diff(dim=1) != 0).sum()) + idx.shape[0]
-    nbytes = 2 * 4 * u.numel() + 16 * knots
+    nbytes = 2 * es * u.numel() + 4 * es * knots
     return 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def ccf_bound(nb, nt, nf, nv, naccumulators):
+def ccf_bound(nb, nt, nf, nv, naccumulators, form):
     """Least time of kernel B's work and what bounds it: its GEMM (M =
-    B T, N = V, K = 2F, one per accumulator) issued three times
-    (3xTF32) at the TF32 peak, against the bytes of its inputs and
-    output.  Returns (ms, 'operations' or 'bytes')."""
-    flops = 3 * naccumulators * 2.0 * nb * nt * nv * 2 * nf
-    nbytes = 8 * 2 * (nt + nb) * nf + 4 * 2 * nf * nv + 4 * nb * nt * nv
-    t_ops, t_bytes = flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    B T, N = V, K = 2F, one per accumulator), issued three times at the
+    TF32 peak in the float32 form (3xTF32) and once at the FP64
+    tensor-core peak in the float64 form, against the bytes of its
+    inputs and output.  Returns (ms, 'operations' or 'bytes')."""
+    es = 8 if form == 'float64' else 4
+    passes, peak = (1, FP64_FLOPS) if form == 'float64' else (3, TF32_FLOPS)
+    flops = passes * naccumulators * 2.0 * nb * nt * nv * 2 * nf
+    nbytes = es * (2 * 2 * (nt + nb) * nf + 2 * nf * nv + nb * nt * nv)
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), \
         'operations' if t_ops >= t_bytes else 'bytes'
-
-
-def ccf_bound_ms(nb, nt, nf, nv, naccumulators):
-    return ccf_bound(nb, nt, nf, nv, naccumulators)[0]
 
 
 def compare(got, want):
@@ -270,9 +289,27 @@ def compare(got, want):
 
 def adjoint_bound_ms(u, nm1):
     """Least time of the adjoint's work from HBM: u and g read once and
-    the dense (R, 4, nm1) float32 output written once."""
-    return 1e3 * (2 * 4 * u.numel() + 16 * u.shape[0] * nm1) \
+    the dense (R, 4, nm1) output written once."""
+    es = u.element_size()
+    return 1e3 * (2 * es * u.numel() + 4 * es * u.shape[0] * nm1) \
         / HBM_BYTES_PER_S
+
+
+# each kernel's limit against its plain version, relative to max|out|:
+# the float32 forms' (3xTF32 for B), and in float64 the same number of
+# rounding errors at float64's unit roundoff (2^-53 against 2^-24)
+TOL32 = dict(A=1e-5, B=1e-4, ADJ=1e-5)
+TOL = dict(float32=TOL32,
+           float64={k: v * 2.0**-29 for k, v in TOL32.items()})
+
+
+def as_form(tensors, form):
+    """The tensors in ``form``'s real or complex dtype."""
+    import torch
+    from rvspecfit_torch.device import complex_of
+    real = getattr(torch, form)
+    return [t.to(complex_of(real) if t.is_complex() else real).contiguous()
+            for t in tensors]
 
 
 def make_nocont_bank(device):
@@ -285,67 +322,75 @@ def make_nocont_bank(device):
 def kernel_a_cases(tm, arms, truth, device):
     """Kernel A's inputs at the NM-step shape (one trial per fiber) and
     the refinement's full-pass shape (401 shared rows per fiber), for
-    the B fibers of ``arms``: (coeffs, [(mode, u, rows_per_coeff),
-    ...])."""
+    the B fibers of ``arms``, in the template model's dtype: (coeffs,
+    [(mode, u, rows_per_coeff), ...])."""
     import torch
     from rvspecfit_torch.fit.likelihood import doppler_u, template_stage
     from rvspecfit_torch.fit.spec_data import ArmState
+    dtype = tm.geom.h.dtype
     arm = ArmState.from_host('B', 'B', arms[0].lam, arms[0].flux,
                              1.0 / np.sqrt(arms[0].ivar), tm.geom,
-                             device=device)
+                             device=device, dtype=dtype)
     params = torch.as_tensor(np.stack([truth[k] for k in
                                        ('teff', 'logg', 'feh', 'alpha')], 1),
-                             dtype=torch.float32, device=device)
+                             dtype=dtype, device=device)
     coeffs = template_stage(tm, params, None, False, None)[0]
-    vels = torch.as_tensor(truth['vel'], dtype=torch.float32, device=device)
+    vels = torch.as_tensor(truth['vel'], dtype=dtype, device=device)
     u_row = doppler_u(arm, tm.geom, vels)                       # (B, 1024)
-    grid = torch.linspace(-1000, 1000, 401, device=device)
+    grid = torch.linspace(-1000, 1000, 401, dtype=dtype, device=device)
     # (401 B, 1024)
     u_shared = doppler_u(arm, tm.geom, grid.repeat(arm.dvec.shape[0]))
     return coeffs, [('per-row', u_row, 1), ('shared', u_shared, 401)]
 
 
 def check_kernel_a(tm, arms, truth, device):
-    """Kernel A vs plain on the card at both of the path's shapes.
+    """Kernel A vs plain on the card at both of the path's shapes, in
+    both forms: {form: {mode: numbers}}.
 
     Both modes are timed with inputs read from HBM, as the bound
-    assumes: the shared mode's 820 MB of u exceed L2; the per-row mode
-    (4 us) is timed from CUDA-graph replays over L2_COPIES copies of
-    its inputs, and also eagerly, one call at a time (the host's
-    dispatch, as the path launches it)."""
+    assumes: the shared mode's u (1.6 GB in float64) exceeds L2; the
+    per-row mode (a few us) is timed from CUDA-graph replays over
+    L2_COPIES copies of its inputs, and also eagerly, one call at a time
+    (the host's dispatch, as the path launches it)."""
     from rvspecfit_torch.ops import spline_eval
-    coeffs, cases = kernel_a_cases(tm, arms, truth, device)
-    result = {}
-    for mode, u, rpc in cases:
-        def call(c, uu):
-            return spline_eval.spline_eval_index(tm.geom, c, uu, rpc)
-        err, scale = compare(
-            call(coeffs, u),
-            spline_eval.spline_eval_index_plain(tm.geom, coeffs, u, rpc))
-        eager_ms = cuda_time(lambda: call(coeffs, u), 20)
-        ms = eager_ms if rpc > 1 else cuda_time(
-            cold_inputs(call, coeffs, u), 2 * L2_COPIES, graph=True)
-        plain_ms = cuda_time(lambda: spline_eval.spline_eval_index_plain(
-            tm.geom, coeffs, u, rpc), 5)
-        bound = spline_bound_ms(u, coeffs.shape[-1], rpc)
-        log(f'kernel A {mode}: rows {u.shape[0]} x {u.shape[1]} px, '
-            f'coeffs {tuple(coeffs.shape)}: max|diff| {err:.3e} '
-            f'(limit 1e-5 x max|out| = {1e-5 * scale:.3e}); kernel '
-            f'{ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.4f} '
-            f'ms, bound {bound:.4f} ms (HBM bytes) -> '
-            f'{100 * bound / ms:.1f}% of it')
-        check(np.isfinite(err) and err <= 1e-5 * scale,
-              f'kernel A ({mode}) disagrees with its plain version')
-        check(ms >= bound, f'kernel A ({mode}) ran under its bound: the '
-              'bound or the timing is wrong')
-        result[mode] = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
-                            plain_ms=plain_ms, bound_ms=bound)
+    coeffs64, cases = kernel_a_cases(tm, arms, truth, device)
+    result = {form: {} for form in FORMS}
+    for mode, u64, rpc in cases:
+        for form in FORMS:
+            coeffs, u = as_form((coeffs64, u64), form)
+
+            def call(c, uu):
+                return spline_eval.spline_eval_index(tm.geom, c, uu, rpc)
+            err, scale = compare(
+                call(coeffs, u),
+                spline_eval.spline_eval_index_plain(tm.geom, coeffs, u, rpc))
+            eager_ms = cuda_time(lambda: call(coeffs, u), 20)
+            ms = eager_ms if rpc > 1 else cuda_time(
+                cold_inputs(call, coeffs, u), 2 * L2_COPIES, graph=True)
+            plain_ms = cuda_time(lambda: spline_eval.spline_eval_index_plain(
+                tm.geom, coeffs, u, rpc), 3)
+            bound = spline_bound_ms(u, coeffs.shape[-1], rpc)
+            lim = TOL[form]['A'] * scale
+            log(f'kernel A {mode} {form}: rows {u.shape[0]} x {u.shape[1]} '
+                f'px, coeffs {tuple(coeffs.shape)}: max|diff| {err:.3e} '
+                f'(limit {lim:.3e}); kernel {ms:.4f} ms (eager '
+                f'{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, bound '
+                f'{bound:.4f} ms (HBM bytes) -> {100 * bound / ms:.1f}% of it')
+            check(np.isfinite(err) and err <= lim,
+                  f'kernel A ({mode}, {form}) disagrees with its plain '
+                  'version')
+            check(ms >= bound, f'kernel A ({mode}, {form}) ran under its '
+                  'bound: the bound or the timing is wrong')
+            result[form][mode] = dict(max_abs_err=err, ms=ms,
+                                      eager_ms=eager_ms, plain_ms=plain_ms,
+                                      bound_ms=bound)
+            del coeffs, u
     return result
 
 
 def kernel_b_args(arms, bank):
     """Kernel B's inputs for the first arm of the exposure against a
-    device bank: (args, continuum)."""
+    device bank, in the bank's precision: (args, continuum)."""
     from rvspecfit_torch.fit import ccf
     a = arms[0]
     p = ccf.prepare_arm_batch(a.name, a.lam, a.flux, 1.0 / np.sqrt(a.ivar),
@@ -358,22 +403,26 @@ def check_kernel_b(arms, banks, device):
     """Kernel B vs plain on the first arm of ``arms`` (all its fibers)
     with each of ``banks`` ({mode: device bank}; the path's continuum
     mode and, from a bank without continuum built from the same grid,
-    the no-continuum mode); see kernel_b_case."""
-    result = {}
+    the no-continuum mode), in both forms (the float32 form on the
+    float64 inputs rounded to float32): {form: {mode: numbers}}."""
+    result = {form: {} for form in FORMS}
     for mode, bank in banks.items():
-        args, cont = kernel_b_args(arms, bank)
+        args64, cont = kernel_b_args(arms, bank)
         check(cont == (mode == 'continuum'),
               f'the {mode} bank has continuum={cont}')
-        result[mode] = kernel_b_case(args, cont, f'kernel B {mode}')
+        for form in FORMS:
+            result[form][mode] = kernel_b_case(as_form(args64, form), cont,
+                                               f'kernel B {mode} {form}',
+                                               form)
     return result
 
 
-def kernel_b_case(args, cont, label, graph=False):
+def kernel_b_case(args, cont, label, form, graph=False):
     """Kernel B's wrapper vs its plain version on ``args``, both timed,
-    and the continuum contraction as one fp32 torch.matmul
-    (library_ms).  ``graph``: time the wrapper from CUDA-graph replays
-    over L2_COPIES copies of its inputs (calls of a few microseconds,
-    inputs from HBM), beside the eager time."""
+    and the continuum contraction as one torch.matmul in the same
+    dtype (library_ms).  ``graph``: time the wrapper from CUDA-graph
+    replays over L2_COPIES copies of its inputs (calls of a few
+    microseconds, inputs from HBM), beside the eager time."""
     import torch
     from rvspecfit_torch.ops import ccf_chisq
 
@@ -388,20 +437,21 @@ def kernel_b_case(args, cont, label, graph=False):
         *args, continuum=cont), 3)
     shape = (args[2].shape[0], args[0].shape[0], args[0].shape[1],
              args[4].shape[1])
-    bound, bound_by = ccf_bound(*shape, 1 if cont else 2)
+    bound, bound_by = ccf_bound(*shape, 1 if cont else 2, form)
     library_ms = None
     if cont:
         ops, e = ccf_chisq.contraction_operands(*args, continuum=True)
         library_ms = cuda_time(lambda: torch.matmul(ops[0], e), 5)
         del ops, e
+    lim = TOL[form]['B']
     log(f'{label}: at B,T,F,V = {shape}: max|diff| {err:.3e}, '
-        f'{err / scale:.3e} of max|out| (limit 1e-4); kernel '
+        f'{err / scale:.3e} of max|out| (limit {lim:.3e}); kernel '
         f'{ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.3f} ms, '
         f'library '
         f'{library_ms if library_ms is None else round(library_ms, 4)}'
         f' ms, bound {bound:.4f} ms ({bound_by}) -> '
         f'{100 * bound / ms:.1f}% of it')
-    check(np.isfinite(err) and err <= 1e-4 * scale,
+    check(np.isfinite(err) and err <= lim * scale,
           f'{label} disagrees with its plain version')
     return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
@@ -409,48 +459,53 @@ def kernel_b_case(args, cont, label, graph=False):
 
 def adjoint_inputs(tm, arms, truth, device):
     """The adjoint's inputs at the polish's shape (one row per fiber,
-    500 x 1024 queries on 4095 intervals): (u, g, nm1), g a seeded
-    upstream gradient."""
+    500 x 1024 queries on 4095 intervals), in the template model's
+    dtype: (u, g, nm1), g a seeded upstream gradient."""
     import torch
     coeffs, cases = kernel_a_cases(tm, arms, truth, device)
     u = cases[0][1]
     g = torch.as_tensor(np.random.RandomState(1).normal(size=u.shape),
-                        dtype=torch.float32, device=device)
+                        dtype=u.dtype, device=device)
     return u, g, coeffs.shape[-1]
 
 
 def check_adjoint(tm, arms, truth, device):
     """Kernel A's adjoint vs its plain version at the polish's shape
-    with a seeded upstream gradient (adjoint_inputs); timed from HBM
-    (CUDA-graph replays over L2_COPIES copies of its inputs) and
-    eagerly; two launches must give the same bits."""
+    with a seeded upstream gradient (adjoint_inputs), in both forms;
+    timed from HBM (CUDA-graph replays over L2_COPIES copies of its
+    inputs) and eagerly; two launches must give the same bits."""
     import torch
     from rvspecfit_torch.ops import spline_eval
-    u, g, nm1 = adjoint_inputs(tm, arms, truth, device)
+    u64, g64, nm1 = adjoint_inputs(tm, arms, truth, device)
+    result = {}
+    for form in FORMS:
+        u, g = as_form((u64, g64), form)
 
-    def call(uu, gg):
-        return spline_eval.spline_eval_index_vjp(tm.geom, uu, gg, nm1)
-    got = call(u, g)
-    err, scale = compare(got, spline_eval.spline_eval_index_vjp_plain(
-        tm.geom, u, g, nm1))
-    check(torch.equal(got, call(u, g)),
-          'the adjoint gave other bits on a second launch')
-    ms = cuda_time(cold_inputs(call, u, g), 2 * L2_COPIES, graph=True)
-    eager_ms = cuda_time(lambda: call(u, g), 20)
-    plain_ms = cuda_time(lambda: spline_eval.spline_eval_index_vjp_plain(
-        tm.geom, u, g, nm1), 5)
-    bound = adjoint_bound_ms(u, nm1)
-    log(f'adjoint: rows {u.shape[0]} x {u.shape[1]} px -> (R, 4, {nm1}): '
-        f'max|diff| {err:.3e} (limit 1e-5 x max|out| = {1e-5 * scale:.3e});'
-        f' kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain '
-        f'{plain_ms:.4f} ms, bound {bound:.4f} ms (HBM bytes) -> '
-        f'{100 * bound / ms:.1f}% of it; bit-equal on relaunch')
-    check(np.isfinite(err) and err <= 1e-5 * scale,
-          'the adjoint disagrees with its plain version')
-    check(ms >= bound, 'the adjoint ran under its bound: the bound or '
-          'the timing is wrong')
-    return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
-                plain_ms=plain_ms, bound_ms=bound)
+        def call(uu, gg):
+            return spline_eval.spline_eval_index_vjp(tm.geom, uu, gg, nm1)
+        got = call(u, g)
+        err, scale = compare(got, spline_eval.spline_eval_index_vjp_plain(
+            tm.geom, u, g, nm1))
+        check(torch.equal(got, call(u, g)),
+              f'the {form} adjoint gave other bits on a second launch')
+        ms = cuda_time(cold_inputs(call, u, g), 2 * L2_COPIES, graph=True)
+        eager_ms = cuda_time(lambda: call(u, g), 20)
+        plain_ms = cuda_time(lambda: spline_eval.spline_eval_index_vjp_plain(
+            tm.geom, u, g, nm1), 5)
+        bound = adjoint_bound_ms(u, nm1)
+        lim = TOL[form]['ADJ'] * scale
+        log(f'adjoint {form}: rows {u.shape[0]} x {u.shape[1]} px -> (R, 4, '
+            f'{nm1}): max|diff| {err:.3e} (limit {lim:.3e}); kernel '
+            f'{ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.4f} '
+            f'ms, bound {bound:.4f} ms (HBM bytes) -> '
+            f'{100 * bound / ms:.1f}% of it; bit-equal on relaunch')
+        check(np.isfinite(err) and err <= lim,
+              f'the {form} adjoint disagrees with its plain version')
+        check(ms >= bound, f'the {form} adjoint ran under its bound: the '
+              'bound or the timing is wrong')
+        result[form] = dict(max_abs_err=err, ms=ms, eager_ms=eager_ms,
+                            plain_ms=plain_ms, bound_ms=bound)
+    return result
 
 
 def run_group_fit(tm, arms, banks):
@@ -477,133 +532,142 @@ def check_outputs(out, nfib, npix):
           f'{int(worse.sum())} fibers')
 
 
+KERNELS = ('spline_eval_per_row', 'spline_eval_shared', 'ccf_chisq',
+           'spline_eval_adjoint')
+
+
 def kernel_counts():
+    """Launches since the last reset by form and kernel: {form: {kernel:
+    n}} (the wrappers count all launches and the float32 forms' apart)."""
     from rvspecfit_torch.ops import ccf_chisq, spline_eval
-    return dict(spline_eval=spline_eval.launches,
-                spline_eval_per_row=spline_eval.row_launches,
-                spline_eval_shared=spline_eval.shared_launches,
-                ccf_chisq=ccf_chisq.launches,
-                spline_eval_adjoint=spline_eval.adjoint_launches)
+    f32 = spline_eval.float32_launches
+    f32 = dict(spline_eval_per_row=f32['per_row'],
+               spline_eval_shared=f32['shared'],
+               ccf_chisq=ccf_chisq.float32_launches,
+               spline_eval_adjoint=f32['adjoint'])
+    total = dict(spline_eval_per_row=spline_eval.row_launches,
+                 spline_eval_shared=spline_eval.shared_launches,
+                 ccf_chisq=ccf_chisq.launches,
+                 spline_eval_adjoint=spline_eval.adjoint_launches)
+    return dict(float64={k: total[k] - f32[k] for k in KERNELS},
+                float32=f32)
 
 
 def reset_counts():
     from rvspecfit_torch.ops import ccf_chisq, spline_eval
     spline_eval.launches = spline_eval.adjoint_launches = 0
     spline_eval.row_launches = spline_eval.shared_launches = 0
-    ccf_chisq.launches = 0
+    spline_eval.float32_launches.update(per_row=0, shared=0, adjoint=0)
+    ccf_chisq.launches = ccf_chisq.float32_launches = 0
+
+
+def check_launches(name, counts, form='float64', unused=()):
+    """Every kernel of the path but ``unused`` launched in ``form``, and
+    none in the other form."""
+    other = [f for f in FORMS if f != form][0]
+    check(all(v > 0 for k, v in counts[form].items() if k not in unused)
+          and not any(v for k, v in counts[form].items() if k in unused),
+          f'{name}: a kernel of the path was not launched in {form}: '
+          f'{counts}')
+    check(not any(counts[other].values()),
+          f'{name}: the {form} run launched {other} kernels: {counts}')
+
+
+def diff_counts(after, before):
+    return {f: {k: after[f][k] - before[f][k] for k in KERNELS}
+            for f in FORMS}
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """The path's calls of the kernels run their plain versions instead
-    (a witness run: it launches no kernel; the polish and the Hessian
-    differentiate the plain evaluation)."""
-    from rvspecfit_torch.fit import likelihood
-    from rvspecfit_torch.ops import ccf_chisq, spline_eval
-    plain = spline_eval.spline_eval_index_plain
-    with mock.patch.object(likelihood, 'spline_eval_index', plain), \
-            mock.patch.object(ccf_chisq, 'ccf_chisq',
-                              ccf_chisq.ccf_chisq_plain):
-        yield
-
-
-@contextlib.contextmanager
-def ccf_result(record=None, replay=None):
-    """Record the group fit's CCF result into the list ``record``, or
-    hand it ``replay`` in place of running the CCF."""
+def ccf_result(record):
+    """Record the group fit's CCF results into the list ``record``."""
     from rvspecfit_torch.fit import ccf
     from rvspecfit_torch.survey import desi
     real = ccf.fit_batch
 
     def fit_batch(*args, **kwargs):
-        if replay is not None:
-            return replay
         record.append(real(*args, **kwargs))
         return record[-1]
     with mock.patch.object(desi.ccf_mod, 'fit_batch', fit_batch):
         yield
 
 
-def check_against_cpu(arms, bank, device, tm):
-    """The group fit on 8 fibers: CUDA float32 (kernels) against the
-    CPU float64 run of the plain versions, for the velocities and the
-    polished parameters, and the Hessian errors at one point (see
-    hessians_at_one_point).  A witness beside it:
-    the CUDA float32 fit with the plain versions in place of the
-    kernels, from the kernel run's CCF result (so from the same NM
-    starts), tells float32 arithmetic from a kernel at fault."""
+def float32_models(device, bank, wresol=2.0):
+    """The float32 template model and device bank of the float32 runs
+    (explicit dtype=float32)."""
     import torch
     from rvspecfit_torch import convert
+    return (make_template_model(device, wresol=wresol, dtype=torch.float32),
+            convert.ccf_bank(*bank, device=device, dtype=torch.float32))
+
+
+def check_against_cpu(arms, bank, device, tm, tm32, bank32):
+    """The group fit on 8 fibers on the card (float64, kernels) against
+    the CPU float64 run: the CCF's templates, the velocities within
+    max(1 km/s, sigma/2) and the polished parameters within sigma/2,
+    the CPU's sigma, and the Hessian at one point
+    (hessians_at_one_point).  The float32 kernels' run of the same 8
+    fibers is logged beside it (what float64 bought)."""
+    from rvspecfit_torch import convert
     from rvspecfit_torch.fit.batch import BatchArm
-    cpu = torch.device('cpu')
+    cpu = 'cpu'
     sub = [BatchArm(a.name, a.lam, a.flux[:8], a.ivar[:8]) for a in arms]
     tm_cpu = make_template_model(cpu)
-    small, cres, banks = {}, {}, {}
-    for dev, tm_d in ((device, tm), (cpu, tm_cpu)):
-        banks[dev.type] = {a.name: convert.ccf_bank(*bank, device=dev)
-                           for a in sub}
+    runs = dict(cuda=(tm, convert.ccf_bank(*bank, device=device)),
+                cpu=(tm_cpu, convert.ccf_bank(*bank, device=cpu)),
+                cuda32=(tm32, bank32))
+    small, cres = {}, {}
+    for key, (tm_d, bank_d) in runs.items():
         rec = []
-        with ccf_result(record=rec):
-            small[dev.type] = run_group_fit(tm_d, sub, banks[dev.type])
-        cres[dev.type] = rec[0]
-    counts = kernel_counts()
-    with plain_versions(), ccf_result(replay=cres['cuda']):
-        plain32 = run_group_fit(tm, sub, banks['cuda'])
-    check(counts == kernel_counts(), 'the witness run launched a kernel')
-    gk, gc = small['cuda'], small['cpu']
-    vg, vc = gk['ref']['best_vel'], gc['ref']['best_vel']
-    vp = plain32['ref']['best_vel']
+        with ccf_result(rec):
+            small[key] = run_group_fit(tm_d, sub, {a.name: bank_d
+                                                   for a in sub})
+        cres[key] = rec[0]
+    gc = small['cpu']
+    vc = gc['ref']['best_vel']
     lim = np.maximum(1.0, 0.5 * gc['ref']['vel_err'])
-    same_id = (cres['cuda']['best_id'] == cres['cpu']['best_id']).sum()
-    log(f'8-fiber group fit, CUDA float32 vs CPU float64: max|dv| '
-        f'{np.abs(vg - vc).max():.4f} km/s (limit max(1, 0.5 sigma)); '
-        f'same CCF template {int(same_id)}/8')
-    for i in range(len(vc)):
-        log(f'  fiber {i}: CPU float64 {vc[i]:.4f} km/s; CUDA float32 '
-            f'kernels {vg[i]:.4f} (|dv| {abs(vg[i] - vc[i]):.4f}, limit '
-            f'{lim[i]:.4f}); CUDA float32 plain versions from the same '
-            f'starts {vp[i]:.4f} (|dv| {abs(vp[i] - vc[i]):.4f})')
-    check((np.abs(vg - vc) <= lim).all(),
-          'the CUDA velocities disagree with the CPU float64 ones')
-    # polished parameters: within half the CPU's error of the CPU's
-    plim = 0.5 * gc['errs']
-    dp, dpp = np.abs(gk['params'] - gc['params']), \
-        np.abs(plain32['params'] - gc['params'])
-    log(f'  polished parameters |dp| / sigma_CPU per fiber (limit 0.5), '
-        f'kernels: {np.round((dp / gc["errs"]).max(1), 4).tolist()}; '
-        f'plain versions: {np.round((dpp / gc["errs"]).max(1), 4).tolist()}')
-    check((dp <= plim).all(), 'the CUDA polished parameters disagree with '
-          'the CPU float64 ones')
+    stats = {}
+    for key in ('cuda', 'cuda32'):
+        g = small[key]
+        dv = np.abs(g['ref']['best_vel'] - vc)
+        dp = np.abs(g['params'] - gc['params']) / gc['errs']
+        same = int((cres[key]['best_id'] == cres['cpu']['best_id']).sum())
+        dccf = float(np.abs(cres[key]['best_vel'] - cres['cpu']['best_vel'])
+                     .max())
+        stats[key] = dict(max_dv=float(dv.max()), max_dv_lim=float(
+            (dv / lim).max()), max_dp=float(np.nanmax(dp)),
+            over=int((dp > 0.5).any(1).sum()), same_ccf=same,
+            max_dv_ccf=dccf)
+        log(f'8-fiber group fit, {"float64" if key == "cuda" else "float32"}'
+            f' kernels vs CPU float64: max|dv| {dv.max():.6f} km/s '
+            f'({(dv / lim).max():.6f} of max(1, sigma/2)); polished '
+            f'parameters max|dp|/sigma {np.nanmax(dp):.6f}, over 0.5 for '
+            f'{stats[key]["over"]}; same CCF template {same}/{len(vc)}, CCF '
+            f'velocities max|dv| {dccf:.6f} km/s')
+    s = stats['cuda']
+    check(s['max_dv_lim'] <= 1, 'the card\'s velocities disagree with the '
+          'CPU float64 ones')
+    check(s['max_dp'] <= 0.5, 'the card\'s polished parameters disagree '
+          'with the CPU float64 ones (ROADMAP C.1)')
+    check(s['same_ccf'] == len(vc), 'the card\'s CCF picks other templates '
+          'than the CPU (ROADMAP C.2)')
     hessians_at_one_point(sub, {'cuda': tm, 'cpu': tm_cpu}, gc)
-    # each run's errors at its own optimum: logged, not checked.  The
-    # grid interpolation is multilinear, so the Hessian changes across
-    # cell edges, and the float32 and float64 optima lie up to ~0.3
-    # sigma apart; the witness shows the same spread without a kernel.
-    rel = np.abs(gk['errs'] / gc['errs'] - 1).max(1)
-    relp = np.abs(plain32['errs'] / gc['errs'] - 1).max(1)
-    log(f'  Hessian errors at each run\'s own optimum, max over parameters '
-        f'of |err_CUDA / err_CPU - 1| per fiber: kernels '
-        f'{np.round(rel, 4).tolist()}, plain versions '
-        f'{np.round(relp, 4).tolist()}; BAD_HESSIAN CUDA '
-        f'{gk["bad_hess"].astype(int).tolist()}, plain '
-        f'{plain32["bad_hess"].astype(int).tolist()}, CPU '
-        f'{gc["bad_hess"].astype(int).tolist()}')
-    return tm_cpu
+    return tm_cpu, stats
 
 
-# the float32 Hessian errors against float64 at one point
+# the card's Hessian errors against the CPU's at one point
 ERR_TOL = 0.02
-# the float32 chi-square against float64 at one point: the change of
+# the card's chi-square against the CPU's at one point: the change of
 # chi-square over half a standard error in one parameter
 CHI_TOL = 0.25
 
 
 def hessians_at_one_point(sub, tms, gc):
     """The chi-square and the Hessian at the CPU run's refined
-    velocities and polished parameters, on the card (float32, kernels)
-    and on the CPU: their difference is float32 arithmetic alone.  The
-    chi-squares may differ by at most CHI_TOL.  In correlation form (D
-    H D, D = |diag H_CPU|^-1/2) the Hessians' difference is E; a
+    velocities and polished parameters, on the card and on the CPU
+    (both float64: their difference is the card's summation order).
+    The chi-squares may differ by at most CHI_TOL.  In correlation form
+    (D H D, D = |diag H_CPU|^-1/2) the Hessians' difference is E; a
     fiber's BAD_HESSIAN flag may differ only where the CPU Hessian's
     smallest |eigenvalue| in that form is within 4 max|E| of 0 (Weyl: a
     perturbation E moves an eigenvalue by at most ||E||_2 <= 4 max|E|
@@ -634,7 +698,7 @@ def hessians_at_one_point(sub, tms, gc):
     def show(x):
         return ([float(f'{v:.3g}') for v in x] if len(x) <= 8
                 else f'max {np.max(x):.3g}')
-    log(f'  at one point (the CPU optimum), float32 vs float64: |dchi2| '
+    log(f'  at one point (the CPU optimum), card vs CPU: |dchi2| '
         f'{show(dchi)} (limit {CHI_TOL}); Hessians max|E| per fiber '
         f'{show(e)}; CPU min|eigenvalue| {show(lam)} (min '
         f'{lam.min():.3g}); errors max |rel diff| (limit {ERR_TOL}, good '
@@ -642,11 +706,11 @@ def hessians_at_one_point(sub, tms, gc):
         f'{int(bad["cuda"].sum())}, CPU {int(bad["cpu"].sum())}, '
         f'differing {int((bad["cuda"] != bad["cpu"]).sum())}')
     check((dchi <= CHI_TOL).all(),
-          'the card\'s chi-square at one point disagrees with float64')
+          'the card\'s chi-square at one point disagrees with the CPU')
     check(((bad['cuda'] == bad['cpu']) | may_flip).all(),
-          'a BAD_HESSIAN flag differs where float32 cannot flip it')
+          'a BAD_HESSIAN flag differs where rounding cannot flip it')
     check((rel[good] <= ERR_TOL).all(),
-          'the CUDA Hessian errors at one point disagree with float64')
+          'the card\'s Hessian errors at one point disagree with the CPU')
 
 
 # ------------------------------------------------------------------
@@ -744,20 +808,23 @@ def per_setup(x):
 @contextlib.contextmanager
 def group_fits(records):
     """Append to ``records``, for each group fit the driver runs, its
-    fibers, phases, wall time, kernel launches, arms and result."""
+    fibers, phases, wall time, kernel launches, arms, result and peak
+    device memory."""
     from rvspecfit_torch.survey import desi
     real = desi._run_group_fit
 
     def run(arms, templates, config, options, **kw):
+        import torch
         before = kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = real(arms, templates, config, options, **kw)
         wall = time.perf_counter() - t0
         after = kernel_counts()
         records.append(dict(
             nfibers=arms[0].nfibers, phases=out['phases'], wall=wall,
-            launches={k: after[k] - before[k] for k in after}, arms=arms,
-            out=out))
+            launches=diff_counts(after, before), arms=arms, out=out,
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         return out
     with mock.patch.object(desi, '_run_group_fit', run):
         yield
@@ -768,27 +835,40 @@ def read_status(path):
         return [ln.split() for ln in fp.read().strip().splitlines()]
 
 
-def run_driver(workdir, tm, bank_d):
-    """The slice's main path on the card: NFILES 500-fiber coadds
-    through the port's proc_many at coalesce 2 (two groups of 1000
-    fibers, the first cold), crash isolation off.  Checks the status
-    lines, the RVTAB schema and rows, RV recovery per file and RVMOD,
-    and that every kernel of the path was launched."""
+def driver_inputs(workdir, nfiles=None, nfib=None, seed0=100,
+                  make=None):
+    """``nfiles`` (default NFILES) coadds of ``nfib`` (NFIBERS) fibers in
+    bench.py's format (seeds seed0...), the exposures from ``make(nfib,
+    seed)`` (default simulation.make_exposure at S/N 50): (paths,
+    truths)."""
     from rvspecfit_torch import simulation
-    from rvspecfit_torch.io import fitsio
-    from rvspecfit_torch.survey import desi
+    nfiles, nfib = nfiles or NFILES, nfib or NFIBERS
+    make = make or (lambda n, seed: simulation.make_exposure(
+        n, npix_arm=NPIX_ARM, snr=50.0, seed=seed))
     t0 = time.perf_counter()
     files, truths = [], []
-    for i in range(NFILES):
-        arms_data, truth = simulation.make_exposure(
-            NFIBERS, npix_arm=NPIX_ARM, snr=50.0, seed=100 + i)
+    for i in range(nfiles):
+        arms_data, truth = make(nfib, seed0 + i)
         files.append(write_coadd(
-            os.path.join(workdir, f'coadd-bench{i}.fits'), arms_data))
+            os.path.join(workdir, f'coadd-s{seed0 + i}.fits'), arms_data))
         truths.append(truth)
-    log(f'driver inputs: {NFILES} coadds of {NFIBERS} fibers x 3 arms x '
+    log(f'driver inputs: {nfiles} coadds of {nfib} fibers x 3 arms x '
         f'{NPIX_ARM} px ({time.perf_counter() - t0:.1f} s)')
-    outdir = os.path.join(workdir, 'out')
-    status = os.path.join(workdir, 'status.txt')
+    return files, truths
+
+
+def run_driver(workdir, files, truths, tm, bank_d, tag):
+    """The slice's main path on the card: the coadds ``files`` through
+    the port's proc_many at coalesce 2 (groups of 1000 fibers, the first
+    cold), crash isolation off, launches counted from 0.  Checks the
+    status lines, the RVTAB schema and rows, RV recovery per file and
+    RVMOD; returns the launches, group records, steady and cold times
+    and recoveries."""
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import desi
+    outdir = os.path.join(workdir, f'out-{tag}')
+    status = os.path.join(workdir, f'status-{tag}.txt')
+    nfib = len(truths[0]['vel'])
     records = []
     reset_counts()
     t_start = time.time()
@@ -800,38 +880,40 @@ def run_driver(workdir, tm, bank_d):
                        throw_exceptions=True)
     wall = time.perf_counter() - t0
     counts = kernel_counts()
-    log(f'driver: {NFILES} files at coalesce {COALESCE} in {wall:.3f} s; '
-        f'kernel launches {counts}')
-    check(all(v > 0 for v in counts.values()),
-          f'a kernel of the driver path was not launched: {counts}')
+    log(f'driver {tag}: {len(files)} files at coalesce {COALESCE} in '
+        f'{wall:.3f} s; kernel launches {counts}')
 
     lines = read_status(status)
     check([ln[0] for ln in lines] == files
-          and all(ln[1:3] == ['SUCCESS', str(NFIBERS)] and len(ln) == 5
+          and all(ln[1:3] == ['SUCCESS', str(nfib)] and len(ln) == 5
                   for ln in lines),
           f'status lines: {lines}')
     stamps = [float(ln[4]) for ln in lines]
-    steady = (stamps[-1] - stamps[COALESCE - 1]) / (NFILES - COALESCE)
     cold = stamps[COALESCE - 1] - t_start
-    log(f'driver status: per-file seconds {[float(ln[3]) for ln in lines]};'
-        f' cold group {cold:.3f} s ({COALESCE} files); steady '
-        f'{steady:.3f} s/file from completion times -> '
-        f'{NFIBERS / steady:.1f} fibers/s')
-    check(len(records) == NFILES // COALESCE
-          and all(r['nfibers'] == COALESCE * NFIBERS for r in records),
+    steady = (stamps[-1] - stamps[COALESCE - 1]) / (len(files) - COALESCE) \
+        if len(files) > COALESCE else None
+    log(f'driver {tag} status: per-file seconds '
+        f'{[float(ln[3]) for ln in lines]}; cold group {cold:.3f} s '
+        f'({COALESCE} files)' + ('' if steady is None else
+                                 f'; steady {steady:.3f} s/file from '
+                                 'completion times -> '
+                                 f'{nfib / steady:.1f} fibers/s'))
+    check(len(records) == len(files) // COALESCE
+          and all(r['nfibers'] == COALESCE * nfib for r in records),
           f'group fits: {[r["nfibers"] for r in records]}')
     for g, r in enumerate(records):
         log(f'  group {g} ({r["nfibers"]} fibers): ' + ' '.join(
             f'{k}={r["phases"][k]:.3f}s' for k in PHASES)
-            + f' fit={r["wall"]:.3f}s; launches {r["launches"]}')
+            + f' fit={r["wall"]:.3f}s; peak device memory '
+            f'{r["peak_gb"]:.2f} GB; launches {r["launches"]}')
 
     desc = desi.get_column_desc([s.upper() for s in SETUPS])
     recovered = []
     for f, truth in zip(files, truths):
         tab_path, mod_path = desi.output_paths(f, outdir)
         rv = fitsio.read(tab_path)['RVTAB'].data
-        check(np.array_equal(rv['TARGETID'], np.arange(NFIBERS) + TID0),
-              f'{f}: RVTAB rows are not the {NFIBERS} targets in order')
+        check(np.array_equal(rv['TARGETID'], np.arange(nfib) + TID0),
+              f'{f}: RVTAB rows are not the {nfib} targets in order')
         for k, (dtype, _, _) in desc.items():
             check(k in OPTIONAL_COLUMNS
                   or (k in rv and rv[k].dtype == np.dtype(dtype)),
@@ -839,117 +921,65 @@ def run_driver(workdir, tm, bank_d):
         ok = np.abs(rv['VRAD'] - truth['vel']) < np.maximum(
             10.0, 5 * rv['VRAD_ERR'])
         recovered.append(int(ok.sum()))
-        check(ok.sum() >= 0.98 * NFIBERS,
-              f'{f}: RV recovery {ok.sum()}/{NFIBERS}')
+        check(ok.sum() >= 0.98 * nfib,
+              f'{f} ({tag}): RV recovery {ok.sum()}/{nfib}')
         mod = fitsio.read(mod_path)
         for s in SETUPS:
             m = mod[f'{s.upper()}_MODEL'].data
-            check(m.shape == (NFIBERS, NPIX_ARM) and m.dtype == np.float32
+            check(m.shape == (nfib, NPIX_ARM) and m.dtype == np.float32
                   and np.isfinite(m).all(), f'{f}: {s} RVMOD')
-    log(f'driver RV recovery per file (of {NFIBERS}, within max(10, 5 '
-        f'sigma)): {recovered}; RVTAB has every column of '
-        f'get_column_desc with its dtype; RVMOD ({NFIBERS}, {NPIX_ARM}) '
-        'float32 per arm')
+    log(f'driver {tag} RV recovery per file (of {nfib}, within max(10, 5 '
+        f'sigma)): {recovered}; RVTAB has every column of get_column_desc '
+        f'with its dtype; RVMOD ({nfib}, {NPIX_ARM}) float32 per arm')
     group_truth = {k: np.concatenate([t[k] for t in truths[-COALESCE:]])
                    for k in truths[0]}
     return dict(counts=counts, records=records, steady=steady, cold=cold,
                 wall=wall, recovered=recovered, truth=group_truth)
 
 
-def runs_with_witnesses(name, run, tms, witness64=None):
-    """One driver run per key of the card-vs-CPU comparison, each
-    through ``run(key, template model, device) -> output table``:
-    'cuda' (float32, kernels), 'cpu' (float64, plain versions) and
-    'witness', the card in float32 with the plain versions in place of
-    the kernels (it launches none), which tells float32 arithmetic from
-    a kernel at fault.  ``witness64``, a float64 template model on the
-    card, adds 'witness64' and 'witness64cpu', the plain versions in
-    float64 on the card (a float64 objective) from the kernel run's CCF
-    starts and from the CPU run's (which tells the starts from the
-    arithmetic), and 'cpustarts', the kernel run again from the CPU
-    run's CCF starts.  Returns {key: table}."""
-    tabs, cres = {}, {'cuda': [], 'cpu': []}
-    keys = ('cuda', 'cpu', 'witness') + (
-        ('witness64', 'witness64cpu', 'cpustarts') if witness64 else ())
-    for key in keys:
-        dev = 'cpu' if key == 'cpu' else 'cuda'
-        tm_k = witness64 if key.startswith('witness64') else tms[dev]
-        counts = kernel_counts()
+def runs_card_and_cpu(name, run, tms):
+    """One driver run on the card ('cuda') and one on the CPU ('cpu'),
+    both float64, each through ``run(key, template model, device) ->
+    output table``; returns {key: table}."""
+    tabs = {}
+    for key in ('cuda', 'cpu'):
         t0 = time.perf_counter()
-        with contextlib.ExitStack() as stack:
-            if key.startswith('witness'):
-                stack.enter_context(plain_versions())
-            if key in cres:
-                stack.enter_context(ccf_result(record=cres[key]))
-            if key.startswith('witness64') or key == 'cpustarts':
-                stack.enter_context(ccf_result(
-                    replay=cres['cuda' if key == 'witness64' else
-                                'cpu'][0]))
-            tabs[key] = run(key, tm_k, dev)
+        tabs[key] = run(key, tms[key], key)
         log(f'{name}: driver on {key} {time.perf_counter() - t0:.2f} s')
-        if key.startswith('witness'):
-            check(counts == kernel_counts(),
-                  f'the {key} run launched a kernel')
     return tabs
 
 
 def spread_against_cpu(name, tabs, vel, pars, err):
-    """Each run of ``tabs`` against the CPU's: |dv| over max(1 km/s,
-    sigma/2) and |dp| / sigma per fiber and parameter, sigma the CPU's
-    errors (columns ``vel``, each parameter of ``pars``, and each with
-    the suffix ``err``), logged for the card's run and every witness.
-    Returns (dv, dp) of the card's run and the dict of NM end-point
-    numbers (max |dp|/sigma and fibers over 0.5 for each run)."""
-    c = tabs['cpu']
+    """The card's run against the CPU's: |dv| over max(1 km/s, sigma/2)
+    and |dp| / sigma per fiber and parameter, sigma the CPU's errors
+    (columns ``vel``, each parameter of ``pars``, and each with the
+    suffix ``err``).  Returns (dv, dp, numbers: max |dv| in km/s and
+    over the limit, max |dp|/sigma, fibers over 0.5)."""
+    c, g = tabs['cpu'], tabs['cuda']
     lim = np.maximum(1.0, 0.5 * c[vel + err])
-
-    def spread(t):
-        dv = np.abs(t[vel] - c[vel]) / lim
-        dp = np.stack([np.abs(t[p] - c[p]) / c[p + err] for p in pars], 1)
-        return dv, dp
-    (dv, dp), (wdv, wdp) = spread(tabs['cuda']), spread(tabs['witness'])
+    dvk = np.abs(g[vel] - c[vel])
+    dv = dvk / lim
+    dp = np.stack([np.abs(g[p] - c[p]) / c[p + err] for p in pars], 1)
     good = np.isfinite(dp).all(1)
-    over = (dp > 0.5).any(1)
-    log(f'{name}: {len(c[vel])} fibers, card float32 vs CPU float64: max '
-        f'|dv|/limit {dv.max():.4f} (limit max(1 km/s, sigma/2)); max '
-        f'|dp|/sigma {np.nanmax(dp):.4f}, over 0.5 for {int(over.sum())} '
-        f'fibers ({int(good.sum())} with finite CPU errors); witness '
-        f'(float32, plain versions): max |dv|/limit {wdv.max():.4f}, max '
-        f'|dp|/sigma {np.nanmax(wdp):.4f}, over 0.5 for '
-        f'{int((wdp > 0.5).any(1).sum())}')
-    nm_check = dict(max_dp=float(np.nanmax(dp)), over=int(over.sum()),
-                    witness32_max_dp=float(np.nanmax(wdp)),
-                    witness32_over=int((wdp > 0.5).any(1).sum()))
-    for key, what in (
-            ('witness64', 'a float64 objective (plain versions in float64 '
-             'on the card) from the kernel run\'s CCF starts'),
-            ('witness64cpu', 'a float64 objective from the CPU run\'s CCF '
-             'starts'),
-            ('cpustarts', 'the kernels (float32) from the CPU run\'s CCF '
-             'starts')):
-        if key not in tabs:
-            continue
-        w64dv, w64dp = spread(tabs[key])
-        nm_check[key + '_max_dp'] = float(np.nanmax(w64dp))
-        nm_check[key + '_over'] = int((w64dp > 0.5).any(1).sum())
-        log(f'{name}: {what}: max |dv|/limit {w64dv.max():.4f}, max '
-            f'|dp|/sigma {np.nanmax(w64dp):.4f}, over 0.5 for '
-            f'{int((w64dp > 0.5).any(1).sum())} fibers; at the '
-            f'{int(over.sum())} fibers the kernel run left over 0.5: '
-            f'{np.round(np.nanmax(w64dp[over], 1), 4).tolist()}')
-    return dv, dp, nm_check
+    stats = dict(max_dv_kms=float(dvk.max()), max_dv_lim=float(dv.max()),
+                 max_dp=float(np.nanmax(dp)),
+                 over=int((dp > 0.5).any(1).sum()))
+    log(f'{name}: {len(c[vel])} fibers, card float64 vs CPU float64: max '
+        f'|dv| {dvk.max():.6f} km/s, {dv.max():.6f} of max(1 km/s, '
+        f'sigma/2); max |dp|/sigma {np.nanmax(dp):.6f}, over 0.5 for '
+        f'{stats["over"]} fibers ({int(good.sum())} with finite CPU '
+        'errors)')
+    return dv, dp, stats
 
 
 def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
-                       config=CONFIG, check_params=True, witness64=None):
-    """One coadd through proc_many on the card (float32, kernels) and on
-    the CPU (float64, plain versions), with the witnesses of
-    runs_with_witnesses: same columns, TARGETID and SUCCESS; RVS_WARN
-    equal but for BAD_HESSIAN, whose flips are held to the one-point
-    test (hessians_at_one_point, which also holds the chi-square at the
-    CPU optimum); |dv| <= max(1 km/s, sigma/2), sigma the CPU's errors.
-    With ``check_params``, the parameters within sigma/2 of the CPU's
-    too; else logged only."""
+                       config=CONFIG):
+    """One coadd through proc_many on the card and on the CPU (both
+    float64): same columns, TARGETID and SUCCESS; RVS_WARN equal but
+    for BAD_HESSIAN, whose flips are held to the one-point test
+    (hessians_at_one_point, which also holds the chi-square at the CPU
+    optimum); velocities within max(1 km/s, sigma/2) and parameters
+    within sigma/2, sigma the CPU's errors (ROADMAP C.1)."""
     from rvspecfit_torch.io import fitsio
     from rvspecfit_torch.survey import desi
     path = write_coadd(os.path.join(workdir, f'coadd-{name}.fits'),
@@ -968,7 +998,7 @@ def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
         recs[key] = records[0]
         return fitsio.read(desi.output_paths(path, outdir)[0])[
             'RVTAB'].data
-    tabs = runs_with_witnesses(name, run, tms, witness64)
+    tabs = runs_card_and_cpu(name, run, tms)
     g, c = tabs['cuda'], tabs['cpu']
     bh = desi.bitmasks['BAD_HESSIAN']
     check(list(g) == list(c), f'{name}: RVTAB columns differ')
@@ -978,18 +1008,17 @@ def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
           f'{name}: SUCCESS differs')
     check(np.array_equal(g['RVS_WARN'] & ~bh, c['RVS_WARN'] & ~bh),
           f'{name}: RVS_WARN differs beyond BAD_HESSIAN')
-    dv, dp, nm_check = spread_against_cpu(
+    dv, dp, stats = spread_against_cpu(
         name, tabs, 'VRAD', ('TEFF', 'LOGG', 'FEH', 'ALPHAFE'), '_ERR')
     flips = int(((g['RVS_WARN'] ^ c['RVS_WARN']) & bh).astype(bool).sum())
     log(f'{name}: BAD_HESSIAN flips at own optima {flips}; SUCCESS '
         f'{int(g["SUCCESS"].sum())}/{len(g["SUCCESS"])} on both')
     check((dv <= 1).all(), f'{name}: card velocities disagree with CPU')
-    if check_params:
-        good = np.isfinite(dp).all(1)
-        check((dp[good] <= 0.5).all(),
-              f'{name}: card parameters disagree with CPU')
+    good = np.isfinite(dp).all(1)
+    check((dp[good] <= 0.5).all(),
+          f'{name}: card parameters disagree with CPU (ROADMAP C.1)')
     hessians_at_one_point(recs['cpu']['arms'], tms, recs['cpu']['out'])
-    return nm_check
+    return stats
 
 
 # ------------------------------------------------------------------
@@ -1054,7 +1083,7 @@ def process_stages(record):
 
 def single_at_one_point(sds, templates, res_cpu, resol=None):
     """The chi-square and the Hessian errors of one object at the CPU
-    run's optimum, on the card (float32, kernels) and on the CPU: |dchi2|
+    run's optimum, on the card and on the CPU (both float64): |dchi2|
     and max |rel diff| of the errors, and each side's BAD_HESSIAN."""
     from rvspecfit_torch.fit.likelihood import FusedChisq
     from rvspecfit_torch.fit.vel_fit import uncertainties_from_hessian
@@ -1072,23 +1101,56 @@ def single_at_one_point(sds, templates, res_cpu, resol=None):
     return abs(chi['cuda'] - chi['cpu']), rel, bad['cuda'], bad['cpu']
 
 
+def fit_objects(objs, templates, banks):
+    """ccf.fit -> vel_fit.process on each object: per call the result,
+    the CCF result, seconds, stages and launches."""
+    from rvspecfit_torch.fit import ccf, vel_fit
+    calls = []
+    for sds in objs:
+        rec = {}
+        c0 = kernel_counts()
+        t0 = time.perf_counter()
+        g = ccf.fit(sds, CONFIG, banks=banks)
+        t1 = time.perf_counter()
+        c1 = kernel_counts()
+        with process_stages(rec):
+            r = vel_fit.process(sds, g['best_par'], config=CONFIG,
+                                options=OPTIONS, templates=templates)
+        t2 = time.perf_counter()
+        c2 = kernel_counts()
+        calls.append(dict(
+            res=r, ccf=g, ccf_s=t1 - t0, process_s=t2 - t1,
+            stages={k: float(np.sum(v)) for k, v in rec.items()},
+            ccf_launches=diff_counts(c1, c0),
+            process_launches=diff_counts(c2, c1)))
+    return calls
+
+
+# ccf.fit's velocity on the card against the CPU float64 run's (km/s,
+# ROADMAP C.2)
+CCF_VEL_TOL = 0.01
+
+
 def run_single_object(models, banks):
     """The single-object path on the card: ccf.fit -> vel_fit.process on
     each of NOBJ objects, firstguess on NFIRSTGUESS of them and one
     process with a Gaussian resolution matrix per arm (resolParams); its
-    kernel launches counted from 0.  Then the CPU float64 run of the same
-    calls.  Checks RV recovery, every kernel launched, and the card
-    against the CPU (velocities within max(1 km/s, sigma/2); chi-square
-    within CHI_TOL and Hessian errors within ERR_TOL at the CPU optimum;
-    parameters logged, see ROADMAP C.1)."""
+    kernel launches counted from 0.  Then the CPU float64 run of the
+    same calls, and ccf.fit -> process in float32 on the card (its time
+    and ccf.fit's velocities, logged).  Checks RV recovery, every kernel
+    launched, and the card against the CPU: ccf.fit's template and
+    velocity within CCF_VEL_TOL, velocities within max(1 km/s,
+    sigma/2), parameters within sigma/2, and the chi-square and Hessian
+    errors at the CPU optimum within CHI_TOL and ERR_TOL."""
     import torch
-    from rvspecfit_torch.fit import ccf, vel_fit
+    from rvspecfit_torch.fit import vel_fit
     from rvspecfit_torch.fit.spec_data import SpecData
     from rvspecfit_torch.ops.resolution import gaussian_resolution_matrix
     objs, truth = single_objects()
     names = [sd.name for sd in objs[0]]
-    tms = {k: {n: models[k] for n in names} for k in ('cuda', 'cpu')}
-    bks = {k: {n: banks[k] for n in names} for k in ('cuda', 'cpu')}
+    keys = ('cuda', 'cpu', 'cuda32')
+    tms = {k: {n: models[k] for n in names} for k in keys}
+    bks = {k: {n: banks[k] for n in names} for k in keys}
     res_objs, res_truth = resolution_exposure(1, seed=12)[::2]
     res_sds = [SpecData(n, lam, fl[0], 1.0 / np.sqrt(iv[0]))
                for n, (lam, fl, iv) in res_objs.items()]
@@ -1100,31 +1162,15 @@ def run_single_object(models, banks):
 
     out = {}
     for key in ('cuda', 'cpu'):
-        calls, guesses = [], []
+        guesses = []
         if key == 'cuda':
             reset_counts()
             torch.cuda.synchronize()
         t_phase = time.perf_counter()
-        for sds in objs:
-            rec = {}
-            c0 = kernel_counts()
-            t0 = time.perf_counter()
-            g = ccf.fit(sds, CONFIG, banks=bks[key])
-            t1 = time.perf_counter()
-            c1 = kernel_counts()
-            with process_stages(rec):
-                r = vel_fit.process(sds, g['best_par'], config=CONFIG,
-                                    options=OPTIONS, templates=tms[key])
-            t2 = time.perf_counter()
-            c2 = kernel_counts()
-            calls.append(dict(
-                res=r, ccf=g, ccf_s=t1 - t0, process_s=t2 - t1,
-                stages={k: float(np.sum(v)) for k, v in rec.items()},
-                ccf_launches={k: c1[k] - c0[k] for k in c0},
-                process_launches={k: c2[k] - c1[k] for k in c0}))
+        calls = fit_objects(objs, tms[key], bks[key])
         t_fit = time.perf_counter()
-        # the CPU's float64 firstguess takes ~20 s an object: one is
-        # enough to compare with
+        # the CPU's firstguess takes ~20 s an object: one is enough to
+        # compare with
         for sds in objs[:NFIRSTGUESS if key == 'cuda' else 1]:
             guesses.append(vel_fit.firstguess(sds, config=CONFIG,
                                               options=OPTIONS,
@@ -1146,47 +1192,55 @@ def run_single_object(models, banks):
 
     counts = out['counts']
     log(f'single-object phase kernel launches: {counts}')
-    check(all(v > 0 for v in counts.values()),
-          f'a kernel of the single-object path was not launched: {counts}')
+    check_launches('single-object path', counts)
+    reset_counts()
+    t0 = time.perf_counter()
+    calls32 = fit_objects(objs, tms['cuda32'], bks['cuda32'])
+    out['cuda32'] = dict(calls=calls32, seconds=dict(
+        fit=time.perf_counter() - t0))
+    out['counts32'] = kernel_counts()
+    log(f'single-object ccf.fit -> process in float32: '
+        f'{out["cuda32"]["seconds"]["fit"]:.3f} s for {NOBJ} objects; '
+        f'launches {out["counts32"]}')
+    check_launches('single-object path in float32', out['counts32'],
+                   form='float32')
     card, cpu = out['cuda'], out['cpu']
-    # a witness of ccf.fit: the plain version of kernel B on the card
-    # (float32) tells float32 arithmetic from the kernel's own error
-    counts0 = kernel_counts()
-    with plain_versions():
-        plain = [ccf.fit(sds, CONFIG, banks=bks['cuda']) for sds in objs]
-    check(counts0 == kernel_counts(), 'the plain ccf.fit launched a kernel')
-    fits = {'kernel': [c['ccf'] for c in card['calls']], 'plain': plain,
-            'cpu': [c['ccf'] for c in cpu['calls']]}
+    fits = {k: [c['ccf'] for c in out[k]['calls']]
+            for k in ('cuda', 'cpu', 'cuda32')}
     vel = {k: np.array([r['best_vel'] for r in v]) for k, v in fits.items()}
     same = {k: sum(r['best_par'] == q['best_par']
                    for r, q in zip(fits[k], fits['cpu']))
-            for k in ('kernel', 'plain')}
-    dvel = lambda a, b: np.abs(vel[a] - vel[b]).max()
-    dcurve = lambda a, b: max(np.abs(x['best_ccf'] - y['best_ccf']).max()
-                              for x, y in zip(fits[a], fits[b]))
-    rise = [np.partition(r['best_ccf'] - r['best_ccf'].min(), 2)[1:3]
-            for r in fits['cpu']]
-    log(f'single-object ccf.fit best_vel, max over objects: |kernel B - '
-        f'CPU| {dvel("kernel", "cpu"):.4f} km/s, |plain float32 - CPU| '
-        f'{dvel("plain", "cpu"):.4f}, |kernel B - plain float32| '
-        f'{dvel("kernel", "plain"):.4f}; same template as the CPU: kernel '
-        f'B {same["kernel"]}/{NOBJ}, plain float32 {same["plain"]}/{NOBJ}; '
-        f'best curves max|kernel B - plain float32| '
-        f'{dcurve("kernel", "plain"):.4g}, max|plain float32 - CPU| '
-        f'{dcurve("plain", "cpu"):.4g}; the CPU curves\' two next-lowest '
-        f'points lie {np.min(rise):.4g}..{np.max(rise):.4g} above their '
-        f'minimum')
-    for i, (c, p) in enumerate(zip(card['calls'], cpu['calls'])):
+            for k in ('cuda', 'cuda32')}
+    dccf = {k: float(np.abs(vel[k] - vel['cpu']).max())
+            for k in ('cuda', 'cuda32')}
+    dcurve = {k: max(np.abs(x['best_ccf'] - y['best_ccf']).max()
+                     for x, y in zip(fits[k], fits['cpu']))
+              for k in ('cuda', 'cuda32')}
+    log(f'single-object ccf.fit best_vel, max over objects |card - CPU|: '
+        f'float64 {dccf["cuda"]:.6f} km/s (limit {CCF_VEL_TOL}), float32 '
+        f'{dccf["cuda32"]:.4f} km/s; same template as the CPU: float64 '
+        f'{same["cuda"]}/{NOBJ}, float32 {same["cuda32"]}/{NOBJ}; best '
+        f'curves max|card - CPU| float64 {dcurve["cuda"]:.4g}, float32 '
+        f'{dcurve["cuda32"]:.4g}')
+    for i, (c, p, c32) in enumerate(zip(card['calls'], cpu['calls'],
+                                        calls32)):
         r = c['res']
         log(f'  object {i}: ccf.fit {c["ccf_s"]:.3f} s, process '
             f'{c["process_s"]:.3f} s (' + ' '.join(
                 f'{k}={v:.3f}s' for k, v in c['stages'].items()
                 if k != 'bfgs_calls')
             + '; BFGS objective+gradient calls '
-            f'{c["stages"].get("bfgs_calls", 0):.0f}); launches ccf.fit {c["ccf_launches"]}, process '
-            f'{c["process_launches"]}; vel {r["vel"]:.3f} +- '
+            f'{c["stages"].get("bfgs_calls", 0):.0f}); launches ccf.fit '
+            f'{c["ccf_launches"]["float64"]}, process '
+            f'{c["process_launches"]["float64"]}; vel {r["vel"]:.3f} +- '
             f'{r["vel_err"]:.3f} (truth {truth["vel"][i]:.3f}, CPU '
-            f'{p["res"]["vel"]:.3f}); CPU process {p["process_s"]:.3f} s')
+            f'{p["res"]["vel"]:.3f}); CPU process {p["process_s"]:.3f} s; '
+            f'float32 ccf.fit {c32["ccf_s"]:.3f} s, process '
+            f'{c32["process_s"]:.3f} s')
+    check(same['cuda'] == NOBJ, 'ccf.fit on the card picks other templates '
+          'than the CPU (ROADMAP C.2)')
+    check(dccf['cuda'] <= CCF_VEL_TOL, 'ccf.fit velocities on the card '
+          'disagree with the CPU (ROADMAP C.2)')
     rv = np.array([c['res']['vel'] for c in card['calls']])
     sig = np.array([c['res']['vel_err'] for c in card['calls']])
     ok = np.abs(rv - truth['vel']) < np.maximum(10.0, 5 * sig)
@@ -1195,8 +1249,9 @@ def run_single_object(models, banks):
     sc = np.array([p['res']['vel_err'] for p in cpu['calls']])
     dv = np.abs(rv - vc) / np.maximum(1.0, 0.5 * sc)
     dchi, rel, flips = [], [], 0
+    tms64 = {k: tms[k] for k in ('cuda', 'cpu')}
     for sds, p in zip(objs, cpu['calls']):
-        d, e, bc, bp = single_at_one_point(sds, tms, p['res'])
+        d, e, bc, bp = single_at_one_point(sds, tms64, p['res'])
         dchi.append(d)
         rel.append(e if not (bc or bp) else 0.0)
         flips += int(bc != bp)
@@ -1205,34 +1260,50 @@ def run_single_object(models, banks):
     rel.append(e if not (bc or bp) else 0.0)
     flips += int(bc != bp)
     names4 = list(card['calls'][0]['res']['param'])
-    dp = np.array([[abs(c['res']['param'][k] - p['res']['param'][k])
-                    / p['res']['param_err'][k] for k in names4]
-                   for c, p in zip(card['calls'] + [dict(res=card['res'])],
-                                   cpu['calls'] + [dict(res=cpu['res'])])])
+
+    def spread(runs, refs):
+        return np.array([[abs(c['res']['param'][k] - p['res']['param'][k])
+                          / p['res']['param_err'][k] for k in names4]
+                         for c, p in zip(runs, refs)])
+    dp = spread(card['calls'] + [dict(res=card['res'])],
+                cpu['calls'] + [dict(res=cpu['res'])])
+    dp32 = spread(calls32, cpu['calls'])
+    vel32 = np.array([c['res']['vel'] for c in calls32])
     r_res = card['res']
     dv_res = abs(r_res['vel'] - cpu['res']['vel']) / max(
         1.0, 0.5 * cpu['res']['vel_err'])
+    dvk = max(np.abs(rv - vc).max(), abs(r_res['vel'] - cpu['res']['vel']))
     log(f'single-object: RV recovery {int(ok.sum())}/{NOBJ} within max(10, '
-        f'5 sigma); card vs CPU float64: max |dv|/limit '
-        f'{max(dv.max(), dv_res):.4f} (limit max(1 km/s, sigma/2)); at the '
+        f'5 sigma); card float64 vs CPU float64: max |dv| {dvk:.6f} km/s, '
+        f'{max(dv.max(), dv_res):.6f} of max(1 km/s, sigma/2); parameters '
+        f'max |dp|/sigma {np.nanmax(dp):.6f}, over 0.5 for '
+        f'{int((dp > 0.5).any(1).sum())} of {len(dp)} (limit 0.5); at the '
         f'CPU optimum |dchi2| max {max(dchi):.4g} (limit {CHI_TOL}), errors '
         f'max |rel diff| {max(rel):.4g} (limit {ERR_TOL}, good Hessians), '
-        f'BAD_HESSIAN differing {flips} (logged); parameters at each run\'s own optimum max '
-        f'|dp|/sigma {np.nanmax(dp):.4f}, over 0.5 for '
-        f'{int((dp > 0.5).any(1).sum())} of {len(dp)} (logged: ROADMAP C.1)')
+        f'BAD_HESSIAN differing {flips}; float32 (logged): max |dv| '
+        f'{np.abs(vel32 - vc).max():.4f} km/s, max |dp|/sigma '
+        f'{np.nanmax(dp32):.4f}, over 0.5 for '
+        f'{int((dp32 > 0.5).any(1).sum())} of {len(dp32)}')
     log(f'  resolution-matrix object: vel {r_res["vel"]:.3f} +- '
         f'{r_res["vel_err"]:.3f} (truth {res_truth["vel"][0]:.3f}, CPU '
         f'{cpu["res"]["vel"]:.3f}); firstguess card '
         f'{card["guesses"]}, CPU {cpu["guesses"]}')
     check((dv <= 1).all() and dv_res <= 1,
           'single-object velocities on the card disagree with the CPU')
+    check(np.nanmax(dp) <= 0.5, 'single-object parameters on the card '
+          'disagree with the CPU (ROADMAP C.1)')
     check(abs(r_res['vel'] - res_truth['vel'][0]) < max(
         10.0, 5 * r_res['vel_err']), 'resolution-matrix object: RV')
     check(max(dchi) <= CHI_TOL, 'single-object chi-square at the CPU '
-          'optimum disagrees with float64')
+          'optimum disagrees with the CPU')
     check(max(rel) <= ERR_TOL, 'single-object Hessian errors at the CPU '
-          'optimum disagree with float64')
-    out['max_dp'] = float(np.nanmax(dp))
+          'optimum disagree with the CPU')
+    out['stats'] = dict(max_dp=float(np.nanmax(dp)), max_dv_kms=float(dvk),
+                        ccf_max_dv_kms=dccf['cuda'],
+                        ccf_same_template=int(same['cuda']),
+                        ccf32_max_dv_kms=dccf['cuda32'],
+                        ccf32_same_template=int(same['cuda32']),
+                        float32_max_dp=float(np.nanmax(dp32)))
     for gs in card['guesses']:
         check(set(gs) >= set(names4), f'firstguess gave {gs}')
     return out
@@ -1240,12 +1311,14 @@ def run_single_object(models, banks):
 
 def kernel_b_single(sd, bank):
     """Kernel B at one fiber row, as ccf.fit launches it on the
-    SpecData ``sd`` (prepare_arm_batch at B = 1)."""
+    SpecData ``sd`` (prepare_arm_batch at B = 1), in both forms."""
     from rvspecfit_torch.fit.batch import BatchArm
     args, cont = kernel_b_args([BatchArm(sd.name, sd.lam, sd.spec[None],
                                          sd.espec[None]**-2.0)], bank)
-    return kernel_b_case(args, cont, 'kernel B at B = 1 (ccf.fit)',
-                         graph=True)
+    return {form: kernel_b_case(as_form(args, form), cont,
+                                f'kernel B at B = 1 (ccf.fit) {form}', form,
+                                graph=True)
+            for form in FORMS}
 
 
 # ------------------------------------------------------------------
@@ -1299,13 +1372,12 @@ def weave_columns(parnames, setups):
     return cols
 
 
-def run_weave(workdir, models, banks, witness64):
+def run_weave(workdir, models, banks):
     """survey/weave.proc_many over a WEAVE_NFIB-fiber pair on the card,
     launches counted from 0: the status line, the WEAVE_RV columns, RV
-    recovery; then an 8-fiber pair on the card against the CPU with the
-    witnesses of runs_with_witnesses (``witness64`` the float64 template
-    model on the card): velocities within max(1 km/s, sigma/2),
-    parameters logged."""
+    recovery; the same pair in float32 (its time); then an 8-fiber pair
+    on the card against the CPU, both float64: velocities within
+    max(1 km/s, sigma/2) and parameters within sigma/2 (ROADMAP C.1)."""
     import torch
     from rvspecfit_torch.io import fitsio
     from rvspecfit_torch.survey import weave
@@ -1315,35 +1387,38 @@ def run_weave(workdir, models, banks, witness64):
                                    for s in WEAVE_LAYOUT},
                         banks={f'weave_{s}': banks[k]
                                for s in WEAVE_LAYOUT})
-    outdir = os.path.join(workdir, 'weave-out')
-    status = os.path.join(workdir, 'weave-status.txt')
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    weave.proc_many([grp], outdir, CONFIG, status_fname=status, **kw('cuda'))
-    wall = time.perf_counter() - t0
-    counts = kernel_counts()
-    log(f'WEAVE: {WEAVE_NFIB} fibers x 2 arms x {NPIX_ARM} px in '
-        f'{wall:.3f} s -> {WEAVE_NFIB / wall:.1f} fibers/s; kernel '
-        f'launches {counts}')
-    check(all(v > 0 for v in counts.values()),
-          f'a kernel of the WEAVE path was not launched: {counts}')
-    ofname = weave.output_path(grp, outdir)
-    lines = read_status(status)
-    check(len(lines) == 1 and lines[0][:3] == [ofname, 'SUCCESS',
-                                              str(WEAVE_NFIB)],
-          f'WEAVE status lines: {lines}')
-    tab = fitsio.read(ofname)['WEAVE_RV'].data
     parnames = models['cuda'].parnames
-    check(list(tab) == weave_columns(parnames, sorted(WEAVE_LAYOUT)),
-          f'WEAVE_RV columns {list(tab)}')
-    ok = np.abs(tab['vrad'] - truth['vel']) < np.maximum(
-        10.0, 5 * tab['vrad_err'])
-    log(f'WEAVE RV recovery {int(ok.sum())}/{WEAVE_NFIB} within max(10, 5 '
-        f'sigma); WEAVE_RV has the reference\'s {len(tab)} columns; status '
-        f'{lines[0][:4]}')
-    check(ok.sum() >= 0.98 * WEAVE_NFIB,
-          f'WEAVE RV recovery {ok.sum()}/{WEAVE_NFIB}')
+    res = {}
+    for key, form in (('cuda', 'float64'), ('cuda32', 'float32')):
+        outdir = os.path.join(workdir, f'weave-out-{form}')
+        status = os.path.join(workdir, f'weave-status-{form}.txt')
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        weave.proc_many([grp], outdir, CONFIG, status_fname=status,
+                        **kw(key))
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        log(f'WEAVE {form}: {WEAVE_NFIB} fibers x 2 arms x {NPIX_ARM} px in '
+            f'{wall:.3f} s -> {WEAVE_NFIB / wall:.1f} fibers/s; kernel '
+            f'launches {counts}')
+        check_launches(f'WEAVE path ({form})', counts, form=form)
+        ofname = weave.output_path(grp, outdir)
+        lines = read_status(status)
+        check(len(lines) == 1 and lines[0][:3] == [ofname, 'SUCCESS',
+                                                  str(WEAVE_NFIB)],
+              f'WEAVE status lines: {lines}')
+        tab = fitsio.read(ofname)['WEAVE_RV'].data
+        check(list(tab) == weave_columns(parnames, sorted(WEAVE_LAYOUT)),
+              f'WEAVE_RV columns {list(tab)}')
+        ok = np.abs(tab['vrad'] - truth['vel']) < np.maximum(
+            10.0, 5 * tab['vrad_err'])
+        log(f'WEAVE {form} RV recovery {int(ok.sum())}/{WEAVE_NFIB} within '
+            f'max(10, 5 sigma); WEAVE_RV has the reference\'s {len(tab)} '
+            f'columns; status {lines[0][:4]}')
+        check(ok.sum() >= 0.98 * WEAVE_NFIB,
+              f'WEAVE ({form}) RV recovery {ok.sum()}/{WEAVE_NFIB}')
+        res[form] = dict(counts=counts, wall=wall, recovered=int(ok.sum()))
 
     grp8, _ = write_weave_pair(workdir, 8, seed=41)
 
@@ -1353,24 +1428,23 @@ def run_weave(workdir, models, banks, witness64):
                                        for s in WEAVE_LAYOUT})
         weave.proc_many([grp8], out8, CONFIG, device=dev, **kw8)
         return fitsio.read(weave.output_path(grp8, out8))['WEAVE_RV'].data
-    tabs = runs_with_witnesses('WEAVE 8-fiber pair', run8, models,
-                               witness64)
+    tabs = runs_card_and_cpu('WEAVE 8-fiber pair', run8, models)
     g, c = tabs['cuda'], tabs['cpu']
     check(list(g) == list(c) and np.array_equal(g['target_id'],
                                                 c['target_id']),
           'WEAVE 8-fiber pair: columns or targets differ')
-    dv, dp, nm_check = spread_against_cpu('WEAVE 8-fiber pair', tabs,
-                                          'vrad', parnames, '_err')
-    for key, t in tabs.items():
-        dpk = np.stack([np.abs(t[p] - c[p]) / c[p + '_err']
-                        for p in parnames], 1)
-        log(f'WEAVE 8-fiber pair, {key}: per fiber max |dp|/sigma_CPU '
-            f'{np.round(np.nanmax(dpk, 1), 4).tolist()}, vsini '
-            f'{np.round(t["vsini"], 3).tolist()} km/s')
-    log('WEAVE 8-fiber pair: parameters logged, not checked (PERF.md)')
+    dv, dp, stats = spread_against_cpu('WEAVE 8-fiber pair', tabs, 'vrad',
+                                       parnames, '_err')
+    log(f'WEAVE 8-fiber pair: per fiber max |dp|/sigma_CPU '
+        f'{np.round(np.nanmax(dp, 1), 6).tolist()}, vsini card '
+        f'{np.round(g["vsini"], 3).tolist()}, CPU '
+        f'{np.round(c["vsini"], 3).tolist()} km/s')
     check((dv <= 1).all(), 'WEAVE velocities on the card disagree with CPU')
-    return dict(counts=counts, wall=wall, recovered=int(ok.sum()),
-                nm_check=nm_check)
+    good = np.isfinite(dp).all(1)
+    check((dp[good] <= 0.5).all(), 'WEAVE parameters on the card disagree '
+          'with CPU (ROADMAP C.1)')
+    res['stats'] = stats
+    return res
 
 
 def run_bruteforce(workdir, tm, bank_d):
@@ -1397,9 +1471,7 @@ def run_bruteforce(workdir, tm, bank_d):
     counts = kernel_counts()
     log(f'DESI --param_init bruteforce: 8 fibers in {wall:.3f} s; kernel '
         f'launches {counts}')
-    check(counts['ccf_chisq'] == 0 and all(
-        v > 0 for k, v in counts.items() if k != 'ccf_chisq'),
-        f'bruteforce path launches: {counts}')
+    check_launches('bruteforce path', counts, unused=('ccf_chisq',))
     rv = fitsio.read(desi.output_paths(path, outdir)[0])['RVTAB'].data
     desc = desi.get_column_desc([s.upper() for s in SETUPS])
     want = [k for k in desc if k not in OPTIONAL_COLUMNS
@@ -1415,148 +1487,95 @@ def run_bruteforce(workdir, tm, bank_d):
     return dict(counts=counts, wall=wall)
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print('chip_smoke: torch.cuda.is_available() is false; this '
-              'script runs only on a CUDA card', file=sys.stderr)
-        return 2
-    try:
-        from rvspecfit_torch import convert
-    except ImportError as exc:
-        print(f'chip_smoke: rvspecfit_torch is not importable ({exc}); '
-              'run from the root of a checkout', file=sys.stderr)
-        return 2
-    device = torch.device('cuda', 0)
-    smi = environment()
-    build_kernels()
-    tm, arms, truth, bank = make_workload(device)
-    banks = {a.name: convert.ccf_bank(*bank, device=device) for a in arms}
-    res_a = check_kernel_a(tm, arms, truth, device)
-    res_adj = check_adjoint(tm, arms, truth, device)
-    bank_nocont = make_nocont_bank(device)
-    res_b = check_kernel_b(arms, {'continuum': banks[arms[0].name],
-                                  'no-continuum': bank_nocont}, device)
+# ------------------------------------------------------------------
+# an NN template library: 2 coadds through survey/desi.proc_many
 
+NN_NFILES = 2
+
+
+def run_nn(workdir, device):
+    """The NN slice on the card: an NN library (the reference trainer's
+    default widths, made by simulation.nn_template_artifacts, through
+    pipeline/library.template_model_from_artifacts), NN_NFILES coadds of
+    NFIBERS spectra drawn from the model itself at known parameters and
+    velocities (simulation.model_exposure, on the CPU), and a CCF bank
+    of the model at the grid's nodes (simulation.model_ccf_bank), through
+    proc_many at coalesce 2 (one group of 1000 fibers), launches counted
+    from 0 (run_driver: status lines, schema, RV recovery >= 98% per
+    file, RVMOD)."""
+    from rvspecfit_torch import convert, simulation
+    from rvspecfit_torch.pipeline.library import \
+        template_model_from_artifacts
     t0 = time.perf_counter()
-    run_group_fit(tm, arms, banks)
-    log(f'group fit cold pass: {time.perf_counter() - t0:.2f} s')
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = run_group_fit(tm, arms, banks)
-    wall = time.perf_counter() - t0
-    counts = kernel_counts()
-    log('group fit warm pass: ' + ' '.join(
-        f'{k}={out["phases"][k]:.3f}s' for k in PHASES)
-        + f' total={wall:.3f}s -> {NFIBERS / wall:.1f} fibers/s')
-    log(f'NM: {int(out["nm"]["converged"].sum())}/{NFIBERS} converged, '
-        f'{out["nm"]["obj_evals"]} objective trials; polish moved '
-        f'{int((out["fun"] < out["nm"]["fun"]).sum())}/{NFIBERS}; '
-        f'refinement passes {int(out["ref"]["iterations"][0])}; '
-        f'BAD_HESSIAN {int(out["bad_hess"].sum())}/{NFIBERS}')
-    log(f'kernel launches in the warm pass: {counts}')
-    check(all(v > 0 for v in counts.values()),
-          f'a kernel of the path was not launched: {counts}')
-    check_outputs(out, NFIBERS, NPIX_ARM)
+    fd, payload = simulation.nn_template_artifacts(6, 6, 6, 4, npix=4096,
+                                                   lam0=4550.0, lam1=5450.0)
+    tm_cpu = template_model_from_artifacts(fd, payload, device='cpu')
+    tm = template_model_from_artifacts(fd, payload, device=device)
+    bank = simulation.model_ccf_bank(tm_cpu, every=8, device='cpu')
+    log(f'NN library: {tm.state.ndim} -> '
+        f'{[lin.out_features for lin in tm.state.layers]} -> '
+        f'{tm.state.npix} px, {tm.state.nonlinearity}, '
+        f'{tm.state.mean.dtype} on {tm.state.mean.device}; CCF bank '
+        f'{bank[0].shape[0]} x {bank[0].shape[1]} '
+        f'({time.perf_counter() - t0:.1f} s)')
+    check(tm.kind == 'nn', f'the NN library gave a {tm.kind} model')
+    files, truths = driver_inputs(
+        workdir, nfiles=NN_NFILES, seed0=200,
+        make=lambda n, seed: simulation.model_exposure(
+            tm_cpu, n, npix_arm=NPIX_ARM, snr=50.0, seed=seed))
+    nn_run = run_driver(workdir, files, truths, tm,
+                        convert.ccf_bank(*bank, device=device), 'nn')
+    check_launches('NN path', nn_run['counts'])
+    return nn_run
 
-    dv = out['ref']['best_vel'] - truth['vel']
-    ok = np.abs(dv) < np.maximum(10.0, 5 * out['ref']['vel_err'])
-    log(f'RV recovery: {int(ok.sum())}/{NFIBERS} within max(10, 5 sigma); '
-        f'median |dv| {np.median(np.abs(dv)):.3f} km/s, median sigma_v '
-        f'{np.median(out["ref"]["vel_err"]):.3f} km/s')
-    check(ok.sum() >= 490, 'RV recovery below 490/500')
 
-    tm_cpu = check_against_cpu(arms, bank, device, tm)
-    del out
+def launches_of(counts, name):
+    """A kernels-line entry's launches in one form's counts (kernel A's:
+    both modes)."""
+    if name == 'spline_eval':
+        return counts['spline_eval_per_row'] + counts['spline_eval_shared']
+    return counts[name]
 
-    from rvspecfit_torch import simulation
-    cpu = torch.device('cpu')
-    bank_d = banks[arms[0].name]
-    bank_cpu = convert.ccf_bank(*bank, device=cpu)
-    with tempfile.TemporaryDirectory() as workdir:
-        drv = run_driver(workdir, tm, bank_d)
-        group = drv['records'][-1]
-        log(f'kernels at the shapes of a {group["nfibers"]}-fiber driver '
-            'group:')
-        res_a_grp = check_kernel_a(tm, group['arms'], drv['truth'], device)
-        res_adj_grp = check_adjoint(tm, group['arms'], drv['truth'], device)
-        res_b_grp = check_kernel_b(group['arms'], {'continuum': bank_d},
-                                   device)['continuum']
-        per_group = [r['launches'] for r in drv['records']]
-        drv['records'] = group = None
-        cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
-                                               snr=50.0, seed=7)
-        # ROADMAP C.1: the Nelder-Mead's end points (float64 bookkeeping)
-        # against the float64 run, beside float32 and float64 witnesses
-        tm64 = make_template_model(device, dtype=torch.float64)
-        nm8 = driver_against_cpu(workdir, 'coadd8', cmp_arms,
-                                 {'cuda': tm, 'cpu': tm_cpu},
-                                 {'cuda': bank_d, 'cpu': bank_cpu},
-                                 witness64=tm64)
-        res_data, bands, _ = resolution_exposure(NFIB_RES, seed=8)
-        narrow = {key: make_template_model(d, wresol=RES_SIGMA0)
-                  for key, d in (('cuda', device), ('cpu', cpu))}
-        narrow64 = make_template_model(device, wresol=RES_SIGMA0,
-                                       dtype=torch.float64)
-        # parameters at each run's own optimum are logged, not checked:
-        # over 64 fibers the Nelder-Mead ends up to ~0.8 sigma from the
-        # float64 one with or without the kernels, and with a float64
-        # objective from the card's CCF starts too (the witnesses,
-        # PERF.md, ROADMAP C.1); the chi-square and the Hessian are
-        # checked at one point instead
-        nm64 = driver_against_cpu(
-            workdir, f'coadd{NFIB_RES}res', res_data, narrow,
-            {'cuda': bank_d, 'cpu': bank_cpu}, bands=bands,
-            config=dict(CONFIG, lsf_sigma0_angstrom={
-                s: RES_SIGMA0 for s in SETUPS}), check_params=False,
-            witness64=narrow64)
-        del narrow64
-        log(f'NM end points (ROADMAP C.1), max |dp|/sigma and fibers over '
-            f'0.5: coadd8 {nm8}; coadd{NFIB_RES}res {nm64}')
 
-        models = {'cuda': tm, 'cpu': tm_cpu, 'narrow_cuda': narrow['cuda'],
-                  'narrow_cpu': narrow['cpu']}
-        bks = {'cuda': bank_d, 'cpu': bank_cpu}
-        single = run_single_object(models, bks)
-        objs, _ = single_objects()
-        res_b1 = kernel_b_single(objs[0][0], bank_d)
-        wv = run_weave(workdir, models, bks, tm64)
-        del tm64
-        bf = run_bruteforce(workdir, tm, bank_d)
-
-    check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
-          'the run imported jax or the JAX package')
-    dc = drv['counts']
-    shared, row = res_a['shared'], res_a['per-row']
-    cont, nocont = res_b['continuum'], res_b['no-continuum']
-    g_shared, g_row = res_a_grp['shared'], res_a_grp['per-row']
+def kernel_entries(form, a, a_grp, b, b_grp, b1, adj, adj_grp, counts,
+                   per_group, single, weave_counts):
+    """The kernels line's entries of one form: kernel A (shared mode's
+    numbers as its main ones, the per-row mode's beside them), kernel B
+    (continuum) and the adjoint, each with its launches in the driver's
+    run of that form and per path."""
     group_n = COALESCE * NFIBERS
-    sc, wc, bc = single['counts'], wv['counts'], bf['counts']
-    calls = single['cuda']['calls']
+    suffix = '' if form == 'float64' else '_f32'
+    calls = single.get('calls', [])
 
     def per_call(name, key='process_launches'):
-        return [c[key][name] for c in calls]
-    kernels = [
-        dict(name='spline_eval', route='cuda',
+        return [c[key][form][name] for c in calls]
+
+    def launches(name):
+        return dict(launches_per_driver_group=[g[form][name]
+                                               for g in per_group],
+                    launches_single_object_phase=single['counts'][form][
+                        name],
+                    launches_weave_file=weave_counts[form][name])
+    shared, row = a['shared'], a['per-row']
+    g_shared, g_row = a_grp['shared'], a_grp['per-row']
+    cont = b['continuum']
+    return [
+        dict(name='spline_eval' + suffix, route='cuda', form=form,
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/ops/pallas_spline.py:200',
-             launches=dc['spline_eval'],
-             launches_per_row_mode=dc['spline_eval_per_row'],
-             launches_shared_mode=dc['spline_eval_shared'],
-             launches_per_driver_group=[g['spline_eval'] for g in per_group],
-             launches_group_fit_warm_pass=counts['spline_eval'],
-             launches_single_object_phase=sc['spline_eval'],
+             launches=launches_of(counts, 'spline_eval'),
+             launches_per_row_mode=counts['spline_eval_per_row'],
+             launches_shared_mode=counts['spline_eval_shared'],
+             **{f'{k}_per_row_mode': v for k, v in
+                launches('spline_eval_per_row').items()},
+             **{f'{k}_shared_mode': v for k, v in
+                launches('spline_eval_shared').items()},
              launches_per_process_call_per_row_mode=per_call(
                  'spline_eval_per_row'),
              launches_per_process_call_shared_mode=per_call(
                  'spline_eval_shared'),
-             launches_weave_file=wc['spline_eval'],
-             launches_weave_file_per_row_mode=wc['spline_eval_per_row'],
-             launches_weave_file_shared_mode=wc['spline_eval_shared'],
-             launches_desi_bruteforce=bc['spline_eval'],
              max_abs_err=max(r['max_abs_err'] for r in
-                             (*res_a.values(), *res_a_grp.values())),
+                             (*a.values(), *a_grp.values())),
              ms=shared['ms'], plain_ms=shared['plain_ms'],
              bound_ms=shared['bound_ms'], bound_by='bytes',
              library_ms=None,
@@ -1570,50 +1589,192 @@ def main():
                  ('ms_per_row_mode', g_row['ms']),
                  ('plain_ms_per_row_mode', g_row['plain_ms']),
                  ('bound_ms_per_row_mode', g_row['bound_ms']))}),
-        dict(name='ccf_chisq', route='cuda',
+        dict(name='ccf_chisq' + suffix, route='cuda', form=form,
              source='rvspecfit_torch/csrc/ccf_chisq.cu',
              replaces='rvspecfit_tpu/ops/pallas_ccf.py:159',
-             launches=dc['ccf_chisq'],
-             launches_per_driver_group=[g['ccf_chisq'] for g in per_group],
-             launches_group_fit_warm_pass=counts['ccf_chisq'],
-             launches_single_object_phase=sc['ccf_chisq'],
+             launches=counts['ccf_chisq'], **launches('ccf_chisq'),
              launches_per_ccf_fit=per_call('ccf_chisq', 'ccf_launches'),
-             launches_weave_file=wc['ccf_chisq'],
-             launches_desi_bruteforce=bc['ccf_chisq'],
-             max_abs_err=max(cont['max_abs_err'], res_b_grp['max_abs_err'],
-                             res_b1['max_abs_err']),
-             ms=cont['ms'],
-             plain_ms=cont['plain_ms'], bound_ms=cont['bound_ms'],
-             bound_by=cont['bound_by'], library_ms=cont['library_ms'],
-             max_abs_err_no_continuum=nocont['max_abs_err'],
-             ms_no_continuum=nocont['ms'],
-             plain_ms_no_continuum=nocont['plain_ms'],
-             bound_ms_no_continuum=nocont['bound_ms'],
-             **{f'{k}_B{group_n}': res_b_grp[k] for k in (
+             max_abs_err=max(cont['max_abs_err'], b_grp['max_abs_err'],
+                             b1['max_abs_err']),
+             ms=cont['ms'], plain_ms=cont['plain_ms'],
+             bound_ms=cont['bound_ms'], bound_by=cont['bound_by'],
+             library_ms=cont['library_ms'],
+             **{f'{k}_no_continuum': b['no-continuum'][k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms')},
+             **{f'{k}_B{group_n}': b_grp[k] for k in (
                  'ms', 'plain_ms', 'bound_ms', 'library_ms')},
-             **{f'{k}_B1': res_b1[k] for k in (
+             **{f'{k}_B1': b1[k] for k in (
                  'max_abs_err', 'ms', 'eager_ms', 'plain_ms', 'bound_ms',
                  'bound_by', 'library_ms')}),
-        dict(name='spline_eval_adjoint', route='cuda',
+        dict(name='spline_eval_adjoint' + suffix, route='cuda', form=form,
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/fit/batch.py:396',
-             launches=dc['spline_eval_adjoint'],
-             launches_per_driver_group=[g['spline_eval_adjoint']
-                                        for g in per_group],
-             launches_group_fit_warm_pass=counts['spline_eval_adjoint'],
-             launches_single_object_phase=sc['spline_eval_adjoint'],
+             launches=counts['spline_eval_adjoint'],
+             **launches('spline_eval_adjoint'),
              launches_per_process_call=per_call('spline_eval_adjoint'),
-             launches_weave_file=wc['spline_eval_adjoint'],
-             launches_desi_bruteforce=bc['spline_eval_adjoint'],
-             max_abs_err=max(res_adj['max_abs_err'],
-                             res_adj_grp['max_abs_err']),
-             ms=res_adj['ms'],
-             plain_ms=res_adj['plain_ms'], bound_ms=res_adj['bound_ms'],
-             bound_by='bytes', library_ms=None,
-             ms_eager=res_adj['eager_ms'],
-             **{f'{k}_B{group_n}': res_adj_grp[k] for k in (
+             max_abs_err=max(adj['max_abs_err'], adj_grp['max_abs_err']),
+             ms=adj['ms'], plain_ms=adj['plain_ms'],
+             bound_ms=adj['bound_ms'], bound_by='bytes', library_ms=None,
+             ms_eager=adj['eager_ms'],
+             **{f'{k}_B{group_n}': adj_grp[k] for k in (
                  'ms', 'plain_ms', 'bound_ms')}),
     ]
+
+
+def group_fit_pass(tm, arms, truth, banks, form):
+    """A cold and a timed warm pass of the group fit in ``form``, the
+    warm pass's launches counted from 0: its output, wall, launches and
+    peak device memory."""
+    import torch
+    t0 = time.perf_counter()
+    run_group_fit(tm, arms, banks)
+    log(f'group fit {form} cold pass: {time.perf_counter() - t0:.2f} s')
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = run_group_fit(tm, arms, banks)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f'group fit {form} warm pass: ' + ' '.join(
+        f'{k}={out["phases"][k]:.3f}s' for k in PHASES)
+        + f' total={wall:.3f}s -> {NFIBERS / wall:.1f} fibers/s; peak device '
+        f'memory {peak:.2f} GB')
+    log(f'NM ({form}): {int(out["nm"]["converged"].sum())}/{NFIBERS} '
+        f'converged, {out["nm"]["obj_evals"]} objective trials; polish moved '
+        f'{int((out["fun"] < out["nm"]["fun"]).sum())}/{NFIBERS}; '
+        f'refinement passes {int(out["ref"]["iterations"][0])}; '
+        f'BAD_HESSIAN {int(out["bad_hess"].sum())}/{NFIBERS}')
+    log(f'kernel launches in the {form} warm pass: {counts}')
+    check_launches(f'group fit ({form})', counts, form=form)
+    check_outputs(out, NFIBERS, NPIX_ARM)
+    dv = out['ref']['best_vel'] - truth['vel']
+    ok = np.abs(dv) < np.maximum(10.0, 5 * out['ref']['vel_err'])
+    log(f'RV recovery ({form}): {int(ok.sum())}/{NFIBERS} within max(10, 5 '
+        f'sigma); median |dv| {np.median(np.abs(dv)):.3f} km/s, median '
+        f'sigma_v {np.median(out["ref"]["vel_err"]):.3f} km/s')
+    check(ok.sum() >= 0.98 * NFIBERS,
+          f'RV recovery ({form}) {ok.sum()}/{NFIBERS}')
+    return dict(wall=wall, phases=out['phases'], counts=counts,
+                peak_gb=peak, recovered=int(ok.sum()))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: torch.cuda.is_available() is false; this '
+              'script runs only on a CUDA card', file=sys.stderr)
+        return 2
+    try:
+        from rvspecfit_torch import convert
+    except ImportError as exc:
+        print(f'chip_smoke: rvspecfit_torch is not importable ({exc}); '
+              'run from the root of a checkout', file=sys.stderr)
+        return 2
+    t_script = time.perf_counter()
+    device = torch.device('cuda', 0)
+    smi = environment()
+    build_kernels()
+    tm, arms, truth, bank = make_workload(device)
+    check(tm.state.dats.dtype == torch.float64,
+          'the card\'s working dtype is not float64')
+    bank_d = convert.ccf_bank(*bank, device=device)
+    banks = {a.name: bank_d for a in arms}
+    res_a = check_kernel_a(tm, arms, truth, device)
+    res_adj = check_adjoint(tm, arms, truth, device)
+    res_b = check_kernel_b(arms, {'continuum': bank_d,
+                                  'no-continuum': make_nocont_bank(device)},
+                           device)
+
+    group = group_fit_pass(tm, arms, truth, banks, 'float64')
+    tm32, bank32 = float32_models(device, bank)
+    group32 = group_fit_pass(tm32, arms, truth,
+                             {a.name: bank32 for a in arms}, 'float32')
+    log(f'group fit float64 / float32 warm pass: {group["wall"]:.3f} / '
+        f'{group32["wall"]:.3f} s = {group["wall"] / group32["wall"]:.3f}; '
+        'by phase ' + ' '.join(
+            f'{k}={group["phases"][k] / group32["phases"][k]:.3f}'
+            for k in PHASES))
+    tm_cpu, stats8 = check_against_cpu(arms, bank, device, tm, tm32, bank32)
+
+    from rvspecfit_torch import simulation
+    cpu = torch.device('cpu')
+    bank_cpu = convert.ccf_bank(*bank, device=cpu)
+    with tempfile.TemporaryDirectory() as workdir:
+        files, truths = driver_inputs(workdir)
+        drv = run_driver(workdir, files, truths, tm, bank_d, 'float64')
+        check_launches('driver path', drv['counts'])
+        drv32 = run_driver(workdir, files, truths, tm32, bank32, 'float32')
+        check_launches('driver path in float32', drv32['counts'],
+                       form='float32')
+        grp = drv['records'][-1]
+        log(f'kernels at the shapes of a {grp["nfibers"]}-fiber driver '
+            'group:')
+        res_a_grp = check_kernel_a(tm, grp['arms'], drv['truth'], device)
+        res_adj_grp = check_adjoint(tm, grp['arms'], drv['truth'], device)
+        res_b_grp = check_kernel_b(grp['arms'], {'continuum': bank_d},
+                                   device)
+        per_group = {form: [r['launches'] for r in d['records']]
+                     for form, d in (('float64', drv), ('float32', drv32))}
+        drv['records'] = drv32['records'] = grp = None
+        cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
+                                               snr=50.0, seed=7)
+        c8 = driver_against_cpu(workdir, 'coadd8', cmp_arms,
+                                {'cuda': tm, 'cpu': tm_cpu},
+                                {'cuda': bank_d, 'cpu': bank_cpu})
+        res_data, bands, _ = resolution_exposure(NFIB_RES, seed=8)
+        narrow = {key: make_template_model(d, wresol=RES_SIGMA0)
+                  for key, d in (('cuda', device), ('cpu', cpu))}
+        c64 = driver_against_cpu(
+            workdir, f'coadd{NFIB_RES}res', res_data, narrow,
+            {'cuda': bank_d, 'cpu': bank_cpu}, bands=bands,
+            config=dict(CONFIG, lsf_sigma0_angstrom={
+                s: RES_SIGMA0 for s in SETUPS}))
+
+        models = {'cuda': tm, 'cpu': tm_cpu, 'cuda32': tm32,
+                  'narrow_cuda': narrow['cuda'], 'narrow_cpu': narrow['cpu']}
+        bks = {'cuda': bank_d, 'cpu': bank_cpu, 'cuda32': bank32}
+        single = run_single_object(models, bks)
+        objs, _ = single_objects()
+        res_b1 = kernel_b_single(objs[0][0], bank_d)
+        wv = run_weave(workdir, models, bks)
+        bf = run_bruteforce(workdir, tm, bank_d)
+        nn_run = run_nn(workdir, device)
+    log('card float64 vs CPU float64 (ROADMAP C.1, C.2): ' + json.dumps(dict(
+        group_fit_8=stats8, coadd8=c8, coadd64res=c64,
+        single_object=single['stats'], weave8=wv['stats'])))
+    log(f'float64 / float32 seconds: group fit warm pass {group["wall"]:.3f} '
+        f'/ {group32["wall"]:.3f}; driver steady s/file {drv["steady"]:.3f} '
+        f'/ {drv32["steady"]:.3f}, cold group {drv["cold"]:.3f} / '
+        f'{drv32["cold"]:.3f}; WEAVE file {wv["float64"]["wall"]:.3f} / '
+        f'{wv["float32"]["wall"]:.3f}; single object ccf.fit -> process '
+        f'(8) {single["cuda"]["seconds"]["fit"]:.3f} / '
+        f'{single["cuda32"]["seconds"]["fit"]:.3f}; NN driver group '
+        f'{nn_run["cold"]:.3f} s')
+
+    check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
+          'the run imported jax or the JAX package')
+    kernels = []
+    for form, drv_form in (('float64', drv), ('float32', drv32)):
+        single_form = dict(single['cuda'], counts=single['counts']) \
+            if form == 'float64' else dict(single['cuda32'],
+                                           counts=single['counts32'])
+        kernels += kernel_entries(
+            form, res_a[form], res_a_grp[form], res_b[form],
+            res_b_grp[form]['continuum'], res_b1[form], res_adj[form],
+            res_adj_grp[form], drv_form['counts'][form], per_group[form],
+            single_form, {f: wv[f]['counts'][f] for f in FORMS})
+    for k in kernels:
+        base, form = k['name'].removesuffix('_f32'), k['form']
+        k['launches_group_fit_warm_pass'] = launches_of(
+            (group if form == 'float64' else group32)['counts'][form], base)
+        if form == 'float64':
+            k['launches_desi_bruteforce'] = launches_of(
+                bf['counts'][form], base)
+            k['launches_nn_driver'] = launches_of(nn_run['counts'][form],
+                                                  base)
+    log(f'chip_smoke: {time.perf_counter() - t_script:.1f} s')
     print(smi)
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(

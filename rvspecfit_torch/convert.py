@@ -11,9 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rvspecfit_torch.device import (complex_dtype_for, dtype_for,
-                                    resolve_device)
+from rvspecfit_torch.device import (complex_dtype_for, complex_of,
+                                    dtype_for, resolve_device)
 from rvspecfit_torch.fit.spec_data import ArmState, SpecData
+from rvspecfit_torch.interp import nn as nn_mod
 from rvspecfit_torch.interp.api import TemplateModel
 from rvspecfit_torch.interp.grid import GridInterpState
 from rvspecfit_torch.ops.chisq import basis_products
@@ -42,24 +43,36 @@ def grid_state(ref, device=None):
         device=device)
 
 
+def nn_state(ref, device=None):
+    """rvspecfit_tpu NNState -> nn.NNInterpolator."""
+    return nn_mod.NNInterpolator(
+        [(_np(w), _np(b)) for w, b in ref.weights],
+        [None if x is None else (_np(x[0]), _np(x[1])) for x in ref.bn],
+        _np(ref.pc_w), _np(ref.pc_b), _np(ref.mean), _np(ref.std),
+        [_np(e) for e in ref.hull_eqs], nonlinearity=ref.nonlinearity,
+        device=device)
+
+
 def template_model(ref, device=None):
-    """rvspecfit_tpu TemplateModel (kind 'grid') -> TemplateModel."""
+    """rvspecfit_tpu TemplateModel (kind 'grid' or 'nn') ->
+    TemplateModel."""
     device = resolve_device(device)
-    if ref.kind != 'grid':
-        raise ValueError(f'only grid template models are ported, got '
-                         f'{ref.kind!r}')
-    return TemplateModel(state=grid_state(ref.state, device),
+    states = dict(grid=grid_state, nn=nn_state)
+    if ref.kind not in states:
+        raise ValueError(f'unknown template model kind {ref.kind!r}')
+    return TemplateModel(state=states[ref.kind](ref.state, device),
                          geom=geometry(ref.geom, device),
                          parnames=tuple(ref.parnames),
-                         log_ids=tuple(ref.log_ids))
+                         log_ids=tuple(ref.log_ids), kind=ref.kind)
 
 
-def ccf_bank(tfft, t2fft, info, device=None):
-    """Host (T, F) complex bank rFFTs + info -> device bank tuple."""
+def ccf_bank(tfft, t2fft, info, device=None, dtype=None):
+    """Host (T, F) complex bank rFFTs + info -> device bank tuple, in
+    the complex dtype of the real ``dtype`` (None: the device's working
+    dtype); the CCF runs in its bank's precision (fit/ccf.py)."""
     device = resolve_device(device)
-    to = lambda c: torch.as_tensor(np.asarray(c),
-                                   dtype=complex_dtype_for(device),
-                                   device=device)
+    cdt = complex_dtype_for(device) if dtype is None else complex_of(dtype)
+    to = lambda c: torch.as_tensor(np.asarray(c), dtype=cdt, device=device)
     return to(tfft), to(t2fft), info
 
 

@@ -5,14 +5,24 @@ Entry points run on the CUDA card unless the caller passes
 :func:`resolve_device`, which raises where there is no card (there is
 no silent CPU fallback).
 
-float64 on the CPU (the parity tests against the float64 reference),
-float32 on CUDA (the working precision on the card).
+The working dtype is float64 (complex128) on the CPU and on the card
+alike: the fit's results on the H100 are those of the reference's
+float64 path.  float32 on the card moved them: the CCF's contraction
+has terms of ~4e6 while its chi-square rises by 0.1-3 from one velocity
+step to the next, and the Nelder-Mead ends anywhere inside its
+tolerance along flat directions (ROADMAP C.1 and C.2, repaired by this
+policy).  The card's kernels take float64 (kernel B on the FP64 tensor
+cores) and keep their float32 forms, which a caller still reaches by
+building its template model and CCF bank with an explicit
+``dtype=torch.float32`` (pipeline/library.template_model_from_artifacts,
+convert.ccf_bank).
 
-TF32 is switched off for matmuls AND for cuDNN convolutions: the
-spline solve's banded inverse is a conv1d (ops/spline.py), and TF32
-keeps ~3 decimal digits, which corrupts the spline coefficients; the
-reference found that reduced-precision matmuls also break the grid
-interpolation and the chi-square (docs/performance.md, "Precision").
+TF32 is switched off for matmuls AND for cuDNN convolutions, for the
+float32 forms: the spline solve's banded inverse is a conv1d
+(ops/spline.py), and TF32 keeps ~3 decimal digits, which corrupts the
+spline coefficients; the reference found that reduced-precision
+matmuls also break the grid interpolation and the chi-square
+(docs/performance.md, "Precision").
 """
 import torch
 
@@ -38,12 +48,19 @@ def resolve_device(device):
 
 
 def dtype_for(device):
-    """Working real dtype of tensors on ``device``."""
-    return torch.float32 if torch.device(device).type == 'cuda' \
-        else torch.float64
+    """Working real dtype of tensors on ``device``: float64 on every
+    device."""
+    return torch.float64
 
 
 def complex_dtype_for(device):
-    """Working complex dtype of tensors on ``device``."""
-    return torch.complex64 if torch.device(device).type == 'cuda' \
-        else torch.complex128
+    """Working complex dtype of tensors on ``device``: complex128 on
+    every device."""
+    return torch.complex128
+
+
+def complex_of(dtype):
+    """The complex dtype whose parts are ``dtype`` (float32 or
+    float64)."""
+    return {torch.float32: torch.complex64,
+            torch.float64: torch.complex128}[dtype]

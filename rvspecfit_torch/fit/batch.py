@@ -6,8 +6,9 @@ refinement, the AD Hessian errors and the best-fit models, all on a
 whole exposure of fibers that share per-arm wavelength grids, and
 :meth:`BatchedFitter.run_tail`, the synchronous post-NM chain.  The
 device of the template tensors decides where everything runs (CUDA:
-float32 and the CUDA kernels, the derivatives through kernel A's
-autograd pair; CPU: float64 and their plain versions).
+the CUDA kernels, the derivatives through kernel A's autograd pair;
+CPU: their plain versions), and their dtype the precision (float64,
+the working dtype on both).
 
 Derivatives: fibers are independent, so one backward of the summed
 objective gives every fiber's gradient, and one backward of each

@@ -138,16 +138,16 @@ def check_same_templates(ref, info):
 
 
 def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
-    """Preprocess + rFFT one stacked arm on the bank's device and build
-    its DFT matrices.  ``bank`` is (tfft, t2fft, info) with complex
-    (T, F) tensors (see convert.ccf_bank)."""
+    """Preprocess + rFFT one stacked arm on the bank's device, in the
+    bank's precision, and build its DFT matrices.  ``bank`` is (tfft,
+    t2fft, info) with complex (T, F) tensors (see convert.ccf_bank)."""
     tfft, t2fft, info = bank
     device = tfft.device
     ccfconf = info['ccfconf']
     maxvel = config.get('max_vel') or 1000
     sfft_conj, ivfft_conj, sse, proc = continuum_mod.preprocess_fft_batch(
         lam, np.atleast_2d(fluxes), np.atleast_2d(especs), badmask=badmask,
-        ccfconf=ccfconf, device=device)
+        ccfconf=ccfconf, device=device, dtype=tfft.real.dtype)
     nvelgrid = 2 * int(maxvel / (config.get('vel_step0') or 2)) + 1
     vel_grid = np.linspace(-maxvel, maxvel, nvelgrid)
     ecos, esin = dft_mats(ccfconf, vel_grid, device, sse.dtype)

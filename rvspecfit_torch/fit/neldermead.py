@@ -13,9 +13,10 @@ its own K candidate points.
 
 The bookkeeping is float64 on every device: the simplexes, their
 values, the centroid, the candidate points and the convergence test.
-Only the objective runs in the working dtype (float32 on the card),
-through :func:`in_working_dtype`, so no simplex step is rounded to
-float32.
+The objective runs in its template model's dtype (float64, the working
+dtype, unless the caller built a float32 model), through
+:func:`in_working_dtype`, so no simplex step is rounded to a float32
+objective's precision.
 """
 from __future__ import annotations
 

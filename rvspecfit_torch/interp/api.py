@@ -1,7 +1,8 @@
-"""Template model: grid interpolator + wavelength geometry.
+"""Template model: interpolator + wavelength geometry.
 
-Counterpart of rvspecfit_tpu/interp/api.py for regular-grid
-libraries (the NN interpolator is not ported yet).
+Counterpart of rvspecfit_tpu/interp/api.py for regular-grid libraries
+(multilinear, interp/grid.py) and NN libraries (interp/nn.py); the
+reference's triangulation libraries are not ported yet (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -18,10 +19,11 @@ from rvspecfit_torch.ops.spline import SplineGeometry
 class TemplateModel:
     """One spectral setup's template interpolator, on one device."""
 
-    state: grid_mod.GridInterpState
+    state: object                # GridInterpState | nn.NNInterpolator
     geom: SplineGeometry
     parnames: tuple
     log_ids: tuple               # parameter indices interpolated in log10
+    kind: str = 'grid'           # 'grid' | 'nn'
     # provenance (revision, creation_soft_version) for output headers
     extra: dict = dataclasses.field(default_factory=dict, compare=False)
 
@@ -40,5 +42,11 @@ class TemplateModel:
 
     def eval_batch(self, params):
         """(T, ndim) external params -> ((T, npix) spectra, (T,)
-        outside-grid distance)."""
-        return grid_mod.interp_batch(self.state, self.map_params(params))
+        outside-grid distance: 0 inside, a smooth positive distance
+        outside)."""
+        mapped = self.map_params(params)
+        if self.kind == 'grid':
+            return grid_mod.interp_batch(self.state, mapped)
+        if self.kind == 'nn':
+            return self.state.interp_batch(mapped)
+        raise ValueError(f'unknown interpolator kind {self.kind!r}')

@@ -8,8 +8,8 @@ distance as the smooth out-of-grid indicator.
 
 The spectra are accumulated as one weighted gather over all 2^ndim
 cube corners (the reference's one-hot MXU matmul is a TPU device);
-all arithmetic stays in the working dtype (float32 on CUDA with TF32
-off, see device.py).
+all arithmetic stays in the state's dtype (float64, the working dtype
+on both devices, see device.py; TF32 is off for a float32 state).
 """
 from __future__ import annotations
 

@@ -234,16 +234,16 @@ def _resample_aux(lam, ccfconf):
 
 
 def preprocess_batch(lam, specs, especs, badmask=None, ccfconf=None,
-                     maxerr=10, niter=40, device=None):
+                     maxerr=10, niter=40, device=None, dtype=None):
     """Mask, infill and continuum-normalize one stacked arm on
-    ``device`` and resample it onto the CCF log-lambda grid with its
-    inverse variance.
+    ``device`` in ``dtype`` (None: its working dtype) and resample it
+    onto the CCF log-lambda grid with its inverse variance.
 
     lam : (npix,); specs, especs, badmask : (B, npix) host arrays.
     Returns (proc (B, npoints), pivar (B, npoints)) tensors.
     """
     device = resolve_device(device)
-    dtype = dtype_for(device)
+    dtype = dtype or dtype_for(device)
     lam = np.asarray(lam, np.float64)
     to = lambda a, dt=dtype: torch.as_tensor(np.asarray(a), dtype=dt,
                                              device=device)
@@ -287,7 +287,7 @@ def preprocess_batch(lam, specs, especs, badmask=None, ccfconf=None,
 
 
 def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
-                         maxerr=10, niter=40, device=None):
+                         maxerr=10, niter=40, device=None, dtype=None):
     """Preprocess (:func:`preprocess_batch`) and rFFT one stacked arm on
     ``device``.  Returns (sfft_conj (B, F) complex, ivfft_conj (B, F)
     complex, sse (B,), proc (B, npoints)): the conjugated rFFTs of spec*ivar
@@ -295,7 +295,7 @@ def preprocess_fft_batch(lam, specs, especs, badmask=None, ccfconf=None,
     spectra."""
     proc, pivar = preprocess_batch(lam, specs, especs, badmask=badmask,
                                    ccfconf=ccfconf, maxerr=maxerr,
-                                   niter=niter, device=device)
+                                   niter=niter, device=device, dtype=dtype)
     sse = (proc * proc * pivar).sum(1)
     sfft = torch.fft.rfft(proc * pivar, dim=1)
     ivfft = torch.fft.rfft(pivar, dim=1)

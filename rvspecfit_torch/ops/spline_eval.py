@@ -24,7 +24,9 @@ coefficients :func:`derivative_coeffs` gives, so d out/du = K(u) c'.
 
 On a CPU tensor the wrappers run the plain versions (whose own
 autograd serves); on a CUDA tensor they launch ``csrc/spline_eval.cu``
-or raise.  There is no fallback from a kernel to a plain version.
+in its float64 form (the card's working type) or its float32 form, by
+the tensors' dtype, or raise.  There is no fallback from a kernel to a
+plain version.
 """
 from __future__ import annotations
 
@@ -38,12 +40,14 @@ import torch
 from rvspecfit_torch.ops import cuda_build
 
 # kernel launches by this process: of the evaluation in per-row mode
-# (rows_per_coeff 1), in shared mode, both together, and of the adjoint
-# (chip_smoke.py resets and reads them)
+# (rows_per_coeff 1), in shared mode, both together, and of the adjoint,
+# in either form; and of the float32 forms alone, by mode (chip_smoke.py
+# resets and reads them)
 row_launches = 0
 shared_launches = 0
 launches = 0
 adjoint_launches = 0
+float32_launches = dict(per_row=0, shared=0, adjoint=0)
 
 
 def _intervals(geom, u, nm1):
@@ -93,34 +97,46 @@ def spline_eval_index_vjp_plain(geom, u, g, nm1):
     return out.scatter_add_(2, iidx[:, None, :].expand(-1, 4, -1), vals)
 
 
-@functools.lru_cache(maxsize=None)
-def build():
-    """Compile (first call) and bind kernel A's C launcher."""
-    fn = cuda_build.load('spline_eval').rvst_spline_eval
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_void_p]
+def _argtypes(real, nint):
+    """Pointers u/coeffs, .., then ``nint`` ints, the geometry's three
+    reals of the launcher's form, the stream."""
+    return [ctypes.c_void_p] * 3 + [ctypes.c_int] * nint + [real] * 3 \
+        + [ctypes.c_void_p]
+
+
+# rvst_spline_eval[_f64](coeffs, u, out, rows, npix, nm1, rows_per_coeff,
+# log_step, x0, step, expm1_step, stream)
+ARGTYPES = _argtypes(ctypes.c_float, 5)
+ARGTYPES_F64 = _argtypes(ctypes.c_double, 5)
+# rvst_spline_adjoint[_f64](u, g, dcoeffs, rows, npix, nm1, log_step, x0,
+# step, expm1_step, stream)
+ADJOINT_ARGTYPES = _argtypes(ctypes.c_float, 4)
+ADJOINT_ARGTYPES_F64 = _argtypes(ctypes.c_double, 4)
+
+
+def _bind(name, argtypes):
+    fn = getattr(cuda_build.load('spline_eval'), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-# rvst_spline_adjoint(u, g, dcoeffs, rows, npix, nm1, log_step, x0, step,
-# expm1_step, stream)
-ADJOINT_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                    ctypes.c_void_p]
+@functools.lru_cache(maxsize=None)
+def build(dtype=torch.float32):
+    """Compile (first call) and bind the C launcher of kernel A's
+    ``dtype`` form (float32 or float64)."""
+    if dtype == torch.float64:
+        return _bind('rvst_spline_eval_f64', ARGTYPES_F64)
+    return _bind('rvst_spline_eval', ARGTYPES)
 
 
 @functools.lru_cache(maxsize=None)
-def build_adjoint():
-    """Compile (first call) and bind the adjoint's C launcher (same
-    source and library as kernel A)."""
-    fn = cuda_build.load('spline_eval').rvst_spline_adjoint
-    fn.argtypes = ADJOINT_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
+def build_adjoint(dtype=torch.float32):
+    """Compile (first call) and bind the C launcher of the adjoint's
+    ``dtype`` form (same source and library as kernel A)."""
+    if dtype == torch.float64:
+        return _bind('rvst_spline_adjoint_f64', ADJOINT_ARGTYPES_F64)
+    return _bind('rvst_spline_adjoint', ADJOINT_ARGTYPES)
 
 
 def _check_cuda(name, *tensors):
@@ -129,8 +145,11 @@ def _check_cuda(name, *tensors):
         raise ValueError(f'{name}: tensors on '
                          f'{" / ".join(str(t.device) for t in tensors)}; '
                          'need one CUDA device or CPU')
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f'{name}: CUDA kernel takes float32, got '
+    dt = tensors[0].dtype
+    if dt not in (torch.float32, torch.float64) \
+            or any(t.dtype != dt for t in tensors):
+        raise TypeError(f'{name}: CUDA kernel takes all float64 or all '
+                        'float32, got '
                         f'{" / ".join(str(t.dtype) for t in tensors)}')
 
 
@@ -153,22 +172,24 @@ def _launch(geom, coeffs, u, rows_per_coeff):
     out = torch.empty_like(u)
     log_step, x0, step, em1 = _geo_args(geom)
     with torch.cuda.device(u.device):
-        err = build()(coeffs.data_ptr(), u.data_ptr(), out.data_ptr(),
-                      u.shape[0], u.shape[1], coeffs.shape[-1],
-                      rows_per_coeff, log_step, x0, step, em1,
-                      cuda_build.current_stream(u))
+        err = build(u.dtype)(coeffs.data_ptr(), u.data_ptr(),
+                             out.data_ptr(), u.shape[0], u.shape[1],
+                             coeffs.shape[-1], rows_per_coeff, log_step, x0,
+                             step, em1, cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval')
     launches += 1
     if rows_per_coeff == 1:
         row_launches += 1
     else:
         shared_launches += 1
+    if u.dtype == torch.float32:
+        float32_launches['per_row' if rows_per_coeff == 1 else 'shared'] += 1
     return out
 
 
 def spline_eval_index_vjp(geom, u, g, nm1):
     """The adjoint kernel on CUDA tensors, its plain version on CPU
-    tensors: (R, npix) u and g -> (R, 4, nm1) float32 dcoeffs.  Same
+    tensors: (R, npix) u and g -> (R, 4, nm1) dcoeffs of their dtype.  Same
     contract as :func:`spline_eval_index_vjp_plain`; the result does
     not depend on the launch (no atomics)."""
     if u.device.type == 'cpu':
@@ -182,11 +203,14 @@ def spline_eval_index_vjp(geom, u, g, nm1):
     out = torch.empty((u.shape[0], 4, nm1), dtype=u.dtype, device=u.device)
     log_step, x0, step, em1 = _geo_args(geom)
     with torch.cuda.device(u.device):
-        err = build_adjoint()(u.data_ptr(), g.data_ptr(), out.data_ptr(),
-                              u.shape[0], u.shape[1], nm1, log_step, x0,
-                              step, em1, cuda_build.current_stream(u))
+        err = build_adjoint(u.dtype)(
+            u.data_ptr(), g.data_ptr(), out.data_ptr(), u.shape[0],
+            u.shape[1], nm1, log_step, x0, step, em1,
+            cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval_adjoint')
     adjoint_launches += 1
+    if u.dtype == torch.float32:
+        float32_launches['adjoint'] += 1
     return out
 
 
@@ -276,9 +300,9 @@ def spline_eval_index(geom, coeffs, u, rows_per_coeff=1):
     """Kernel A on CUDA tensors, its plain version on CPU tensors.
 
     Same contract as :func:`spline_eval_index_plain`.  CUDA inputs must
-    be float32 on one device.  Per-row mode is differentiable through
-    kernel launches (:class:`SplineEval`); shared mode is not
-    differentiated (a CUDA call that asks for it raises).
+    be all float64 or all float32 on one device.  Per-row mode is
+    differentiable through kernel launches (:class:`SplineEval`); shared
+    mode is not differentiated (a CUDA call that asks for it raises).
     """
     if u.device.type == 'cpu':
         return spline_eval_index_plain(geom, coeffs, u, rows_per_coeff)

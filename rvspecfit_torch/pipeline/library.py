@@ -1,13 +1,16 @@
 """Template-library loading: on-disk artifacts -> TemplateModel.
 
-Counterpart of the regular-grid branch of
+Counterpart of the regular-grid and NN branches of
 rvspecfit_tpu/pipeline/library.py.  :func:`read_template_artifacts`
-reads ``interp_{setup}.h5`` and ``interpdat_{setup}.npy`` (the names
-make_nd writes) from ``config['template_lib']`` on the host;
-:func:`template_model_from_artifacts` builds the TemplateModel on a
-device from those arrays; :func:`load_template_model` does both, and
-:func:`load_template_models` for several setups.  The NN and
-triangulation interpolators are not ported: their libraries raise.
+reads a setup's ``interp_{setup}.h5`` descriptor from
+``config['template_lib']`` on the host, with its data: the stored
+spectra ``interpdat_{setup}.npy`` (the names make_nd writes) of a
+regular grid, or the NN checkpoint payload (``nn_file``, by default
+``nnstate_{setup}.h5``, as the NN trainer writes it) of an NN
+library; :func:`template_model_from_artifacts` builds the TemplateModel
+on a device from those; :func:`load_template_model` does both, and
+:func:`load_template_models` for several setups.  A triangulation
+library raises (not ported yet, ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -17,46 +20,62 @@ import numpy as np
 
 from rvspecfit_torch import serializer
 from rvspecfit_torch.device import resolve_device
+from rvspecfit_torch.interp import nn as nn_mod
 from rvspecfit_torch.interp.api import TemplateModel
 from rvspecfit_torch.interp.grid import GridInterpState
 from rvspecfit_torch.ops.spline import SplineGeometry
 
 INTERPOL_H5_NAME = 'interp_%s.h5'
 INTERPOL_DAT_NAME = 'interpdat_%s.npy'
+NN_STATE_NAME = 'nnstate_%s.h5'
+# interpolation_type -> TemplateModel kind
+KINDS = {'regulargrid': 'grid', 'nn': 'nn', 'generic': 'nn'}
 
-def _check_type(fd):
+
+def _kind(fd):
     itype = fd.get('interpolation_type')
-    if itype != 'regulargrid':
+    if itype not in KINDS:
         raise ValueError(f'interpolation type {itype!r} is not ported '
-                         '(only regulargrid)')
+                         '(regulargrid and nn are; triangulation is '
+                         'ROADMAP A5)')
+    return KINDS[itype]
 
 
 def read_template_artifacts(setup, config):
-    """Host arrays of one setup's regular-grid library: (the interp
-    dict, the (nspec, npix) stored spectra, memory-mapped)."""
+    """Host data of one setup's library: (the interp dict, and the
+    (nspec, npix) stored spectra, memory-mapped, of a regular grid or
+    the checkpoint payload of an NN library)."""
     lib = config['template_lib']
     fd = serializer.load_dict_from_hdf5(
         os.path.join(lib, INTERPOL_H5_NAME % setup))
-    _check_type(fd)
+    if _kind(fd) == 'nn':
+        ck = serializer.load_dict_from_hdf5(os.path.join(
+            lib, str(fd.get('nn_file') or NN_STATE_NAME % setup)))
+        return fd, ck.get('state', ck)
     dats = np.load(os.path.join(lib, INTERPOL_DAT_NAME % setup),
                    mmap_mode='r')
     return fd, dats
 
 
-def template_model_from_artifacts(fd, dats, device=None, dtype=None):
+def template_model_from_artifacts(fd, data, device=None, dtype=None):
     """TemplateModel on ``device`` (None: the CUDA card) from the interp
-    dict of a regular-grid library (keys as make_nd writes them:
-    interpolation_type, lam, log_step, parnames, log_ids, log_spec,
-    uvecs {dim0, ...}, idgrid, vec) and its (nspec, npix) spectra;
-    ``dtype`` overrides the device's working dtype."""
-    _check_type(fd)
+    dict of a library (keys as make_nd or the NN trainer write them:
+    interpolation_type, lam, log_step, parnames, log_ids, log_spec and,
+    for a regular grid, uvecs {dim0, ...}, idgrid, vec) and its data:
+    the (nspec, npix) spectra of a regular grid, the checkpoint payload
+    of an NN library.  ``dtype`` overrides the device's working
+    dtype."""
+    kind = _kind(fd)
     device = resolve_device(device)
-    uvdict = fd['uvecs']
-    uvecs = [np.asarray(uvdict[f'dim{i}']) for i in range(len(uvdict))]
-    state = GridInterpState.build(
-        uvecs, np.asarray(fd['idgrid']), np.asarray(fd['vec']),
-        np.array(dats), log_spec=bool(fd.get('log_spec', True)),
-        device=device, dtype=dtype)
+    if kind == 'nn':
+        state = nn_mod.state_from_dict(data, device=device, dtype=dtype)
+    else:
+        uvdict = fd['uvecs']
+        uvecs = [np.asarray(uvdict[f'dim{i}']) for i in range(len(uvdict))]
+        state = GridInterpState.build(
+            uvecs, np.asarray(fd['idgrid']), np.asarray(fd['vec']),
+            np.array(data), log_spec=bool(fd.get('log_spec', True)),
+            device=device, dtype=dtype)
     geom = SplineGeometry.from_knots(np.asarray(fd['lam'], np.float64),
                                      log_step=bool(fd['log_step']),
                                      device=device, dtype=dtype)
@@ -66,7 +85,7 @@ def template_model_from_artifacts(fd, dats, device=None, dtype=None):
                          parnames=tuple(str(p) for p in fd['parnames']),
                          log_ids=tuple(int(x)
                                        for x in fd.get('log_ids', (0,))),
-                         extra=extra)
+                         kind=kind, extra=extra)
 
 
 def load_template_model(setup, config, device=None):

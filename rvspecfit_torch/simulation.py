@@ -6,6 +6,12 @@ kept here so that building a workload imports nothing of the JAX
 package; tests/test_torch_ccf.py checks they produce identical arrays.
 ``build_template_model`` and ``build_ccf_bank`` are the counterparts
 of the reference functions of the same names.
+
+An NN library without a trainer (:func:`nn_template_artifacts`), the
+exposures drawn from a template model itself (:func:`model_exposure`)
+and the CCF bank of a template model at the grid's nodes
+(:func:`model_ccf_bank`) let the NN slice run on the card, where there
+is no JAX to train one.
 """
 import itertools
 
@@ -136,15 +142,22 @@ def build_ccf_bank(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
                    step=0.25, vsinis=None, continuum=True, device=None):
     """In-memory CCF template bank of the synthetic grid.  The template
     continua are fitted on ``device`` (None: the CUDA card) in its
-    working dtype; the rest is host float64.  ``continuum=False``
+    working dtype (float64); the rest is host float64.  ``continuum=False``
     builds a bank without continuum normalization.  Returns (tfft, t2fft,
     info) as numpy, shaped like the reference's; convert.ccf_bank moves
     it to a device."""
-    from rvspecfit_torch.pipeline import make_ccf
-
     lam, uvecs, idgrid, vecs, log_specs, parnames = make_template_grid(
         nt, nl, nf, na, npix=npix, lam0=lam0, lam1=lam1)
-    specs = np.exp(log_specs)
+    return _ccf_bank_of(lam, np.exp(log_specs), vecs, parnames, every,
+                        ccf_lam0, ccf_lam1, step, vsinis, continuum, device)
+
+
+def _ccf_bank_of(lam, specs, vecs, parnames, every, ccf_lam0, ccf_lam1,
+                 step, vsinis, continuum, device):
+    """The bank of (nspec, npix) template spectra on ``lam`` at the
+    (ndim, nspec) mapped parameters ``vecs`` (log10 teff first), through
+    pipeline/make_ccf's core."""
+    from rvspecfit_torch.pipeline import make_ccf
     raw = vecs.T.copy()
     raw[:, 0] = 10.0**raw[:, 0]          # mapped log10(teff) -> teff
     inds = np.argsort(make_ccf.get_mortoncurve_id(raw))[::every]
@@ -161,3 +174,102 @@ def build_ccf_bank(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
                 vsini_is_none=[v is None for v in vsinis_list],
                 parnames=list(parnames))
     return np.fft.rfft(models, axis=1), np.fft.rfft(models**2, axis=1), info
+
+
+def nn_template_artifacts(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
+                          lam1=5450.0, wresol=2.0, width=256, nlayers=2,
+                          npc=64, seed=0):
+    """An NN library of the synthetic grid, made without a trainer: (the
+    interp dict as the NN trainer writes it, the checkpoint payload);
+    pipeline/library.template_model_from_artifacts builds the model.
+
+    The output layer holds the grid's top ``npc`` principal components
+    of its log-spectra, each scaled by the rms of its scores over the
+    grid, with their mean as the bias, so that unit activations vary the
+    spectra as much as the grid does; the hidden layers are the random
+    initialization (interp/nn.init_state from a torch.Generator seeded
+    with ``seed``) at the reference trainer's default widths
+    (train_nn.execute: width 256, 2 layers, npc 64); the inputs are
+    standardized by the grid nodes' mean and std, and the hull is that
+    of the nodes."""
+    import torch
+
+    from rvspecfit_torch.interp import nn as nn_mod
+    lam, uvecs, idgrid, vecs, specs, parnames = make_template_grid(
+        nt, nl, nf, na, npix=npix, lam0=lam0, lam1=lam1, wresol=wresol)
+    nodes = vecs.T
+    mean = specs.mean(0)
+    _, sv, vt = np.linalg.svd(specs - mean, full_matrices=False)
+    model = nn_mod.init_state(
+        torch.Generator().manual_seed(seed), nodes.shape[1], width, nlayers,
+        npc, npix, mean=nodes.mean(0), std=nodes.std(0),
+        hull_eqs=nn_mod.hull_equations(nodes), device='cpu')
+    payload = nn_mod.state_to_dict(model)
+    payload.update(pc_w=vt[:npc] * (sv[:npc] / np.sqrt(len(specs)))[:, None],
+                   pc_b=mean)
+    fd = dict(interpolation_type='nn', lam=lam, log_step=True, log_spec=True,
+              log_ids=[0], parnames=list(parnames),
+              nn_kwargs=dict(width=width, nlayers=nlayers, npc=npc))
+    return fd, payload
+
+
+def _lam_of(tm):
+    return tm.geom.xs.double().cpu().numpy()
+
+
+def model_exposure(tm, nfibers, npix_arm=1024, snr=50.0, seed=0,
+                   layout=THREE_ARM_LAYOUT):
+    """A multi-arm exposure of ``nfibers`` stars drawn from the template
+    model ``tm`` itself (on the CPU): truths drawn as in
+    :func:`make_exposure`, the model's spectrum at each star's
+    parameters, Doppler shifted through its natural cubic spline in
+    wavelength, with Gaussian noise at S/N ``snr``.  Returns (arms
+    {name: (lam, flux (B, npix), ivar)}, truth)."""
+    import scipy.interpolate
+    import torch
+    rng = np.random.RandomState(seed)
+    truth = dict(
+        vel=rng.uniform(-500, 500, nfibers),
+        teff=rng.uniform(4500, 9500, nfibers),
+        logg=rng.uniform(1.0, 4.8, nfibers),
+        feh=rng.uniform(-1.9, -0.1, nfibers),
+        alpha=rng.uniform(0.05, 0.95, nfibers),
+    )
+    params = np.stack([truth[k] for k in ('teff', 'logg', 'feh', 'alpha')],
+                      1)
+    with torch.no_grad():
+        rest = tm.eval_batch(torch.as_tensor(params, dtype=torch.float64))[0]
+    rest = rest.double().cpu().numpy()
+    spl = [scipy.interpolate.CubicSpline(_lam_of(tm), sp, bc_type='natural')
+           for sp in rest]
+    c = 299792.458
+    arms = {}
+    for name, (l0, l1) in layout.items():
+        lam = np.linspace(l0, l1, npix_arm)
+        flux = np.zeros((nfibers, npix_arm))
+        ivar = np.zeros((nfibers, npix_arm))
+        for i in range(nfibers):
+            sp = spl[i](lam / (1 + truth['vel'][i] / c))
+            esp = sp / snr
+            flux[i] = sp + rng.normal(size=npix_arm) * esp
+            ivar[i] = 1.0 / esp**2
+        arms[name] = (lam, flux, ivar)
+    return arms, truth
+
+
+def model_ccf_bank(tm, nt=6, nl=6, nf=6, na=4, every=8, ccf_lam0=4600.0,
+                   ccf_lam1=5400.0, step=0.25, vsinis=None, continuum=True,
+                   device=None):
+    """The CCF bank of the template model ``tm`` (on the CPU) evaluated
+    at the synthetic grid's nodes, through pipeline/make_ccf's core, as
+    numpy (tfft, t2fft, info) like :func:`build_ccf_bank`."""
+    import torch
+    _, uvecs, _, vecs, _, parnames = make_template_grid(nt, nl, nf, na,
+                                                        npix=8)
+    raw = vecs.T.copy()
+    raw[:, 0] = 10.0**raw[:, 0]
+    with torch.no_grad():
+        specs = tm.eval_batch(torch.as_tensor(raw, dtype=torch.float64))[0]
+    return _ccf_bank_of(_lam_of(tm), specs.double().cpu().numpy(), vecs,
+                        parnames, every, ccf_lam0, ccf_lam1, step, vsinis,
+                        continuum, device)

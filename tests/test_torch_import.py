@@ -32,7 +32,8 @@ def test_every_module_imports_without_jax():
             'rvspecfit_torch.utils', 'rvspecfit_torch.frozendict',
             'rvspecfit_torch.fit.find_best', 'rvspecfit_torch.fit.vel_fit',
             'rvspecfit_torch.fit.likelihood',
-            'rvspecfit_torch.survey.weave'} <= set(mods)
+            'rvspecfit_torch.survey.weave', 'rvspecfit_torch.interp.nn',
+            'rvspecfit_torch.interp.mapper'} <= set(mods)
     # h5py and yaml are missing on the card's machine too
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
@@ -51,11 +52,11 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == 'ok'
 
 
-def _spline_inputs(device):
+def _spline_inputs(device, dtype=torch.float64):
     geom = spline.SplineGeometry.from_knots(np.linspace(4500.0, 5500.0, 50),
                                             log_step=False, device=device)
-    coeffs = torch.zeros((2, 4, 49), dtype=torch.float64, device=device)
-    u = torch.full((2, 7), 3.5, dtype=torch.float64, device=device)
+    coeffs = torch.zeros((2, 4, 49), dtype=dtype, device=device)
+    u = torch.full((2, 7), 3.5, dtype=dtype, device=device)
     return geom, coeffs, u
 
 
@@ -117,6 +118,15 @@ def test_entry_points_without_device_need_the_card(monkeypatch):
     assert info['params'].shape == (3, 4)
 
 
+def test_working_dtype_is_float64_on_the_card():
+    """The card computes in float64 like the CPU (ROADMAP C.1, C.2)."""
+    for dev in ('cuda', 'cpu', torch.device('cuda', 0)):
+        assert device.dtype_for(dev) == torch.float64
+        assert device.complex_dtype_for(dev) == torch.complex128
+    assert device.complex_of(torch.float32) == torch.complex64
+    assert device.complex_of(torch.float64) == torch.complex128
+
+
 def test_default_device_is_cuda_when_present(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     assert device.default_device() == torch.device('cuda')
@@ -132,14 +142,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernel_wrappers_reject_float64_cuda_tensors(cuda_device):
-    geom, coeffs, u = _spline_inputs(cuda_device)
+@pytest.mark.parametrize('rdtype,cdtype', [
+    (torch.float16, torch.complex32), (torch.bfloat16, torch.complex64)])
+def test_kernel_wrappers_reject_float64_cuda_tensors(cuda_device, rdtype,
+                                                     cdtype):
+    """The kernels take float64 (the card's working type) and float32;
+    any other dtype raises (no fallback).  Named from when the kernels
+    took float32 alone and float64 was the refused type."""
+    geom, coeffs, u = _spline_inputs(cuda_device, rdtype)
     with pytest.raises(TypeError):
         spline_eval.spline_eval_index(geom, coeffs, u)
     with pytest.raises(TypeError):
         spline_eval.spline_eval_index_vjp(geom, u, u, 49)
     with pytest.raises(TypeError):
-        ccf_chisq.ccf_chisq(*_ccf_inputs(cuda_device))
+        ccf_chisq.ccf_chisq(*_ccf_inputs(cuda_device, cdtype, rdtype))
 
 
 def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):

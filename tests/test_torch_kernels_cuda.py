@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (kernel A, its adjoint, kernel B) against
-their plain PyTorch versions on the card, at ragged shapes.  Imports
+"""The port's CUDA kernels (kernel A, its adjoint, kernel B), in their
+float32 and float64 forms, against their plain PyTorch versions on the
+card, at ragged shapes and at the main path's.  Imports
 no jax (the card's machine has none): run there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_import.py \\
@@ -24,6 +25,14 @@ A_TOL = 1e-5
 # the adjoint's: float32 sums of a run of queries in another order than
 # scatter_add's, relative to the largest |dcoeffs| of the row set
 ADJ_TOL = 1e-5
+# the float64 forms: the same number of rounding errors as each float32
+# limit allows, at float64's unit roundoff (2^-53 against 2^-24)
+F64_SCALE = 2.0**-29
+TOL = {torch.float32: dict(A=A_TOL, B=B_TOL, ADJ=ADJ_TOL),
+       torch.float64: dict(A=A_TOL * F64_SCALE, B=B_TOL * F64_SCALE,
+                           ADJ=ADJ_TOL * F64_SCALE)}
+COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
+DTYPES = [torch.float32, torch.float64]
 
 
 @pytest.fixture
@@ -33,9 +42,10 @@ def cuda_device():
     return torch.device('cuda', 0)
 
 
-def _ccf_inputs(nb, nt, nf, nv, seed, device):
+def _ccf_inputs(nb, nt, nf, nv, seed, device, dtype=torch.float32):
     """Bank and exposure rFFTs of real series (positive T2 and IV, so
-    c1 > 0) and the DFT-at-lag matrices, complex64/float32 on device."""
+    c1 > 0) and the DFT-at-lag matrices, complex and real of ``dtype``
+    on device."""
     rng = np.random.RandomState(seed)
     n = max(1, 2 * (nf - 1))
     tm = 1.0 + 0.1 * rng.normal(size=(nt, n))
@@ -46,8 +56,8 @@ def _ccf_inputs(nb, nt, nf, nv, seed, device):
             np.conj(np.fft.rfft(ivar, axis=1))]
     ecos, esin = ccf.dft_mats(dict(npoints=n, logl0=0.0, logl1=n * 1e-4),
                               np.linspace(-400.0, 400.0, nv), device,
-                              torch.float32)
-    return [torch.as_tensor(c, dtype=torch.complex64, device=device)
+                              dtype)
+    return [torch.as_tensor(c, dtype=COMPLEX[dtype], device=device)
             for c in cplx] + [ecos, esin]
 
 
@@ -63,24 +73,44 @@ def _assert_close(got, want, tol):
     assert err <= tol * scale, (err, scale)
 
 
-# T >= 128 (a block's rows) gives every row its own template slot, and
-# at B = 37 row blocks cross fiber boundaries
+# T >= 128 (the float32 kernel's block rows; 64 in float64) gives every
+# row its own template slot, and at B = 37 row blocks cross fiber
+# boundaries; in float64 B = 1 and 37 are split over F
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('continuum', [True, False])
 @pytest.mark.parametrize('nb,nt,nf,nv',
                          list(itertools.product((1, 37), (1, 108, 129, 216),
                                                 (1, 2049), (1, 401))))
-def test_kernel_b_matches_plain(cuda_device, continuum, nb, nt, nf, nv):
+def test_kernel_b_matches_plain(cuda_device, continuum, nb, nt, nf, nv,
+                                dtype):
     args = _ccf_inputs(nb, nt, nf, nv, seed=nb + nt + nf + nv,
-                       device=cuda_device)
+                       device=cuda_device, dtype=dtype)
     before = ccf_chisq.launches
     got = ccf_chisq.ccf_chisq(*args, continuum=continuum)
     assert ccf_chisq.launches == before + 1
     want = ccf_chisq.ccf_chisq_plain(*args, continuum=continuum)
-    assert got.shape == (nb, nt, nv)
-    _assert_close(got, want, B_TOL)
+    assert got.shape == (nb, nt, nv) and got.dtype == dtype
+    _assert_close(got, want, TOL[dtype]['B'])
 
 
-def _spline_case(log_step, npix, ncoef, rows_per_coeff, seed, device):
+@pytest.mark.parametrize('continuum', [True, False])
+@pytest.mark.parametrize('nb', [1, 500, 1000])
+def test_kernel_b_f64_at_path_shapes(cuda_device, continuum, nb):
+    """The float64 kernel at the path's T, F, V (108 templates, 2049
+    frequencies, 401 velocities): B = 1 (ccf.fit, split over F), 500
+    (an exposure) and 1000 (a driver group); two launches give the same
+    bits (the slices are added in order, no atomics)."""
+    args = _ccf_inputs(nb, 108, 2049, 401, seed=nb, device=cuda_device,
+                       dtype=torch.float64)
+    got = ccf_chisq.ccf_chisq(*args, continuum=continuum)
+    again = ccf_chisq.ccf_chisq(*args, continuum=continuum)
+    want = ccf_chisq.ccf_chisq_plain(*args, continuum=continuum)
+    _assert_close(got, want, TOL[torch.float64]['B'])
+    assert torch.equal(got, again)
+
+
+def _spline_case(log_step, npix, ncoef, rows_per_coeff, seed, device,
+                 dtype=torch.float32):
     """Coefficients of smooth random spectra on a 4096-knot grid and
     Doppler-shifted queries, with a NaN, out-of-range queries and (in
     shared mode) one row whose queries are not monotone."""
@@ -104,19 +134,21 @@ def _spline_case(log_step, npix, ncoef, rows_per_coeff, seed, device):
         u[1] = rng.permutation(u[1])
     geom_d = spline.SplineGeometry.from_knots(xs, log_step,
                                               device=device)
-    to = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+    to = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype,
                                    device=device).contiguous()
     return geom_d, to(coeffs), to(u)
 
 
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('log_step', [True, False])
 @pytest.mark.parametrize('npix', [1023, 1024])
 @pytest.mark.parametrize('ncoef,rows_per_coeff', [(300, 1), (3, 401),
                                                   (2, 16), (5, 3)])
 def test_kernel_a_matches_plain(cuda_device, log_step, npix, ncoef,
-                                rows_per_coeff):
+                                rows_per_coeff, dtype):
     geom, coeffs, u = _spline_case(log_step, npix, ncoef, rows_per_coeff,
-                                   seed=npix + ncoef, device=cuda_device)
+                                   seed=npix + ncoef, device=cuda_device,
+                                   dtype=dtype)
     before = (spline_eval.launches, spline_eval.row_launches,
               spline_eval.shared_launches)
     got = spline_eval.spline_eval_index(geom, coeffs, u, rows_per_coeff)
@@ -128,7 +160,23 @@ def test_kernel_a_matches_plain(cuda_device, log_step, npix, ncoef,
     want = spline_eval.spline_eval_index_plain(geom, coeffs, u,
                                                rows_per_coeff)
     assert torch.isnan(want).sum() == 1
-    _assert_close(got, want, A_TOL)
+    assert got.dtype == dtype
+    _assert_close(got, want, TOL[dtype]['A'])
+
+
+@pytest.mark.parametrize('rows_per_coeff', [1, 401])
+@pytest.mark.parametrize('nfib', [1, 500, 1000])
+def test_kernel_a_f64_at_path_shapes(cuda_device, nfib, rows_per_coeff):
+    """The float64 kernel at the path's shapes: one trial per fiber
+    (per-row mode) or 401 velocities per fiber (shared mode, 401000 rows
+    at a driver group), 1024 pixels on the 4096-knot grid."""
+    geom, coeffs, u = _spline_case(True, 1024, nfib, rows_per_coeff,
+                                   seed=nfib, device=cuda_device,
+                                   dtype=torch.float64)
+    got = spline_eval.spline_eval_index(geom, coeffs, u, rows_per_coeff)
+    want = spline_eval.spline_eval_index_plain(geom, coeffs, u,
+                                               rows_per_coeff)
+    _assert_close(got, want, TOL[torch.float64]['A'])
 
 
 def test_kernel_a_shared_above_65535_rows(cuda_device):
@@ -141,14 +189,15 @@ def test_kernel_a_shared_above_65535_rows(cuda_device):
     _assert_close(got, want, A_TOL)
 
 
-def _adjoint_case(log_step, rows, npix, nm1, seed, device, kind='mixed'):
+def _adjoint_case(log_step, rows, npix, nm1, seed, device, kind='mixed',
+                  dtype=torch.float32):
     """Queries of an arm's pixels Doppler-shifted per row on an
     (nm1 + 1)-knot grid and a random upstream gradient.  ``kind``:
     'mixed' adds a NaN, out-of-range queries and a row in reverse order;
     'constant' puts every query in one interval, 'below' / 'above' every
     query out of range on that side (u still increasing); 'descent'
     moves the last query of every other row back to an earlier
-    interval."""
+    interval; 'monotone' keeps the shifted rows as they are."""
     rng = np.random.RandomState(seed)
     n = nm1 + 1
     xs = np.exp(np.linspace(np.log(4550.0), np.log(5450.0), n)) \
@@ -176,14 +225,14 @@ def _adjoint_case(log_step, rows, npix, nm1, seed, device, kind='mixed'):
     elif kind == 'descent':
         u[::2, -1] = u[::2, npix // 3]
     g = rng.normal(size=(rows, npix))
-    to = lambda a: torch.as_tensor(np.ascontiguousarray(a),
-                                   dtype=torch.float32, device=device)
+    to = lambda a: torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
     return geom, to(u), to(g)
 
 
 def _assert_adjoint_close(got, want):
-    """NaN where the plain version has NaN, else within ADJ_TOL of the
-    largest finite |want|."""
+    """NaN where the plain version has NaN, else within the adjoint's
+    limit for the dtype of the largest finite |want|."""
     torch.cuda.synchronize()
     assert got.shape == want.shape
     nan = torch.isnan(want)
@@ -191,23 +240,27 @@ def _assert_adjoint_close(got, want):
     fin = want[~nan]
     scale = float(fin.abs().max()) if fin.numel() else 0.0
     err = float((got[~nan] - fin).abs().max()) if fin.numel() else 0.0
-    assert err <= ADJ_TOL * max(scale, 1e-30), (err, scale)
+    assert err <= TOL[got.dtype]['ADJ'] * max(scale, 1e-30), (err, scale)
 
 
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('log_step', [True, False])
 @pytest.mark.parametrize('rows,npix,nm1',
                          list(itertools.product((1, 37, 500), (1, 1023, 1024),
                                                 (49, 4095, 4097)))
                          + [(37, 2500, 49), (5, 2500, 4095), (1, 5000, 49),
                             (500, 5000, 49), (37, 5000, 4097)])
-def test_adjoint_matches_plain(cuda_device, log_step, rows, npix, nm1):
+def test_adjoint_matches_plain(cuda_device, log_step, rows, npix, nm1,
+                               dtype):
     """Ragged shapes: n-1 not a multiple of the kernel's segment of
-    intervals and not 4-aligned (4095, 4097); 2500 and 5000 queries
-    span several tiles (on 49 intervals a run of one interval, ~100
-    queries, crosses a tile boundary; on 4097 runs lie on both sides of
-    each segment boundary)."""
+    intervals (4096 in float32, 2048 in float64) and not 4-aligned
+    (4095, 4097); 2500 and 5000 queries span several tiles (on 49
+    intervals a run of one interval, ~100 queries, crosses a tile
+    boundary; on 4095 and 4097 runs lie on both sides of each segment
+    boundary)."""
     geom, u, g = _adjoint_case(log_step, rows, npix, nm1,
-                               seed=rows + npix + nm1, device=cuda_device)
+                               seed=rows + npix + nm1, device=cuda_device,
+                               dtype=dtype)
     before = spline_eval.adjoint_launches
     got = spline_eval.spline_eval_index_vjp(geom, u, g, nm1)
     assert spline_eval.adjoint_launches == before + 1
@@ -243,17 +296,19 @@ def test_adjoint_rows_in_one_interval(cuda_device, kind, rows, nm1):
     assert (got != 0).any(1).sum(1).eq(1).all()
 
 
+@pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('log_step', [True, False])
 @pytest.mark.parametrize('rows', [1, 500])
 @pytest.mark.parametrize('nm1', [49, 4095, 4097])
 def test_adjoint_sums_in_position_order_on_every_row(cuda_device, log_step,
-                                                     rows, nm1):
+                                                     rows, nm1, dtype):
     """A row whose last query steps back to an earlier interval takes the
     kernel's path for rows that are not monotone; it must give the same
     bits as the monotone row without that query on every interval the
     query does not touch (both paths sum in position order)."""
     geom, u, g = _adjoint_case(log_step, rows, 1024, nm1, seed=rows + nm1,
-                               device=cuda_device, kind='descent')
+                               device=cuda_device, kind='descent',
+                               dtype=dtype)
     got = spline_eval.spline_eval_index_vjp(geom, u, g, nm1)
     _assert_adjoint_close(got, spline_eval.spline_eval_index_vjp_plain(
         geom, u, g, nm1))
@@ -268,6 +323,21 @@ def test_adjoint_sums_in_position_order_on_every_row(cuda_device, log_step,
     assert not torch.equal(got, cut)
 
 
+@pytest.mark.parametrize('rows', [1, 500, 1000])
+def test_adjoint_f64_at_path_shapes(cuda_device, rows):
+    """The float64 adjoint at the polish's shape (one row of 1024
+    queries per fiber on 4095 intervals: two segments of 2048 a row),
+    for 1, 500 and 1000 fibers; two launches give the same bits."""
+    geom, u, g = _adjoint_case(True, rows, 1024, 4095, seed=rows,
+                               device=cuda_device, kind='monotone',
+                               dtype=torch.float64)
+    got = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
+    again = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
+    _assert_adjoint_close(got, spline_eval.spline_eval_index_vjp_plain(
+        geom, u, g, 4095))
+    assert torch.equal(got, again)
+
+
 def test_adjoint_of_a_nan_query_is_nan_in_interval_0(cuda_device):
     geom, u, g = _adjoint_case(True, 3, 64, 4095, seed=2,
                                device=cuda_device)
@@ -278,9 +348,10 @@ def test_adjoint_of_a_nan_query_is_nan_in_interval_0(cuda_device):
     assert not torch.isnan(got[2, :, 1:]).any()
 
 
-def test_adjoint_is_bit_reproducible(cuda_device):
+@pytest.mark.parametrize('dtype', DTYPES)
+def test_adjoint_is_bit_reproducible(cuda_device, dtype):
     geom, u, g = _adjoint_case(True, 500, 1024, 4095, seed=3,
-                               device=cuda_device)
+                               device=cuda_device, dtype=dtype)
     a = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
     b = spline_eval.spline_eval_index_vjp(geom, u, g, 4095)
     torch.cuda.synchronize()
@@ -358,26 +429,26 @@ def _ccf_contraction(sds, cfg, bank):
 
 
 # kernel B against its plain version in ccf.fit's best chi-square
-# curve, relative to max|contraction|: on the H100 2.9e-6 here and
-# 3.6e-6 at chip_smoke.py's full width (B_TOL, 1e-4, is the kernel's
-# contract on random inputs, too loose to see a velocity shift here)
-CCF_CURVE_TOL = 4e-6
+# curve, relative to max|contraction|: float64 on both sides (B_TOL in
+# float64, see TOL)
+CCF_CURVE_TOL = B_TOL * F64_SCALE
+# the card's ccf.fit velocity against the CPU float64 run's (km/s)
+CCF_VEL_TOL = 0.01
 
 
 def test_single_object_ccf_fit_on_the_card(cuda_device, monkeypatch):
-    """ccf.fit on the card (kernel B at one fiber row, once per arm)
-    against two witnesses on the same input: the card with kernel B's
-    plain version (float32 cuBLAS), which tells the kernel's own error
-    from float32 arithmetic, and the CPU float64 run.  The same template
-    in all three, and the kernel run's best chi-square curve within
-    CCF_CURVE_TOL of max|contraction| of the plain run's (both share the
-    card's float32 preprocessing, so they differ by the contraction
-    alone); a velocity shift of one grid step would break that.  The
-    velocities are printed (pytest -s), not held: the contraction's
-    terms reach 4e6 while the curve rises by ~1 per 5 km/s step at its
-    minimum, so float32 rounding alone moves the parabola's vertex by
-    steps (on the H100 the plain float32 run by 7.3 km/s, the kernel
-    by 1.3; ROADMAP C)."""
+    """ccf.fit on the card (kernel B in float64 at one fiber row, once
+    per arm) against two witnesses on the same input: the card with
+    kernel B's plain version, which tells the kernel's own error from
+    the rest of the card's arithmetic, and the CPU float64 run.  The same
+    template in all three, the kernel run's best chi-square curve within
+    CCF_CURVE_TOL of max|contraction| of the plain run's (a velocity
+    shift of one grid step would break that), and its velocity within
+    CCF_VEL_TOL of the CPU's.  In float32 the
+    contraction's terms (up to 4e6) rounded the curve, which rises by ~1
+    per 5 km/s step at its minimum, enough to move the velocity by
+    1.3-7.3 km/s on this input (ROADMAP C.2, repaired by the card's
+    float64)."""
     from rvspecfit_torch import convert, simulation
     bank = simulation.build_ccf_bank(3, 3, 3, 2, npix=512, every=2,
                                      step=1.0, device='cpu')
@@ -402,14 +473,16 @@ def test_single_object_ccf_fit_on_the_card(cuda_device, monkeypatch):
     curve = {k: r['best_ccf'] for k, r in res.items()}
     diff = np.abs(curve['kernel'] - curve['plain']).max()
     shift = np.abs(row[1:] - row[:-1]).max()
+    dv = abs(res['kernel']['best_vel'] - res['cpu']['best_vel'])
     print(f'ccf.fit best_vel: kernel {res["kernel"]["best_vel"]!r}, plain '
-          f'float32 {res["plain"]["best_vel"]!r}, CPU float64 '
+          f'{res["plain"]["best_vel"]!r}, CPU float64 '
           f'{res["cpu"]["best_vel"]!r} km/s; best curve max|kernel - '
           f'plain| {diff!r}, max|plain - CPU| '
           f'{np.abs(curve["plain"] - curve["cpu"]).max()!r}, limit '
           f'{tol!r}; a one-step shift changes it by up to {shift!r}')
     assert shift > tol
     assert diff <= tol
+    assert dv <= CCF_VEL_TOL
     assert abs(res['cpu']['best_vel'] - truth['vel'][0]) < 30.0
 
 

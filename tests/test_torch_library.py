@@ -102,10 +102,12 @@ def test_template_model_matches_reference(desi_library, setup):
 
 
 def test_other_interpolation_types_raise(desi_library):
+    """Types other than regulargrid and nn (ported since the NN slice)
+    raise, naming the ROADMAP item."""
     fd, dats = library.read_template_artifacts('desi_b',
                                                _config(desi_library))
-    for itype in ('nn', 'triangulation', None):
-        with pytest.raises(ValueError, match='not ported'):
+    for itype in ('triangulation', None):
+        with pytest.raises(ValueError, match='not ported.*ROADMAP A5'):
             library.template_model_from_artifacts(
                 dict(fd, interpolation_type=itype), dats, device='cpu')
 

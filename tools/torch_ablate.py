@@ -11,6 +11,9 @@ and the CUDA toolkit):
 Each variant is a build of the kernel's source with its own RVST_ABLATE
 switch (the top of each source says what each level leaves out).
 
+Both kernels are timed in their float32 form, through the float32
+launchers the tool binds.
+
 ccf_chisq, kernel B (rvspecfit_torch/csrc/ccf_chisq.cu), timed with CUDA
 events (10 launches after one), each line with its TF32 MMA rate:
 
@@ -113,7 +116,8 @@ def ccf_bench(device):
     from rvspecfit_torch.ops import ccf_chisq, cuda_build
     arms, _ = chip_smoke.make_arms()
     kargs, cont = chip_smoke.kernel_b_args(
-        arms, convert.ccf_bank(*chip_smoke.make_bank(), device=device))
+        arms, convert.ccf_bank(*chip_smoke.make_bank(), device=device,
+                               dtype=torch.float32))
     ops = ccf_chisq.kernel_operands(*kargs)
     nt, nf = kargs[0].shape
     nb, nv = kargs[2].shape[0], kargs[4].shape[1]
@@ -147,7 +151,7 @@ def adjoint_bench(device):
     """Kernel A's adjoint at the polish's shape."""
     import torch
     from rvspecfit_torch.ops import cuda_build, spline_eval
-    tm = chip_smoke.make_template_model(device)
+    tm = chip_smoke.make_template_model(device, dtype=torch.float32)
     arms, truth = chip_smoke.make_arms()
     u, g, nm1 = chip_smoke.adjoint_inputs(tm, arms, truth, device)
     geo = (int(tm.geom.log_step), tm.geom.x0, tm.geom.step,

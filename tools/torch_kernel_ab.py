@@ -22,7 +22,8 @@ their inputs, chip_smoke.cold_inputs); the plain versions and, for
 kernel B with continuum, one fp32 torch.matmul of the materialized
 contraction (the library yardstick) are timed beside them.  The inputs
 are chip_smoke.py's: the 500-fiber, 3-arm exposure of bench.py's
-workload.  Prints one line per case and, last, a JSON object.
+workload, in float32 (the baselines' launchers are the float32 form's).
+Prints one line per case and, last, a JSON object.
 """
 import argparse
 import json
@@ -214,7 +215,8 @@ def main():
         chip_smoke.log(f'  baseline {name}: ' + ' | '.join(
             line.strip() for line in text.splitlines()
             if 'registers' in line or 'spill' in line))
-    tm, arms, truth, bank = chip_smoke.make_workload(device)
+    tm, arms, truth, _ = chip_smoke.make_workload(device,
+                                                  dtype=torch.float32)
     rows = []
     coeffs, cases = chip_smoke.kernel_a_cases(tm, arms, truth, device)
     for mode, u, rpc in cases:
@@ -263,8 +265,9 @@ def main():
                          library_ms=None, bound_kind='hbm_bytes',
                          bound_ms=chip_smoke.adjoint_bound_ms(u, nm1),
                          rel_err_baseline=errs[0], rel_err=errs[1]))
-    banks = [('continuum', convert.ccf_bank(*bank, device=device)),
-             ('no-continuum', chip_smoke.make_nocont_bank(device))]
+    banks = [(mode, convert.ccf_bank(*chip_smoke.make_bank(
+        continuum=mode == 'continuum'), device=device, dtype=torch.float32))
+        for mode in ('continuum', 'no-continuum')]
     for mode, bank_d in banks:
         kargs, cont = chip_smoke.kernel_b_args(arms, bank_d)
         call = lambda: ccf_chisq.ccf_chisq(*kargs, continuum=cont)
@@ -284,8 +287,8 @@ def main():
                          baseline_ms=old, ms=new,
                          plain_ms=chip_smoke.cuda_time(plain, REPS['plain']),
                          library_ms=library_ms, bound_kind='tf32x3_flops',
-                         bound_ms=chip_smoke.ccf_bound_ms(*shape,
-                                                          1 if cont else 2),
+                         bound_ms=chip_smoke.ccf_bound(
+                             *shape, 1 if cont else 2, 'float32')[0],
                          rel_err_baseline=errs[0], rel_err=errs[1]))
     for r in rows:
         chip_smoke.log(
