@@ -13,11 +13,12 @@ and the CUDA toolkit):
    rvspecfit_torch/_build/.
 2. Compares each kernel, in its float64 and its float32 form, with its
    plain PyTorch version on the card at the main path's shapes (kernel
-   A in both modes, its adjoint at the polish's shape, kernel B in both
-   modes), and times both with CUDA events beside the least time the
-   card could take for the work (bound_ms) and, for kernel B, one
-   torch.matmul of its materialized contraction in the same dtype
-   (library_ms, a yardstick the port never calls).
+   A in both modes, its adjoint at the polish's shape, kernel B with
+   and without continuum, two launches bit-equal), and times both with
+   CUDA events beside the least time the card could take for the work
+   (bound_ms) and, for kernel B, one torch.matmul of its materialized
+   contraction in the same dtype (library_ms, a yardstick the port
+   never calls, timed as the kernel is).
 3. Drives survey/desi._run_group_fit on bench.py's workload: a
    synthetic 500-fiber, 3-arm exposure against the 864-template grid
    (built through pipeline/library.template_model_from_artifacts) ->
@@ -53,7 +54,8 @@ and the CUDA toolkit):
    (scan, float64-bookkept Nelder-Mead, BFGS with the autograd
    gradient, refinement, models, AD Hessian: kernel A in both modes
    and its adjoint), firstguess on 2 of them and one process with a
-   Gaussian resolution matrix per arm; kernel B timed at B = 1.  Checks
+   Gaussian resolution matrix per arm; kernel B checked and timed at
+   B = 1 in both modes.  Checks
    RV recovery, every kernel launched, and the card against the CPU
    float64 run of the same calls: ccf.fit's template and velocity
    (within 0.01 km/s, ROADMAP C.2), velocities and parameters within
@@ -118,7 +120,9 @@ def log(msg):
 
 
 def cuda_time(fn, reps, graph=False):
-    """Mean ms per call of fn() on the card, after one warm-up call.
+    """Mean ms per call of fn() on the card, after one warm-up call
+    (``reps`` with ``graph``: one on each of cold_inputs' copies, so
+    that what a wrapper builds once per input is built before capture).
 
     Eager calls time the host's dispatch too where it is slower than
     the device; ``graph=True`` captures ``reps`` calls in a CUDA graph
@@ -126,7 +130,8 @@ def cuda_time(fn, reps, graph=False):
     times the device alone (for launches of a few microseconds).
     """
     import torch
-    fn()
+    for _ in range(reps if graph else 1):
+        fn()
     torch.cuda.synchronize()
     run, calls = fn, reps
     if graph:
@@ -420,9 +425,13 @@ def check_kernel_b(arms, banks, device):
 def kernel_b_case(args, cont, label, form, graph=False):
     """Kernel B's wrapper vs its plain version on ``args``, both timed,
     and the continuum contraction as one torch.matmul in the same
-    dtype (library_ms).  ``graph``: time the wrapper from CUDA-graph
-    replays over L2_COPIES copies of its inputs (calls of a few
-    microseconds, inputs from HBM), beside the eager time."""
+    dtype (library_ms).  The float64 kernel builds its bank operands
+    on its first call on a bank, as on the path (on the cold copies in
+    cuda_time's warm-up).  ``graph``: time the wrapper and the matmul
+    from CUDA-graph replays over L2_COPIES copies of their inputs
+    (calls of a few microseconds, inputs from HBM), each beside its
+    warm eager time; at many rows the inputs exceed L2 anyway and both
+    are timed eagerly."""
     import torch
     from rvspecfit_torch.ops import ccf_chisq
 
@@ -430,6 +439,9 @@ def kernel_b_case(args, cont, label, form, graph=False):
         return ccf_chisq.ccf_chisq(*a, continuum=cont)
     err, scale = compare(call(*args),
                          ccf_chisq.ccf_chisq_plain(*args, continuum=cont))
+    again = call(*args)
+    check(bool(torch.equal(again, call(*args))),
+          f'{label}: two launches differ')
     eager_ms = cuda_time(lambda: call(*args), 10)
     ms = cuda_time(cold_inputs(call, *args), 2 * L2_COPIES, graph=True) \
         if graph else eager_ms
@@ -438,23 +450,31 @@ def kernel_b_case(args, cont, label, form, graph=False):
     shape = (args[2].shape[0], args[0].shape[0], args[0].shape[1],
              args[4].shape[1])
     bound, bound_by = ccf_bound(*shape, 1 if cont else 2, form)
-    library_ms = None
+    library_ms = library_eager_ms = None
     if cont:
-        ops, e = ccf_chisq.contraction_operands(*args, continuum=True)
-        library_ms = cuda_time(lambda: torch.matmul(ops[0], e), 5)
-        del ops, e
+        mat, e = ccf_chisq.contraction_operands(*args, continuum=True)
+        mat = mat[0]
+        library_eager_ms = cuda_time(lambda: torch.matmul(mat, e), 5)
+        library_ms = cuda_time(cold_inputs(torch.matmul, mat, e),
+                               2 * L2_COPIES, graph=True) \
+            if graph else library_eager_ms
+        del mat, e
     lim = TOL[form]['B']
     log(f'{label}: at B,T,F,V = {shape}: max|diff| {err:.3e}, '
-        f'{err / scale:.3e} of max|out| (limit {lim:.3e}); kernel '
-        f'{ms:.4f} ms (eager {eager_ms:.4f} ms), plain {plain_ms:.3f} ms, '
-        f'library '
-        f'{library_ms if library_ms is None else round(library_ms, 4)}'
-        f' ms, bound {bound:.4f} ms ({bound_by}) -> '
+        f'{err / scale:.3e} of max|out| (limit {lim:.3e}), relaunch '
+        f'bit-equal; kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain '
+        f'{plain_ms:.3f} ms, library '
+        f'{library_ms if library_ms is None else round(library_ms, 4)} ms ('
+        + ('graph replays over cold copies like the kernel; warm eager '
+           f'{library_eager_ms:.4f} ms' if graph and cont else
+           'eager: its (B T, 2F) operand exceeds L2') +
+        f'), bound {bound:.4f} ms ({bound_by}) -> '
         f'{100 * bound / ms:.1f}% of it')
     check(np.isfinite(err) and err <= lim * scale,
           f'{label} disagrees with its plain version')
     return dict(max_abs_err=err, ms=ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=bound_by, library_ms=library_ms)
+                bound_ms=bound, bound_by=bound_by, library_ms=library_ms,
+                library_eager_ms=library_eager_ms)
 
 
 def adjoint_inputs(tm, arms, truth, device):
@@ -1309,16 +1329,21 @@ def run_single_object(models, banks):
     return out
 
 
-def kernel_b_single(sd, bank):
+def kernel_b_single(sd, banks):
     """Kernel B at one fiber row, as ccf.fit launches it on the
-    SpecData ``sd`` (prepare_arm_batch at B = 1), in both forms."""
+    SpecData ``sd`` (prepare_arm_batch at B = 1) with each of ``banks``
+    ({mode: device bank}), in both forms: {form: {mode: numbers}}."""
     from rvspecfit_torch.fit.batch import BatchArm
-    args, cont = kernel_b_args([BatchArm(sd.name, sd.lam, sd.spec[None],
-                                         sd.espec[None]**-2.0)], bank)
-    return {form: kernel_b_case(as_form(args, form), cont,
-                                f'kernel B at B = 1 (ccf.fit) {form}', form,
-                                graph=True)
-            for form in FORMS}
+    result = {form: {} for form in FORMS}
+    for mode, bank in banks.items():
+        args, cont = kernel_b_args([BatchArm(sd.name, sd.lam, sd.spec[None],
+                                             sd.espec[None]**-2.0)], bank)
+        for form in FORMS:
+            result[form][mode] = kernel_b_case(
+                as_form(args, form), cont,
+                f'kernel B {mode} at B = 1 (ccf.fit) {form}', form,
+                graph=True)
+    return result
 
 
 # ------------------------------------------------------------------
@@ -1559,6 +1584,8 @@ def kernel_entries(form, a, a_grp, b, b_grp, b1, adj, adj_grp, counts,
     shared, row = a['shared'], a['per-row']
     g_shared, g_row = a_grp['shared'], a_grp['per-row']
     cont = b['continuum']
+    b_grp, b_grp_nc = b_grp['continuum'], b_grp['no-continuum']
+    b1, b1_nc = b1['continuum'], b1['no-continuum']
     return [
         dict(name='spline_eval' + suffix, route='cuda', form=form,
              source='rvspecfit_torch/csrc/spline_eval.cu',
@@ -1594,8 +1621,8 @@ def kernel_entries(form, a, a_grp, b, b_grp, b1, adj, adj_grp, counts,
              replaces='rvspecfit_tpu/ops/pallas_ccf.py:159',
              launches=counts['ccf_chisq'], **launches('ccf_chisq'),
              launches_per_ccf_fit=per_call('ccf_chisq', 'ccf_launches'),
-             max_abs_err=max(cont['max_abs_err'], b_grp['max_abs_err'],
-                             b1['max_abs_err']),
+             max_abs_err=max(r['max_abs_err'] for r in (
+                 *b.values(), b_grp, b_grp_nc, b1, b1_nc)),
              ms=cont['ms'], plain_ms=cont['plain_ms'],
              bound_ms=cont['bound_ms'], bound_by=cont['bound_by'],
              library_ms=cont['library_ms'],
@@ -1603,9 +1630,13 @@ def kernel_entries(form, a, a_grp, b, b_grp, b1, adj, adj_grp, counts,
                  'max_abs_err', 'ms', 'plain_ms', 'bound_ms')},
              **{f'{k}_B{group_n}': b_grp[k] for k in (
                  'ms', 'plain_ms', 'bound_ms', 'library_ms')},
+             **{f'{k}_no_continuum_B{group_n}': b_grp_nc[k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms')},
              **{f'{k}_B1': b1[k] for k in (
                  'max_abs_err', 'ms', 'eager_ms', 'plain_ms', 'bound_ms',
-                 'bound_by', 'library_ms')}),
+                 'bound_by', 'library_ms', 'library_eager_ms')},
+             **{f'{k}_no_continuum_B1': b1_nc[k] for k in (
+                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms')}),
         dict(name='spline_eval_adjoint' + suffix, route='cuda', form=form,
              source='rvspecfit_torch/csrc/spline_eval.cu',
              replaces='rvspecfit_tpu/fit/batch.py:396',
@@ -1681,11 +1712,10 @@ def main():
           'the card\'s working dtype is not float64')
     bank_d = convert.ccf_bank(*bank, device=device)
     banks = {a.name: bank_d for a in arms}
+    both_b = {'continuum': bank_d, 'no-continuum': make_nocont_bank(device)}
     res_a = check_kernel_a(tm, arms, truth, device)
     res_adj = check_adjoint(tm, arms, truth, device)
-    res_b = check_kernel_b(arms, {'continuum': bank_d,
-                                  'no-continuum': make_nocont_bank(device)},
-                           device)
+    res_b = check_kernel_b(arms, both_b, device)
 
     group = group_fit_pass(tm, arms, truth, banks, 'float64')
     tm32, bank32 = float32_models(device, bank)
@@ -1713,8 +1743,7 @@ def main():
             'group:')
         res_a_grp = check_kernel_a(tm, grp['arms'], drv['truth'], device)
         res_adj_grp = check_adjoint(tm, grp['arms'], drv['truth'], device)
-        res_b_grp = check_kernel_b(grp['arms'], {'continuum': bank_d},
-                                   device)
+        res_b_grp = check_kernel_b(grp['arms'], both_b, device)
         per_group = {form: [r['launches'] for r in d['records']]
                      for form, d in (('float64', drv), ('float32', drv32))}
         drv['records'] = drv32['records'] = grp = None
@@ -1737,7 +1766,7 @@ def main():
         bks = {'cuda': bank_d, 'cpu': bank_cpu, 'cuda32': bank32}
         single = run_single_object(models, bks)
         objs, _ = single_objects()
-        res_b1 = kernel_b_single(objs[0][0], bank_d)
+        res_b1 = kernel_b_single(objs[0][0], both_b)
         wv = run_weave(workdir, models, bks)
         bf = run_bruteforce(workdir, tm, bank_d)
         nn_run = run_nn(workdir, device)
@@ -1762,7 +1791,7 @@ def main():
                                            counts=single['counts32'])
         kernels += kernel_entries(
             form, res_a[form], res_a_grp[form], res_b[form],
-            res_b_grp[form]['continuum'], res_b1[form], res_adj[form],
+            res_b_grp[form], res_b1[form], res_adj[form],
             res_adj_grp[form], drv_form['counts'][form], per_group[form],
             single_form, {f: wv[f]['counts'][f] for f in FORMS})
     for k in kernels:

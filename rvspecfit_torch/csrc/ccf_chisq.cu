@@ -1,7 +1,7 @@
 // Kernel B: fused CCF chi-square of one arm, on tensor cores: in
 // 3xTF32 for complex64 inputs (rvst_ccf_chisq), in float64 on the FP64
 // tensor cores for complex128 inputs (rvst_ccf_chisq_f64, the card's
-// working type; the second half of this file).
+// working type; the second half of this file, with its own design).
 //
 // Replaces the Pallas TPU kernel rvspecfit_tpu/ops/pallas_ccf.py
 // (_kernel, driven by ccf_chisq_pallas, called from fit/ccf.py:391).
@@ -70,11 +70,14 @@
 #include <algorithm>
 
 // RVST_ABLATE (0 when unset) builds parts of the kernel alone, to time
-// them (tools/torch_ablate.py): 1 drops the cp.async copies (the
-// shared tiles keep whatever they hold); 2 also drops the A forming,
-// the per-chunk barrier and the shared fragment loads (fragments made
-// in registers), leaving the 3xTF32 mma.sync stream; 3 is 2 with the
-// hi*hi product only.  Only 0 computes the function.
+// them (tools/torch_ablate.py).  Float form: 1 drops the cp.async
+// copies (the shared tiles keep whatever they hold); 2 also drops the A
+// forming, the per-chunk barrier and the shared fragment loads
+// (fragments made in registers), leaving the 3xTF32 mma.sync stream; 3
+// is 2 with the hi*hi product only.  Float64 form: 1 drops the bulk
+// copies (the ring's barriers still pass); 2 also the complex products
+// (A fragments made in registers); 3 also the barriers and shared loads,
+// leaving the FP64 mma.sync stream.  Only 0 computes the function.
 #ifndef RVST_ABLATE
 #define RVST_ABLATE 0
 #endif
@@ -403,58 +406,111 @@ extern "C" int rvst_ccf_chisq(const float* tt2, const float* siv,
 //
 // What bounds it on the H100: FP64 tensor-core operations, 2 M N K per
 // accumulator at 67 TFLOP/s: at B = 1000, T = 108, F = 2049, V = 401 one
-// arm is 3.55e11 FLOP, 5.3 ms.  The inputs stay in L2 but for the
-// exposure's (S, IV) at B = 1000 (65.6 MB), each read once per column
-// block.
+// arm is 3.55e11 FLOP, 5.3 ms.
 //
-// Design (simple first, the float kernel's skeleton): a block of 8 warps
-// (2 along M x 4 along N) owns 64 rows x BN velocities, each warp 32 rows
-// (two m16 tiles) x NTW n8 tiles; with continuum NTW = 7 (BN = 224, two
-// column blocks cover V = 401: the complex products are formed twice),
-// without continuum NTW = 3 (BN = 96) because two accumulators take the
-// registers.  K goes in chunks of 8 frequencies (16 K entries, two k8
-// steps: real parts against Ecos, negated imaginary parts against Esin).
-// * Operands (made by the wrapper): (T, T2) and (S, IV) interleaved per
-//   (row, frequency) as complex128 pairs, and (Ecos, Esin) interleaved
-//   per (frequency, velocity), so every copy is a 16-byte cp.async and
-//   one 16-byte shared load gives a B fragment's value for both k steps.
-// * A operand: as in the float kernel, the chunk's (T, T2) is copied once
-//   per distinct template slot and (S, IV) once per distinct fiber slot,
-//   and the block forms [Re X | -Im X] in double in shared memory, the
-//   next chunk's rows between this chunk's column tiles.
-// * Pipeline: a two-stage ring of raw inputs, a three-stage ring of B
-//   tiles and a double-buffered A tile, one barrier per chunk; the copies
-//   of chunk c + 2 fly during the MMAs of chunk c.  171 KB of shared
-//   memory with continuum: one block an SM.
-// * Split over F for few rows (the single-object ccf.fit, B = 1, has one
-//   or two row blocks): grid.z slices of the chunks each write their
-//   partial sums to a workspace, and a second kernel adds the slices in
-//   order and applies the epilogue (no atomics: relaunches give the same
-//   bits).  The wrapper picks the slices (ops/ccf_chisq.f64_splits).
-// Shared-memory strides: A rows of 20 doubles and B rows of BN + 2
-// double2 make every fragment load conflict-free.
+// What held the first float64 kernel (one block of 64 rows x 224
+// velocities, an A tile formed in shared memory, cp.async, a barrier per
+// 8 frequencies) at 35% of that bound, from its ablation at B = 1000
+// (tools/torch_ablate.py ccf_chisq --dtype float64, PERF.md): 6.87 ms of
+// MMA stream at its tiling (two column blocks of 224 cover 448 of 401
+// velocities), 0.66 ms of barriers and fragment loads, 1.60 ms of
+// forming the complex products (each twice, once per column block) and
+// 6.07 ms waiting for copies: each 64-row block read 64 templates' and
+// 224 velocities' worth of operands per frequency, ~39 GB from L2 in
+// all.  Forming is dear because FP64 FMAs and FP64 MMAs share a pipe.
+//
+// Design:
+// * Tiles of fibers x templates.  A block owns BT templates x BB fibers
+//   (BT BB = 128 rows with continuum, a power of two BT that the wrapper
+//   picks to pad least: 4 x 32 at T = 108) x 136 velocities (three
+//   column blocks cover 408 of 401: 1.7% of the MMAs multiply padding,
+//   against 10.5% before).  Per frequency a block reads BT + BB operand
+//   rows (36 at T = 108, against 64 + 1) and 136 (cos, sin) pairs: ~18
+//   GB from L2 at B = 1000.
+// * Forming in registers, once per block.  Each warp owns 16 rows x all
+//   136 velocities (17 n8 tiles, one m16 tile), so no two warps of a
+//   block form the same product: a thread forms its A fragment (rows g
+//   and g + 8 at one frequency) straight from the operands in shared
+//   memory, 8 FMAs per complex value (the wrapper scales T by -2,
+//   exactly, with continuum).  There is no A tile and no barrier between
+//   warps.
+// * A ring of 4 stages of 8 frequencies whose "full" and "empty"
+//   mbarriers let each warp run on its own (no block-wide barrier in
+//   the loop).  Warp 0 also fills it, once every warp has released a
+//   slot, with 1-D bulk copies (cp.async.bulk, no tensor map): the
+//   stage's (Ecos, Esin), the block's templates and, where the blocks
+//   fill the card, the block's fibers, each one contiguous run.  At few
+//   rows (sliced, below) each warp instead copies the S and IV of its
+//   own rows' fibers into its own slots with 16-byte cp.async that
+//   zero-fill past F: there a per-call layout would cost more than it
+//   saves, while at B = 1000 the cp.async, issued by the warps that
+//   feed the MMAs, cost 0.9 ms (64 small bulk copies a stage doubled
+//   the time; 512 cp.async a stage from warp 0 alone paced the block).
+//   A separate producer warp would put 3 warps on one SM sub-partition
+//   and cap every thread at 168 registers: the accumulators then spill.
+// * Operand layouts (ops/ccf_chisq.py), padded with zeros: (Fp / 8, T,
+//   17) complex (-2T or T, T2 interleaved, then a zero) built once per
+//   bank; (ceil(V / 136), Fp, 138, 2) real (Ecos, Esin) once per
+//   velocity grid; (Fp / 8, B, 17) complex (S, then IV, then a zero)
+//   per call where the blocks fill the card; Fp a multiple of 8.
+// * Few rows (the single-object ccf.fit, B = 1: three blocks): the
+//   chunks of 8 frequencies are split into slices (grid.z), balanced,
+//   none empty.  The slices of a block are the CTAs of a thread-block
+//   cluster; after the loop each CTA stages its sums in its own shared
+//   memory and the cluster adds them through distributed shared memory in
+//   rank order, each CTA a share of the tile.  Where the wrapper asks for
+//   more slices than a cluster holds, each cluster writes its sum to a
+//   workspace and a second kernel adds them in cluster order.  No
+//   atomics: relaunches give the same bits.
+// * Without continuum two accumulators take the registers: each warp
+//   owns 16 rows x 72 or 64 velocities (two warps a row range, 64-row
+//   blocks) and the products are formed twice.
+// Shared-memory strides: E rows of 138 double2 (% 8 == 2) and raw slots
+// of 17 double2 make every fragment load conflict-free.
 namespace f64 {
-constexpr int WM = 2, WN = 4;            // warps along M and N
-constexpr int MTILES = 2;                // m16 tiles per warp
-constexpr int THREADS = 32 * WM * WN;
-constexpr int ROWS = WM * MTILES * 16;   // rows per block (64)
-constexpr int FREQ = 8;                  // frequencies per K chunk
-constexpr int A_STRIDE = 2 * FREQ + 4;   // doubles; % 16 == 4
-constexpr int RAW = 2 * ROWS * 2 * FREQ; // double2 per raw stage
-constexpr int FORM_ROWS = THREADS / FREQ;
-constexpr int NB_STAGE = 3;              // B-operand ring depth
+constexpr int FREQ = 8;                  // frequencies per stage (2 k8 steps)
+constexpr int RING = 4;                  // stages in the ring
+constexpr int COLS = 136;                // velocities per column block
+constexpr int NT8 = COLS / 8;            // n8 tiles per column block (17)
+constexpr int E_STRIDE = COLS + 2;       // double2 per E row
+constexpr int SLOT = 2 * FREQ + 1;       // double2 per raw operand slot
+constexpr int WARPS = 8;                 // warp 0 also fills the ring
+constexpr int THREADS = 32 * WARPS;
+constexpr int BAR_BYTES = 128;           // full[RING], empty[RING]
+constexpr int E_BYTES = FREQ * E_STRIDE * 16;
+constexpr int STG_STRIDE = COLS + 2;     // doubles per staged sum row
+constexpr int MAX_CLUSTER = 8;           // CTAs a cluster (portable size)
 
-template <int NACC, int NTW>
-struct Shape {
-  static constexpr int BN = WN * NTW * 8;
-  static constexpr int B_STRIDE = BN + 2;          // double2; % 8 == 2
-  static constexpr int B_D2 = FREQ * B_STRIDE;
-  static constexpr int A_DOUBLES = NACC * ROWS * A_STRIDE;
-  static constexpr size_t SMEM_BYTES =
-      sizeof(double2) * (2 * RAW + NB_STAGE * B_D2)
-      + sizeof(double) * 2 * A_DOUBLES;
-  static_assert(B_STRIDE % 8 == 2, "B-operand stride");
+// NACC accumulators: warps along N, rows per block, n8 tiles of warp
+// column 0 (column 1 takes the rest)
+template <int NACC>
+struct Tile {
+  static constexpr int WN = NACC;
+  static constexpr int ROWS = 16 * WARPS / WN;
+  static constexpr int NT = (NT8 + WN - 1) / WN;
 };
+
+// fiber slots of one warp (its 16 rows' fibers) and raw operand slots
+// of a stage: the block's templates, then each warp's fibers
+__host__ __device__ inline int warp_fibers(int tlog) {
+  return tlog >= 4 ? 1 : 16 >> tlog;
+}
+
+__host__ __device__ inline int raw_slots(int tlog) {
+  return (1 << tlog) + WARPS * warp_fibers(tlog);
+}
+
+__host__ __device__ inline size_t stage_bytes(int nslots) {
+  return E_BYTES + (size_t)nslots * SLOT * 16;
+}
+
+// the ring, or (sliced) the staged sums of NACC x 128 rows, whichever
+// is larger
+__host__ __device__ inline size_t smem_bytes(int nslots, bool sliced) {
+  size_t ring = RING * stage_bytes(nslots);
+  size_t stg = (size_t)WARPS * 16 * STG_STRIDE * sizeof(double);
+  return BAR_BYTES + (sliced && stg > ring ? stg : ring);
+}
 }  // namespace f64
 
 __device__ __forceinline__ void mma_f64(double* c, const double* a,
@@ -466,260 +522,467 @@ __device__ __forceinline__ void mma_f64(double* c, const double* a,
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-__device__ __forceinline__ void cp_async_wait_0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-// chunks [blockIdx.z cps, + cps) of F; dst is the output (one slice) or
-// the slices' workspace (NACC planes of M x V per slice)
-template <int NACC, int NTW>
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t tx) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(tx) : "memory");
+}
+
+// until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+
+// bytes global -> this CTA's shared memory, completing on ``bar``
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(bar) : "memory");
+}
+
+// 16 bytes global -> shared, zeros where !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+// all but this thread's N most recent groups of cp.async have landed
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the double2 at this CTA's shared address ``p`` in CTA ``rank`` of
+// the cluster
+__device__ __forceinline__ double2 ld_cluster2(const double* p,
+                                               uint32_t rank) {
+  uint32_t remote;
+  double2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f64 {%0, %1}, [%2];\n"
+               : "=d"(v.x), "=d"(v.y) : "r"(remote) : "memory");
+  return v;
+}
+
+// One CTA: column block cb, templates [t0, t0 + BT), fibers [b0, b0 +
+// BB) (BT = 2^tlog, BB = ROWS / BT; row r of the block is template t0 +
+// r % BT of fiber b0 + r / BT), stages [c_begin, c_end) of slice
+// blockIdx.z.  tt2 (Fp / 8, T, SLOT), e (ncb, Fp, E_STRIDE) and siv
+// (Fp / 8, B, SLOT, or null) double2 in the layouts of ops/ccf_chisq.py;
+// sfft, ivfft (B, F) complex.
+// Unsliced it writes out (B, T, V); sliced, the cluster's sum goes to
+// out, or with more than one cluster a slice to ws (nslices / csize x
+// NACC planes of B T V).
+template <int NACC>
 __global__ void __launch_bounds__(f64::THREADS, 1)
 ccf_chisq_f64_kernel(const double2* __restrict__ tt2,
+                     const double2* __restrict__ sfft,
+                     const double2* __restrict__ ivfft,
                      const double2* __restrict__ siv,
-                     const double2* __restrict__ e, double* __restrict__ dst,
-                     int nb, int nt, int nf, int nv, int cps, int sliced) {
+                     const double2* __restrict__ e, double* __restrict__ out,
+                     double* __restrict__ ws, int nb, int nt, int nf,
+                     int nv, int tlog, int ncb, int ntt, int nslices,
+                     int csize) {
   using namespace f64;
-  using S = f64::Shape<NACC, NTW>;
-  constexpr int BN = S::BN;
-  constexpr int SBS = S::B_STRIDE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // raw[stage]: (T | T2)[ROWS][FREQ] by template slot, then
-  // (S | IV)[ROWS][FREQ] by fiber slot
-  double2* raw = reinterpret_cast<double2*>(smem_raw);
-  double2* sb = raw + 2 * RAW;
-  double* sa = reinterpret_cast<double*>(sb + NB_STAGE * S::B_D2);
-  __shared__ int s_rt[ROWS], s_rb[ROWS];      // row -> template / fiber slot
-  __shared__ int s_toff[ROWS], s_boff[ROWS];  // slot -> row offset in T / S
+  using TL = f64::Tile<NACC>;
+  constexpr int ROWS = TL::ROWS, NT = TL::NT;
+  extern __shared__ __align__(128) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WM, wn = warp / WM;
-  const int g = lane >> 2, q = lane & 3;
-  const int m_total = nb * nt;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * ROWS;
+  const int bt_rows = 1 << tlog, bb_rows = ROWS >> tlog;
+  const int tile = blockIdx.x;
+  const int cb = tile % ncb, tt = (tile / ncb) % ntt, bt = tile / ncb / ntt;
+  const int t0 = tt << tlog, b0 = bt * bb_rows, n0 = cb * COLS;
   const int nchunks = (nf + FREQ - 1) / FREQ;
-  const int c_first = blockIdx.z * cps;
-  const int nloc = min(cps, nchunks - c_first);
+  const int c_begin = (int)((long long)blockIdx.z * nchunks / nslices);
+  const int nloc =
+      (int)((long long)(blockIdx.z + 1) * nchunks / nslices) - c_begin;
+  const int nts = min(bt_rows, nt - t0), nbs = min(bb_rows, nb - b0);
+  const size_t sbytes = stage_bytes(raw_slots(tlog));
+  auto stage = [&](int s) { return smem + BAR_BYTES + s * sbytes; };
+  const uint32_t full0 = smem_u32(smem), empty0 = full0 + 8 * RING;
 
-  const int b_first = m0 / nt, t_first = m0 - b_first * nt;
-  const int m_last = min(m0 + ROWS, m_total) - 1;
-  const int nts = min(nt, ROWS), nbs = m_last / nt - b_first + 1;
-  for (int r = tid; r < ROWS; r += THREADS) {
-    const int m = m0 + r, b = m / nt, t = m - b * nt;
-    const bool valid = m < m_total;
-    s_rt[r] = valid ? (nt >= ROWS ? r : t) : -1;
-    s_rb[r] = valid ? b - b_first : -1;
-    const int ts = nt >= ROWS ? (t_first + r) % nt : r;
-    s_toff[r] = r < nts && (nt < ROWS || valid) ? ts * nf : -1;
-    s_boff[r] = r < nbs ? (b_first + r) * nf : -1;
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  auto issue = [&](int lc) {
-    if (lc < nloc) {
-      const int f0 = (c_first + lc) * FREQ;
-      double2* rdst = raw + (lc & 1) * RAW;
-      for (int i = tid; i < nts * 2 * FREQ; i += THREADS) {
-        const int slot = i / (2 * FREQ), h = (i / FREQ) & 1;
-        const int f = f0 + i % FREQ, off = s_toff[slot];
-        const bool ok = off >= 0 && f < nf;
-        cp_async_cg16(rdst + i, ok ? tt2 + 2 * (off + f) + h : tt2, ok);
-      }
-      for (int i = tid; i < nbs * 2 * FREQ; i += THREADS) {
-        const int slot = i / (2 * FREQ), h = (i / FREQ) & 1;
-        const int f = f0 + i % FREQ, off = s_boff[slot];
-        const bool ok = f < nf;
-        cp_async_cg16(rdst + ROWS * 2 * FREQ + i,
-                      ok ? siv + 2 * (off + f) + h : siv, ok);
-      }
-      double2* bdst = sb + (lc % NB_STAGE) * S::B_D2;
-      for (int i = tid; i < FREQ * BN; i += THREADS) {
-        const int k = i / BN, col = i - k * BN;
-        const int f = f0 + k, v = n0 + col;
-        const bool ok = f < nf && v < nv;
-        cp_async_cg16(bdst + k * SBS + col, ok ? e + (size_t)f * nv + v : e,
-                      ok);
-      }
-    }
-    cp_async_commit();   // possibly empty: keeps one group per chunk
-  };
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp % (WARPS / TL::WN), wn = warp / (WARPS / TL::WN);
+  const int ntw = wn == 0 ? NT : NT8 - NT;   // this warp's n8 tiles
+  const int colw = wn * NT * 8;              // its first column
+  // this warp's fibers [wb0, wb0 + fw) of the block, in its own slots of
+  // each stage; a warp whose 16 rows all lie past T or B only keeps the
+  // ring going
+  const int fw = warp_fibers(tlog), wb0 = (wm * 16) >> tlog;
+  const int wslot = bt_rows + warp * fw;
+  const bool idle =
+      wb0 >= nbs || (tlog >= 4 && ((wm * 16) & (bt_rows - 1)) >= nts);
+  // with siv, the block's fibers come in one bulk copy a stage, into
+  // slots by fiber; else each warp copies its own into its own slots
+  const bool fbulk = siv != nullptr;
 
-  // pass i of this thread's share of a chunk's A tile: frequency fl of
-  // row rq + FORM_ROWS i
-  const int fl = tid % FREQ, rq = tid / FREQ;
-  auto form_row = [&](int lc, int i) {
-    const double2* rw = raw + (lc & 1) * RAW + fl;
-    const int r = rq + FORM_ROWS * i, ts = s_rt[r];
-    const double keep = ts >= 0 ? 1.0 : 0.0;
-    const double2* rt = rw + max(ts, 0) * 2 * FREQ;
-    const double2* rs = rw + ROWS * 2 * FREQ + max(s_rb[r], 0) * 2 * FREQ;
-    const double2 a = rt[0], a2 = rt[FREQ], s = rs[0], iv = rs[FREQ];
-    const double pr = keep * (a.x * s.x - a.y * s.y);
-    const double pi = keep * (a.x * s.y + a.y * s.x);
-    const double qr = keep * (a2.x * iv.x - a2.y * iv.y);
-    const double qi = keep * (a2.x * iv.y + a2.y * iv.x);
-    double* row = sa + (lc & 1) * S::A_DOUBLES + r * A_STRIDE + fl;
-    if (NACC == 1) {
-      row[0] = -2.0 * pr + qr;
-      row[FREQ] = 2.0 * pi - qi;
+  // warp 0, lane 0: stage lc of this slice into ring slot lc % RING as
+  // 1-D bulk copies: (Ecos, Esin) of 8 frequencies x 136 velocities, the
+  // block's templates' (T', T2) and, with siv, its fibers' (S, IV)
+  auto fill = [&](int lc) {
+    const int s = lc % RING, c = c_begin + lc;
+    const uint32_t full = full0 + 8 * s;
+    double2* et = reinterpret_cast<double2*>(stage(s));
+    if (RVST_ABLATE >= 1) {
+      mbar_arrive(full);
+      return;
+    }
+    mbar_arrive_tx(full, E_BYTES + (nts + (fbulk ? nbs : 0)) * SLOT * 16);
+    bulk_copy(et, e + ((size_t)cb * nchunks + c) * FREQ * E_STRIDE, E_BYTES,
+              full);
+    bulk_copy(et + FREQ * E_STRIDE, tt2 + ((size_t)c * nt + t0) * SLOT,
+              nts * SLOT * 16, full);
+    if (fbulk)
+      bulk_copy(et + FREQ * E_STRIDE + bt_rows * SLOT,
+                siv + ((size_t)c * nb + b0) * SLOT, nbs * SLOT * 16, full);
+  };
+  // every warp: its fibers' S and IV of stage lc into its own slots, as
+  // 16-byte cp.async (zeros past F and B), one group a stage
+  auto fill_fibers = [&](int lc) {
+    double2* raw = reinterpret_cast<double2*>(stage(lc % RING))
+                   + FREQ * E_STRIDE + wslot * SLOT;
+    const int f0 = (c_begin + lc) * FREQ;
+    for (int i = lane; RVST_ABLATE < 1 && !fbulk && i < fw * 2 * FREQ;
+         i += 32) {
+      const int k = i / (2 * FREQ), f = f0 + i % FREQ, b = b0 + wb0 + k;
+      const bool ok = f < nf && b < nb;
+      cp_async16(raw + k * SLOT + i % (2 * FREQ),
+                 ((i / FREQ) & 1 ? ivfft : sfft)
+                     + (ok ? (size_t)b * nf + f : 0),
+                 ok);
+    }
+    cp_async_commit();
+  };
+  for (int lc = 0; lc < RING; ++lc) {
+    if (lc < nloc && RVST_ABLATE < 3) {
+      if (warp == 0 && lane == 0) fill(lc);
+      fill_fibers(lc);
     } else {
-      row[0] = pr;
-      row[FREQ] = -pi;
-      row[ROWS * A_STRIDE] = qr;
-      row[ROWS * A_STRIDE + FREQ] = -qi;
+      cp_async_commit();
     }
-  };
+  }
 
-  double acc[NACC][MTILES][NTW][4];
+  double acc[NACC][NT][4];
 #pragma unroll
   for (int a = 0; a < NACC; ++a)
 #pragma unroll
-    for (int mt = 0; mt < MTILES; ++mt)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < NTW; ++j)
+      for (int x = 0; x < 4; ++x) acc[a][j][x] = 0.0;
+  // rows g and g + 8 of this warp's 16: their template and fiber slots
+  int tsl[2], fsl[2];
 #pragma unroll
-        for (int x = 0; x < 4; ++x) acc[a][mt][j][x] = 0.0;
+  for (int h = 0; h < 2; ++h) {
+    const int r = wm * 16 + g + 8 * h;
+    tsl[h] = (r & (bt_rows - 1)) * SLOT;
+    fsl[h] = (fbulk ? bt_rows + (r >> tlog) : wslot + (r >> tlog) - wb0)
+             * SLOT;
+  }
 
-  issue(0);
-  issue(1);
-  cp_async_wait_1();
-  __syncthreads();
+  for (int lc = 0; lc < nloc; ++lc) {
+    const int s = lc % RING;
+    if (RVST_ABLATE < 3) {
+      cp_async_wait<RING - 1>();   // this lane's fibers of stage lc
+      __syncwarp();                // and every lane's
+      mbar_wait(full0 + 8 * s, (lc / RING) & 1);
+    }
+    const double2* et = reinterpret_cast<const double2*>(stage(s));
+    const double2* raw = et + FREQ * E_STRIDE;
 #pragma unroll
-  for (int i = 0; i < ROWS / FORM_ROWS; ++i) form_row(0, i);
-  for (int c = 0; c < nloc; ++c) {
-    cp_async_wait_0();     // this thread's copies of chunk c + 1 landed
-    // every thread's copies of c + 1 and A tile of c are visible, and
-    // every warp is past the MMAs of c - 1
-    __syncthreads();
-    // raw inputs into the stage chunk c used, B into that of c - 1
-    issue(c + 2);
-
-    const double* wa = sa + (c & 1) * S::A_DOUBLES
-                       + wm * MTILES * 16 * A_STRIDE;
-    const double2* wb = sb + (c % NB_STAGE) * S::B_D2 + wn * (NTW * 8);
-    // A fragments of both k steps: real parts (step 0), imaginary (1)
-    double af[2][NACC][MTILES][4];
+    for (int st = 0; st < 2 && !idle; ++st) {
+      // k step st: k = q is Re X at frequency f, k = q + 4 is -Im X
+      const int f = 4 * st + q;
+      double af[NACC][4];
 #pragma unroll
-    for (int st = 0; st < 2; ++st)
+      for (int h = 0; h < 2; ++h) {
+        if (RVST_ABLATE >= 2) {
 #pragma unroll
-      for (int a = 0; a < NACC; ++a)
-#pragma unroll
-        for (int mt = 0; mt < MTILES; ++mt) {
-          const double* p = wa + a * ROWS * A_STRIDE
-                            + (mt * 16 + g) * A_STRIDE + st * FREQ + q;
-          af[st][a][mt][0] = p[0];
-          af[st][a][mt][1] = p[8 * A_STRIDE];
-          af[st][a][mt][2] = p[4];
-          af[st][a][mt][3] = p[8 * A_STRIDE + 4];
+          for (int a = 0; a < NACC; ++a) {
+            af[a][h] = lc + h + a;
+            af[a][2 + h] = lc - st;
+          }
+          continue;
         }
+        const double2 tv = raw[tsl[h] + 2 * f], t2 = raw[tsl[h] + 2 * f + 1];
+        const double2 sv = raw[fsl[h] + f], iv = raw[fsl[h] + FREQ + f];
+        if (NACC == 1) {
+          // R = (-2T) S + T2 IV
+          af[0][h] = fma(-t2.y, iv.y, fma(t2.x, iv.x,
+                     fma(-tv.y, sv.y, tv.x * sv.x)));
+          af[0][2 + h] = fma(-t2.y, iv.x, fma(-t2.x, iv.y,
+                         fma(-tv.y, sv.x, -tv.x * sv.y)));
+        } else {
+          af[0][h] = fma(-tv.y, sv.y, tv.x * sv.x);
+          af[0][2 + h] = fma(-tv.y, sv.x, -tv.x * sv.y);
+          af[NACC - 1][h] = fma(-t2.y, iv.y, t2.x * iv.x);
+          af[NACC - 1][2 + h] = fma(-t2.y, iv.x, -t2.x * iv.y);
+        }
+      }
 #pragma unroll
-    for (int j = 0; j < NTW; ++j) {
-      // frequencies q and q + 4 of column j * 8 + g: (cos, sin) feed
-      // both steps
-      const double2* p = wb + q * SBS + j * 8 + g;
-      const double2 e0 = p[0], e1 = p[4 * SBS];
-      const double bf[2][2] = {{e0.x, e1.x}, {e0.y, e1.y}};
+      for (int j = 0; j < NT; ++j) {
+        if (j >= ntw) break;
+        // (Ecos, Esin) of frequency f at column j * 8 + g: B rows q and
+        // q + 4
+        const double2 ev = RVST_ABLATE >= 3
+                               ? make_double2(lc + j, lc - j)
+                               : et[f * E_STRIDE + colw + j * 8 + g];
+        const double bf[2] = {ev.x, ev.y};
 #pragma unroll
-      for (int st = 0; st < 2; ++st)
-#pragma unroll
-        for (int a = 0; a < NACC; ++a)
-#pragma unroll
-          for (int mt = 0; mt < MTILES; ++mt)
-            mma_f64(acc[a][mt][j], af[st][a][mt], bf[st]);
-      // chunk c + 1's A tile (into the buffer chunk c - 1 used), spread
-      // over the column tiles; past the last chunk it forms unused rows
-#pragma unroll
-      for (int i = 0; i < ROWS / FORM_ROWS; ++i)
-        if (j == i * NTW / (ROWS / FORM_ROWS)) form_row(c + 1, i);
+        for (int a = 0; a < NACC; ++a) mma_f64(acc[a][j], af[a], bf);
+      }
+    }
+    __syncwarp();
+    if (RVST_ABLATE < 3) {
+      if (lc + RING < nloc) fill_fibers(lc + RING);
+      else cp_async_commit();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+      // warp 0 refills the rest of the slot once every warp released it
+      if (warp == 0 && lane == 0 && lc + RING < nloc) {
+        mbar_wait(empty0 + 8 * s, (lc / RING) & 1);
+        fill(lc + RING);
+      }
     }
   }
 
-  const size_t mv = (size_t)m_total * nv;
-#pragma unroll
-  for (int mt = 0; mt < MTILES; ++mt)
+  const size_t mv = (size_t)nb * nt * nv;
+  if (nslices == 1) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      int m = m0 + (wm * MTILES + mt) * 16 + g + 8 * h;
-      if (m >= m_total) continue;
+      const int r = wm * 16 + g + 8 * h;
+      const int t = t0 + (r & (bt_rows - 1)), b = b0 + (r >> tlog);
+      if (t >= nt || b >= nb) continue;
+      double* orow = out + ((size_t)b * nt + t) * nv;
 #pragma unroll
-      for (int j = 0; j < NTW; ++j)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
-          int v = n0 + wn * (NTW * 8) + j * 8 + 2 * q + x;
-          if (v >= nv) continue;
-          const size_t o = (size_t)m * nv + v;
-          const double c0 = acc[0][mt][j][2 * h + x];
-          if (sliced) {
-#pragma unroll
-            for (int a = 0; a < NACC; ++a)
-              dst[(blockIdx.z * NACC + a) * mv + o] = acc[a][mt][j][2 * h + x];
-          } else if (NACC == 1) {
-            dst[o] = c0;
+          const int v = n0 + colw + j * 8 + 2 * q + x;
+          if (j >= ntw || v >= nv) continue;
+          const double c0 = acc[0][j][2 * h + x];
+          if (NACC == 1) {
+            orow[v] = c0;
           } else {
-            const double c1 = acc[NACC - 1][mt][j][2 * h + x];
-            dst[o] = -(c0 * c0) / c1;
+            const double c1 = acc[NACC - 1][j][2 * h + x];
+            orow[v] = -(c0 * c0) / c1;
           }
         }
     }
+    return;
+  }
+
+  // sliced: every warp is past its last read of the ring, and every
+  // copy has landed (each was waited for)
+  __syncthreads();
+  double* stg = reinterpret_cast<double*>(smem + BAR_BYTES);
+#pragma unroll
+  for (int a = 0; a < NACC; ++a)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      double* srow = stg + (a * ROWS + wm * 16 + g + 8 * h) * STG_STRIDE;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        if (j < ntw)
+          *reinterpret_cast<double2*>(srow + colw + j * 8 + 2 * q) =
+              make_double2(acc[a][j][2 * h], acc[a][j][2 * h + 1]);
+    }
+  cluster_sync();
+  // this CTA's share of the block's used rows and column pairs: the
+  // cluster's sums, in rank order (all ranks' loads in flight at once)
+  const uint32_t rank = cluster_rank();
+  const int ncl = nslices / csize, cz = blockIdx.z / csize;
+  const int ncols = min(COLS, nv - n0), npairs = (ncols + 1) / 2;
+  const int nel = (((nbs - 1) << tlog) + nts) * npairs;
+  const int per = (nel + csize - 1) / csize;
+  const int i1 = min(nel, (int)(rank + 1) * per);
+  for (int i = (int)rank * per + tid; i < i1; i += THREADS) {
+    const int r = i / npairs, c = 2 * (i - r * npairs);
+    const int t = t0 + (r & (bt_rows - 1)), b = b0 + (r >> tlog);
+    if (t >= nt) continue;
+    double2 sum[NACC];
+#pragma unroll
+    for (int a = 0; a < NACC; ++a) {
+      const double* p = stg + (a * ROWS + r) * STG_STRIDE + c;
+      double2 part[MAX_CLUSTER];
+#pragma unroll
+      for (int k = 0; k < MAX_CLUSTER; ++k)
+        if (k < csize) part[k] = ld_cluster2(p, k);
+      sum[a] = part[0];
+#pragma unroll
+      for (int k = 1; k < MAX_CLUSTER; ++k)
+        if (k < csize) {
+          sum[a].x += part[k].x;
+          sum[a].y += part[k].y;
+        }
+    }
+    const size_t o = ((size_t)b * nt + t) * nv + n0 + c;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (c + x >= ncols) break;
+      const double c0 = x ? sum[0].y : sum[0].x;
+      const double c1 = x ? sum[NACC - 1].y : sum[NACC - 1].x;
+      if (ncl == 1) {
+        out[o + x] = NACC == 1 ? c0 : -(c0 * c0) / c1;
+      } else {
+        ws[(size_t)cz * NACC * mv + o + x] = c0;
+        if (NACC == 2) ws[((size_t)cz * NACC + 1) * mv + o + x] = c1;
+      }
+    }
+  }
+  // no CTA leaves while another may still read its shared memory
+  cluster_sync();
 }
 
-// the slices' partial sums, added in slice order, through the epilogue
+// the clusters' sums, added in cluster order, through the epilogue
 template <int NACC>
 __global__ void ccf_chisq_f64_reduce(const double* __restrict__ ws,
                                      double* __restrict__ out, size_t mv,
-                                     int nsplit) {
+                                     int nparts) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < mv;
        i += (size_t)gridDim.x * blockDim.x) {
     double c[NACC];
 #pragma unroll
     for (int a = 0; a < NACC; ++a) {
-      c[a] = 0.0;
-      for (int s = 0; s < nsplit; ++s) c[a] += ws[(s * NACC + a) * mv + i];
+      // 8 parts' loads in flight at a time, added in order
+      for (int s0 = 0; s0 < nparts; s0 += 8) {
+        double v[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (s0 + k < nparts) v[k] = ws[((s0 + k) * NACC + a) * mv + i];
+        c[a] = s0 == 0 ? v[0] : c[a] + v[0];
+#pragma unroll
+        for (int k = 1; k < 8; ++k)
+          if (s0 + k < nparts) c[a] += v[k];
+      }
     }
     out[i] = NACC == 1 ? c[0] : -(c[0] * c[0]) / c[NACC - 1];
   }
 }
 
-template <int NACC, int NTW>
-static int launch_f64(const double* tt2, const double* siv, const double* e,
-                      double* out, double* ws, int nb, int nt, int nf, int nv,
-                      int nsplit, cudaStream_t stream) {
-  using S = f64::Shape<NACC, NTW>;
-  auto kernel = ccf_chisq_f64_kernel<NACC, NTW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)S::SMEM_BYTES);
+template <int NACC>
+static int launch_f64(const double* tt2, const double* sfft,
+                      const double* ivfft, const double* siv,
+                      const double* e, double* out,
+                      double* ws, int nb, int nt, int nf, int nv, int tlog,
+                      int nslices, int csize, cudaStream_t stream) {
+  using TL = f64::Tile<NACC>;
+  if (tlog < 0 || (1 << tlog) > TL::ROWS || csize < 1
+      || csize > f64::MAX_CLUSTER || nslices < csize || nslices % csize)
+    return (int)cudaErrorInvalidValue;
+  const int ncb = (nv + f64::COLS - 1) / f64::COLS;
+  const int bt_rows = 1 << tlog, bb_rows = TL::ROWS >> tlog;
+  const int ntt = (nt + bt_rows - 1) / bt_rows;
+  const long long nbt = (nb + bb_rows - 1) / bb_rows;
+  const long long tiles = (long long)ncb * ntt * nbt;
+  const int ncl = nslices / csize;
+  if (tiles > 0x7fffffffLL || nslices > (nf + f64::FREQ - 1) / f64::FREQ
+      || nslices > 65535 || (ncl > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = ccf_chisq_f64_kernel<NACC>;
+  const size_t smem = f64::smem_bytes(f64::raw_slots(tlog), nslices > 1);
+  // the dynamic shared-memory limit set so far on each device: raised
+  // when a launch needs more, not set again on every launch
+  static size_t smem_set[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const int nchunks = (nf + f64::FREQ - 1) / f64::FREQ;
-  const int cps = std::max(1, (nchunks + nsplit - 1) / nsplit);
-  nsplit = std::max(1, (nchunks + cps - 1) / cps);   // no empty slice
-  const long long m_total = (long long)nb * nt;
-  dim3 grid((nv + S::BN - 1) / S::BN,
-            (unsigned)((m_total + f64::ROWS - 1) / f64::ROWS), nsplit);
-  const bool sliced = nsplit > 1;
-  kernel<<<grid, f64::THREADS, S::SMEM_BYTES, stream>>>(
-      (const double2*)tt2, (const double2*)siv, (const double2*)e,
-      sliced ? ws : out, nb, nt, nf, nv, cps, sliced);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !sliced) return (int)err;
-  const size_t mv = (size_t)m_total * nv;
-  const unsigned blocks = (unsigned)std::min<size_t>((mv + 255) / 256, 4096);
-  ccf_chisq_f64_reduce<NACC><<<blocks, 256, 0, stream>>>(ws, out, mv, nsplit);
+  if (dev >= 64 || smem > smem_set[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)tiles, 1, (unsigned)nslices);
+  cfg.blockDim = dim3(f64::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = (unsigned)csize;
+  cfg.attrs = attr;
+  cfg.numAttrs = nslices > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const double2*)tt2,
+                           (const double2*)sfft, (const double2*)ivfft,
+                           (const double2*)siv, (const double2*)e, out, ws,
+                           nb, nt, nf, nv, tlog,
+                           ncb, ntt, nslices, csize);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess || ncl == 1) return (int)err;
+  const size_t mv = (size_t)nb * nt * nv;
+  const unsigned blocks = (unsigned)((mv + 255) / 256 < 4096 ? (mv + 255) / 256
+                                                             : 4096);
+  ccf_chisq_f64_reduce<NACC><<<blocks, 256, 0, stream>>>(ws, out, mv, ncl);
   return (int)cudaGetLastError();
 }
 
-// tt2: (T, F, 2) complex128 of (T, T2); siv: (B, F, 2) complex128 of
-// (S, IV); e: (F, V, 2) double of (Ecos, Esin); ws: with nsplit > 1 a
-// workspace of nsplit x (1 with continuum, else 2) x B T V doubles
-extern "C" int rvst_ccf_chisq_f64(const double* tt2, const double* siv,
+// tt2: (Fp / 8, T, 17) complex128 per 8 frequencies and template, (-2 T,
+// T2) with continuum or (T, T2) without interleaved, then one zero; e:
+// (ceil(V / 136), Fp, 138, 2) double of (Ecos, Esin) per column block;
+// both zero past F (Fp = 8 ceil(F / 8)) and V; sfft, ivfft: (B, F)
+// complex128, S and IV; siv (may be null): (Fp / 8, B, 17) complex128,
+// per 8 frequencies and fiber S, then IV, then one zero, zero past F.
+// Blocks of 2^tlog templates (the rest of 128 rows, 64 without
+// continuum, in fibers); nslices slices of F in clusters of csize; ws:
+// with nslices > csize a workspace of nslices / csize x (1 with
+// continuum, else 2) x B T V doubles.
+extern "C" int rvst_ccf_chisq_f64(const double* tt2, const double* sfft,
+                                  const double* ivfft, const double* siv,
                                   const double* e, double* out, double* ws,
                                   int nb, int nt, int nf, int nv,
-                                  int continuum, int nsplit, void* stream) {
+                                  int continuum, int tlog, int nslices,
+                                  int csize, void* stream) {
   if (nb == 0 || nt == 0 || nv == 0) return 0;
-  if (nsplit < 1 || (nsplit > 1 && ws == nullptr))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return continuum
-             ? launch_f64<1, 7>(tt2, siv, e, out, ws, nb, nt, nf, nv, nsplit, s)
-             : launch_f64<2, 3>(tt2, siv, e, out, ws, nb, nt, nf, nv, nsplit,
-                                s);
+             ? launch_f64<1>(tt2, sfft, ivfft, siv, e, out, ws, nb, nt, nf,
+                             nv, tlog, nslices, csize, s)
+             : launch_f64<2>(tt2, sfft, ivfft, siv, e, out, ws, nb, nt, nf,
+                             nv, tlog, nslices, csize, s);
 }

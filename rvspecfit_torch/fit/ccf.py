@@ -11,9 +11,12 @@ is computed by kernel B (ops/ccf_chisq.py), with C0/C1 the circular
 cross-correlations of the bank rFFTs with the spectrum/ivar rFFTs
 evaluated directly at the velocity grid's fractional lags through two
 (F, V) DFT matrices.  Arm contributions are summed; each fiber's best
-template and parabola-refined velocity come back to the host.  A
-kernel failure raises: there is no fallback path.  The banks come from
-the caller or, through :func:`get_ccf_info`, from make_ccf's files.
+template and parabola-refined velocity come back to the host.  The
+DFT matrices on the device are built once per velocity grid, and
+kernel B keeps its layouts of them and of the bank while the bank
+lives.  A kernel failure raises: there is no fallback path.  The banks
+come from the caller or, through :func:`get_ccf_info`, from make_ccf's
+files.
 :func:`fit` is the single-object form: the same chi-squares and
 reduction at one fiber row (kernel B at B = 1).
 """
@@ -76,16 +79,26 @@ def _dft_mats_host(npoints, logl0, logl1, vel_key):
         wk[:, None] * np.sin(ang) / npoints
 
 
+def _dft_key(ccfconf, vel_grid):
+    return (int(ccfconf['npoints']), float(ccfconf['logl0']),
+            float(ccfconf['logl1']),
+            tuple(np.asarray(vel_grid, np.float64).tolist()))
+
+
 def dft_mats(ccfconf, vel_grid, device, dtype):
     """(F, V) cos/sin matrices evaluating the circular correlation at
     the fractional lags of ``vel_grid`` (velocity v <-> lag -v/step;
-    irfft normalization and Hermitian doubling folded in)."""
-    ecos, esin = _dft_mats_host(
-        int(ccfconf['npoints']), float(ccfconf['logl0']),
-        float(ccfconf['logl1']),
-        tuple(np.asarray(vel_grid, np.float64).tolist()))
+    irfft normalization and Hermitian doubling folded in).  Made once
+    per grid, device and dtype: callers share the tensors and do not
+    write to them."""
+    return _dft_mats_device(*_dft_key(ccfconf, vel_grid),
+                            str(torch.device(device)), dtype)
+
+
+@functools.lru_cache(maxsize=16)
+def _dft_mats_device(npoints, logl0, logl1, vel_key, device, dtype):
     to = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
-    return to(ecos), to(esin)
+    return tuple(map(to, _dft_mats_host(npoints, logl0, logl1, vel_key)))
 
 
 def vel_axis(ccfconf, npoints_spec, maxvel):
@@ -139,8 +152,9 @@ def check_same_templates(ref, info):
 
 def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
     """Preprocess + rFFT one stacked arm on the bank's device, in the
-    bank's precision, and build its DFT matrices.  ``bank`` is (tfft,
-    t2fft, info) with complex (T, F) tensors (see convert.ccf_bank)."""
+    bank's precision, and take its DFT matrices (made once per grid).
+    ``bank`` is (tfft, t2fft, info) with complex (T, F) tensors (see
+    convert.ccf_bank)."""
     tfft, t2fft, info = bank
     device = tfft.device
     ccfconf = info['ccfconf']

@@ -73,14 +73,16 @@ def _assert_close(got, want, tol):
     assert err <= tol * scale, (err, scale)
 
 
-# T >= 128 (the float32 kernel's block rows; 64 in float64) gives every
-# row its own template slot, and at B = 37 row blocks cross fiber
-# boundaries; in float64 B = 1 and 37 are split over F
+# T >= 128 (the float32 kernel's block rows) gives every row its own
+# template slot, and at B = 37 row blocks cross fiber boundaries; in
+# float64 the blocks are templates x fibers (the wrapper's plan_f64),
+# B = 1 is split over F in a cluster, and V = 409 takes a fourth
+# column block of which one velocity is used
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('continuum', [True, False])
 @pytest.mark.parametrize('nb,nt,nf,nv',
                          list(itertools.product((1, 37), (1, 108, 129, 216),
-                                                (1, 2049), (1, 401))))
+                                                (1, 2049), (1, 401, 409))))
 def test_kernel_b_matches_plain(cuda_device, continuum, nb, nt, nf, nv,
                                 dtype):
     args = _ccf_inputs(nb, nt, nf, nv, seed=nb + nt + nf + nv,
@@ -91,15 +93,19 @@ def test_kernel_b_matches_plain(cuda_device, continuum, nb, nt, nf, nv,
     want = ccf_chisq.ccf_chisq_plain(*args, continuum=continuum)
     assert got.shape == (nb, nt, nv) and got.dtype == dtype
     _assert_close(got, want, TOL[dtype]['B'])
+    if dtype == torch.float64:
+        assert torch.equal(got, ccf_chisq.ccf_chisq(*args,
+                                                    continuum=continuum))
 
 
 @pytest.mark.parametrize('continuum', [True, False])
-@pytest.mark.parametrize('nb', [1, 500, 1000])
+@pytest.mark.parametrize('nb', [1, 37, 500, 1000])
 def test_kernel_b_f64_at_path_shapes(cuda_device, continuum, nb):
     """The float64 kernel at the path's T, F, V (108 templates, 2049
-    frequencies, 401 velocities): B = 1 (ccf.fit, split over F), 500
-    (an exposure) and 1000 (a driver group); two launches give the same
-    bits (the slices are added in order, no atomics)."""
+    frequencies, 401 velocities): B = 1 (ccf.fit, split over F in
+    clusters whose sums go through a workspace), 37, 500 (an exposure)
+    and 1000 (a driver group); two launches give the same bits (the
+    slices are added in order, no atomics)."""
     args = _ccf_inputs(nb, 108, 2049, 401, seed=nb, device=cuda_device,
                        dtype=torch.float64)
     got = ccf_chisq.ccf_chisq(*args, continuum=continuum)
@@ -107,6 +113,42 @@ def test_kernel_b_f64_at_path_shapes(cuda_device, continuum, nb):
     want = ccf_chisq.ccf_chisq_plain(*args, continuum=continuum)
     _assert_close(got, want, TOL[torch.float64]['B'])
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('nb,continuum', [(2, True), (3, True),
+                                           (3, False), (10, True),
+                                           (16, True), (20, True)])
+def test_kernel_b_f64_cluster_sizes(cuda_device, nb, continuum):
+    """At the path's T, F, V and few fiber rows the float64 kernel is
+    right, and gives the same bits on relaunch, at each cluster size
+    that the planner picks (on 132 SMs: 16 slices in 2 clusters of 8
+    and a workspace at B = 2, one cluster of 8, 7, 4, 3 and 2 slices at
+    B = 3, 3 without continuum, 10, 16 and 20)."""
+    args = _ccf_inputs(nb, 108, 2049, 401, seed=nb, device=cuda_device,
+                       dtype=torch.float64)
+    got = ccf_chisq.ccf_chisq(*args, continuum=continuum)
+    want = ccf_chisq.ccf_chisq_plain(*args, continuum=continuum)
+    _assert_close(got, want, TOL[torch.float64]['B'])
+    assert torch.equal(got, ccf_chisq.ccf_chisq(*args, continuum=continuum))
+
+
+def test_kernel_b_f64_takes_the_operands_of_its_own_bank(cuda_device):
+    """Two banks of one shape on one grid, called in turn, and a bank
+    written to in place: each launch gives its own bank's chi-squares
+    (the wrapper keeps each bank's operands apart and rebuilds them
+    after a write)."""
+    a = _ccf_inputs(3, 108, 64, 401, seed=1, device=cuda_device,
+                    dtype=torch.float64)
+    b = _ccf_inputs(3, 108, 64, 401, seed=2, device=cuda_device,
+                    dtype=torch.float64)
+    b[4], b[5] = a[4], a[5]
+    for args in (a, b, a, b):
+        _assert_close(ccf_chisq.ccf_chisq(*args),
+                      ccf_chisq.ccf_chisq_plain(*args),
+                      TOL[torch.float64]['B'])
+    a[0].mul_(0.5)
+    _assert_close(ccf_chisq.ccf_chisq(*a), ccf_chisq.ccf_chisq_plain(*a),
+                  TOL[torch.float64]['B'])
 
 
 def _spline_case(log_step, npix, ncoef, rows_per_coeff, seed, device,

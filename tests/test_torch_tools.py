@@ -53,6 +53,32 @@ def test_ab_binds_or_refuses_a_baseline(tmp_path, params, want):
                                                   'ccf_chisq') == want
 
 
+@pytest.mark.parametrize('params,want', [
+    (None, 'current'),            # the port's own source
+    (torch_kernel_ab.F64_SPLIT.replace(', ', ',\n    '), 'split'),
+    ('const double* tt2, double* out, int nb, void* stream', None),
+    ('', None),                   # a source without a float64 launcher
+])
+def test_ab_binds_or_refuses_a_float64_baseline(tmp_path, params, want):
+    csrc = cuda_build.CSRC
+    if params is not None:
+        csrc = tmp_path
+        fn = f'extern "C" int rvst_ccf_chisq_f64({params}) {{ return 0; }}'
+        (tmp_path / 'ccf_chisq.cu').write_text(fn if params else '')
+    if want is None:
+        with pytest.raises(SystemExit, match='cannot call'):
+            torch_kernel_ab.baseline_f64_interface(csrc)
+    else:
+        assert torch_kernel_ab.baseline_f64_interface(csrc) == want
+
+
+def test_ab_splits_f_as_the_first_float64_kernel():
+    """The first float64 kernel split F 52 ways at one fiber row (two
+    waves of its 64-row blocks on 132 SMs) and not at 500 fibers."""
+    assert torch_kernel_ab.split_slices(1, 108, 2049, 401, True, 132) == 52
+    assert torch_kernel_ab.split_slices(500, 108, 2049, 401, True, 132) == 1
+
+
 ADJOINT = ('const float* u, const float* g, float* dcoeffs, int rows, '
            'int npix, int nm1, int log_step, float x0, float step, '
            'float expm1_step, void* stream')
@@ -89,6 +115,7 @@ def test_ablation_table_matches_the_sources(kernel):
     params = torch_kernel_ab.c_params(cuda_build.CSRC / source,
                                       launcher.removeprefix('rvst_'))
     argtypes = {'ccf_chisq': ccf_chisq.ARGTYPES,
+                'ccf_chisq_f64': ccf_chisq.ARGTYPES_F64,
                 'spline_eval_adjoint': spline_eval.ADJOINT_ARGTYPES}[kernel]
     assert len(params.split(',')) == len(argtypes)
 

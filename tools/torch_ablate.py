@@ -6,13 +6,14 @@ Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
 
     python3 tools/torch_ablate.py ccf_chisq
+    python3 tools/torch_ablate.py ccf_chisq --dtype float64 [--rows B]
     python3 tools/torch_ablate.py spline_eval_adjoint
 
 Each variant is a build of the kernel's source with its own RVST_ABLATE
 switch (the top of each source says what each level leaves out).
 
-Both kernels are timed in their float32 form, through the float32
-launchers the tool binds.
+Kernel B is timed in its float32 form, or with ``--dtype float64`` in
+its float64 form; the adjoint in its float32 form.
 
 ccf_chisq, kernel B (rvspecfit_torch/csrc/ccf_chisq.cu), timed with CUDA
 events (10 launches after one), each line with its TF32 MMA rate:
@@ -26,6 +27,21 @@ events (10 launches after one), each line with its TF32 MMA rate:
   instruction stream at this tiling, the ceiling of the design;
 * mma_only_1pass (3): the same with only the hi*hi product: the rate
   of single-pass TF32 mma.sync.
+
+ccf_chisq --dtype float64, kernel B's float64 form with continuum at
+the path's T, F, V and B = ``--rows`` (1000 by default: a driver
+group; 1 is ccf.fit's, timed from CUDA-graph replays over L2_COPIES
+copies of the inputs), each line with its FP64 MMA rate and its share
+of the bound:
+
+* kernel (0): the kernel;
+* no_copies (1): no copies into the ring (its stages keep whatever they
+  hold; the barriers still pass them round);
+* no_forming (2): also no complex products: A fragments made in
+  registers, the (Ecos, Esin) fragments still loaded;
+* dmma_only (3): no copies, products, shared loads or barriers: the
+  m16n8k8 f64 mma.sync stream at this tiling, the ceiling of the
+  design.
 
 spline_eval_adjoint, kernel A's adjoint (rvspecfit_torch/csrc/
 spline_eval.cu), at the polish's shape (500 x 1024 queries -> (500, 4,
@@ -66,6 +82,9 @@ import chip_smoke  # noqa: E402
 KERNELS = dict(
     ccf_chisq=('ccf_chisq.cu', 'rvst_ccf_chisq', 'ccf_chisq_kernel',
                dict(kernel=0, no_copies=1, mma_only=2, mma_only_1pass=3)),
+    ccf_chisq_f64=('ccf_chisq.cu', 'rvst_ccf_chisq_f64',
+                   'ccf_chisq_f64_kernel',
+                   dict(kernel=0, no_copies=1, no_forming=2, dmma_only=3)),
     spline_eval_adjoint=('spline_eval.cu', 'rvst_spline_adjoint',
                          'spline_adjoint_kernel',
                          dict(kernel=0, output_only=1, no_zero_writes=2)),
@@ -147,6 +166,58 @@ def ccf_bench(device):
                  check, report)
 
 
+def ccf_f64_bench(device, nb):
+    """Kernel B's float64 form, continuum, at the path's T, F, V with
+    ``nb`` fiber rows (the exposure's 500 fibers repeated), its bank
+    operands built on the first call as on the path: timed with inputs
+    from HBM (at one row from CUDA-graph replays over L2_COPIES copies
+    of them)."""
+    import torch
+    from rvspecfit_torch import convert
+    from rvspecfit_torch.ops import ccf_chisq, cuda_build
+    arms, _ = chip_smoke.make_arms()
+    kargs, cont = chip_smoke.kernel_b_args(
+        arms, convert.ccf_bank(*chip_smoke.make_bank(), device=device,
+                               dtype=torch.float64))
+    reps = -(-nb // kargs[2].shape[0])
+    for i in (2, 3):
+        kargs[i] = kargs[i].repeat(reps, 1)[:nb].contiguous()
+    nt, nf = kargs[0].shape
+    nv = kargs[4].shape[1]
+    shape = [nb, nt, nf, nv]
+    bound = chip_smoke.ccf_bound(*shape, 1, 'float64')[0]
+
+    def launcher(fn, name):
+        def call(*a):
+            out = torch.empty((nb, nt, nv), dtype=torch.float64,
+                              device=device)
+            cuda_build.check_launch(
+                ccf_chisq.launch_f64(fn, a, cont, out), name)
+            return out
+        return call
+
+    def check(fn):
+        got = launcher(fn, 'kernel')(*kargs)
+        want = ccf_chisq.ccf_chisq_plain(*kargs, continuum=cont)
+        err, scale = chip_smoke.compare(got, want)
+        lim = chip_smoke.TOL['float64']['B'] * scale
+        chip_smoke.check(err <= lim, f'kernel disagrees: {err} of {scale}')
+
+    def time(fn, name):
+        call = launcher(fn, name)
+        if nb > 1:
+            return chip_smoke.cuda_time(lambda: call(*kargs), 10)
+        return chip_smoke.cuda_time(chip_smoke.cold_inputs(call, *kargs),
+                                    2 * chip_smoke.L2_COPIES, graph=True)
+
+    def report(name, ms):
+        rate = 2.0 * nb * nt * nv * 2 * nf / (ms * 1e-3) / 1e12
+        return (dict(tflops=rate, bound_ms=bound, share=bound / ms),
+                f'{rate:.1f} TFLOP/s of FP64 MMA, {100 * bound / ms:.1f}% '
+                f'of the {bound:.4f} ms bound')
+    return Bench(ccf_chisq.ARGTYPES_F64, shape, time, check, report)
+
+
 def adjoint_bench(device):
     """Kernel A's adjoint at the polish's shape."""
     import torch
@@ -185,24 +256,34 @@ def adjoint_bench(device):
                  check, report)
 
 
-BENCHES = dict(ccf_chisq=ccf_bench, spline_eval_adjoint=adjoint_bench)
+BENCHES = dict(ccf_chisq=ccf_bench, ccf_chisq_f64=ccf_f64_bench,
+               spline_eval_adjoint=adjoint_bench)
 
 
 def main():
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('kernel', choices=list(KERNELS))
+    parser.add_argument('kernel', choices=['ccf_chisq', 'spline_eval_adjoint'])
+    parser.add_argument('--dtype', choices=['float32', 'float64'],
+                        default='float32',
+                        help="kernel B's form (ccf_chisq only)")
+    parser.add_argument('--rows', type=int, default=1000,
+                        help='fiber rows B of the float64 kernel B')
     args = parser.parse_args()
+    if args.dtype == 'float64' and args.kernel != 'ccf_chisq':
+        parser.error('--dtype float64 applies to ccf_chisq only')
+    kernel = args.kernel + ('_f64' if args.dtype == 'float64' else '')
     if not torch.cuda.is_available():
         print('torch_ablate: no CUDA device', file=sys.stderr)
         return 2
     device = torch.device('cuda', 0)
     smi = chip_smoke.environment()
-    bench = BENCHES[args.kernel](device)
-    variants = KERNELS[args.kernel][3]
+    bench = BENCHES[kernel](device, *(
+        [args.rows] if kernel == 'ccf_chisq_f64' else []))
+    variants = KERNELS[kernel][3]
     with concurrent.futures.ThreadPoolExecutor() as ex:
         built = dict(zip(variants, ex.map(
-            lambda kv: build(args.kernel, *kv, bench.argtypes),
+            lambda kv: build(kernel, *kv, bench.argtypes),
             variants.items())))
     bench.check(built['kernel'][0])
     times = {name: [] for name in variants}
@@ -217,7 +298,7 @@ def main():
         chip_smoke.log(f'{name} (RVST_ABLATE={level}): {ms:.4f} ms '
                        f'({[round(t, 4) for t in times[name]]}), {text}, '
                        f'ptxas: {built[name][1]}')
-    print(json.dumps(dict(card=smi, kernel=args.kernel, shape=bench.shape,
+    print(json.dumps(dict(card=smi, kernel=kernel, shape=bench.shape,
                           variants=rows)))
     return 0
 

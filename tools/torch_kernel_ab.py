@@ -7,6 +7,7 @@ Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
 
     python3 tools/torch_kernel_ab.py --baseline-csrc OTHER/rvspecfit_torch/csrc
+    python3 tools/torch_kernel_ab.py --dtype float64 --baseline-csrc OTHER/...
 
 OTHER is, for example, an earlier commit unpacked with ``git archive``
 into a git-ignored directory.  The baseline's C launchers must have the
@@ -23,6 +24,18 @@ kernel B with continuum, one fp32 torch.matmul of the materialized
 contraction (the library yardstick) are timed beside them.  The inputs
 are chip_smoke.py's: the 500-fiber, 3-arm exposure of bench.py's
 workload, in float32 (the baselines' launchers are the float32 form's).
+
+With ``--dtype float64`` it compares kernel B's float64 form
+(rvst_ccf_chisq_f64) alone, with continuum at B = 500 (the exposure),
+1000 (two exposures, a driver group's rows) and 1 (one fiber, timed
+from graph replays over cold copies), and without continuum at B =
+500, each beside its plain version, one float64 torch.matmul of the
+materialized contraction (continuum; timed like the kernel) and its
+FP64 tensor-core bound.  The baseline's launcher must take the current
+parameters, or those of the first float64 kernel (commit 7d785b1: F
+split into slices that a second kernel adds); each runs as its path
+ran it: the current one on the bank operands that its wrapper builds
+on the first call, the first one building its layouts per call.
 Prints one line per case and, last, a JSON object.
 """
 import argparse
@@ -47,6 +60,13 @@ SEPARATE_DFT = ('const float* tfft, const float* t2fft, const float* '
                 'int nv, int continuum, void* stream')
 
 
+# kernel B's float64 launcher in its first form (7d785b1): one (T, F, 2)
+# / (B, F, 2) / (F, V, 2) layout per call, F split into nsplit slices
+F64_SPLIT = ('const double* tt2, const double* siv, const double* e, '
+             'double* out, double* ws, int nb, int nt, int nf, int nv, '
+             'int continuum, int nsplit, void* stream')
+
+
 def c_params(path, name):
     """Parameter list of ``extern "C" int rvst_<name>(...)`` in the
     source at ``path``, whitespace collapsed (None if absent)."""
@@ -67,6 +87,167 @@ def baseline_interface(csrc, name):
         return 'separate_dft'
     raise SystemExit(f'torch_kernel_ab: the baseline rvst_{name} takes '
                      f'({got}), an interface this tool cannot call')
+
+
+def baseline_f64_interface(csrc):
+    """'current' where the baseline's rvst_ccf_chisq_f64 takes the
+    current parameters, 'split' for the first float64 kernel's; refuses
+    any other (and a source without one)."""
+    from rvspecfit_torch.ops import cuda_build
+    got = c_params(Path(csrc) / 'ccf_chisq.cu', 'ccf_chisq_f64')
+    if got == c_params(cuda_build.CSRC / 'ccf_chisq.cu', 'ccf_chisq_f64'):
+        return 'current'
+    if got == F64_SPLIT:
+        return 'split'
+    raise SystemExit(f'torch_kernel_ab: the baseline rvst_ccf_chisq_f64 '
+                     f'takes ({got}), an interface this tool cannot call')
+
+
+def build_baseline_f64(csrc):
+    """The baseline's rvst_ccf_chisq_f64, bound through its own
+    interface: ((fn, interface), ptxas report)."""
+    import ctypes
+    from rvspecfit_torch.ops import ccf_chisq, cuda_build
+    interface = baseline_f64_interface(csrc)
+    out = cuda_build.BUILD / 'baseline'
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / 'libccf_chisq_f64.so'
+    proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                           '-o', str(lib), str(Path(csrc) / 'ccf_chisq.cu')],
+                          capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f'nvcc failed on the baseline ccf_chisq:\n'
+                           f'{proc.stderr}')
+    fn = ctypes.CDLL(str(lib)).rvst_ccf_chisq_f64
+    fn.argtypes = ccf_chisq.ARGTYPES_F64 if interface == 'current' else \
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return (fn, interface), proc.stderr.strip()
+
+
+def split_slices(nb, nt, nf, nv, continuum, nsm):
+    """The first float64 kernel's slices of F (its wrapper's
+    f64_splits): two waves of one 64-row block an SM, at least 4
+    chunks of 8 frequencies a slice, no empty slice."""
+    blocks = -(-nv // (224 if continuum else 96)) * -(-nb * nt // 64)
+    nchunks = -(-nf // 8)
+    nsplit = max(1, min(-(-2 * nsm // max(blocks, 1)), nchunks // 4))
+    per = -(-nchunks // nsplit)
+    return max(1, -(-nchunks // per))
+
+
+def baseline_ccf_f64(fn, args, continuum):
+    """The baseline float64 kernel B through its own interface: the
+    current one through ccf_chisq.launch_f64, or the first one with its
+    per-call layouts and slices."""
+    import torch
+    from rvspecfit_torch.ops import ccf_chisq, cuda_build
+    fn, interface = fn
+    nt, nf = args[0].shape
+    nb, nv = args[2].shape[0], args[4].shape[1]
+    dev = args[0].device
+    out = torch.empty((nb, nt, nv), dtype=torch.float64, device=dev)
+    if interface == 'current':
+        err = ccf_chisq.launch_f64(fn, args, continuum, out)
+    else:
+        tt2, siv, e = (torch.stack(args[i:i + 2], -1) for i in (0, 2, 4))
+        nsplit = split_slices(nb, nt, nf, nv, continuum,
+                              torch.cuda.get_device_properties(
+                                  dev).multi_processor_count)
+        ws = None if nsplit == 1 else torch.empty(
+            nsplit * (1 if continuum else 2) * nb * nt * nv,
+            dtype=torch.float64, device=dev)
+        err = fn(tt2.data_ptr(), siv.data_ptr(), e.data_ptr(),
+                 out.data_ptr(), None if ws is None else ws.data_ptr(), nb,
+                 nt, nf, nv, int(continuum), nsplit,
+                 cuda_build.current_stream(out))
+    cuda_build.check_launch(err, 'baseline ccf_chisq_f64')
+    return out
+
+
+def f64_cases(device):
+    """Kernel B's float64 cases: (label, args, continuum, graph)."""
+    import torch
+    from rvspecfit_torch import convert
+    arms, _ = chip_smoke.make_arms()
+    cases = []
+    for mode in ('continuum', 'no-continuum'):
+        bank = convert.ccf_bank(*chip_smoke.make_bank(
+            continuum=mode == 'continuum'), device=device,
+            dtype=torch.float64)
+        kargs, cont = chip_smoke.kernel_b_args(arms, bank)
+        cases.append((f'{mode} B=500', kargs, cont, False))
+        if cont:
+            for nb, graph in ((1000, False), (1, True)):
+                rows = [x.repeat(2, 1)[:nb].contiguous() for x in kargs[2:4]]
+                cases.append((f'{mode} B={nb}',
+                              kargs[:2] + rows + kargs[4:], cont, graph))
+    return cases
+
+
+def main_f64(baseline_csrc):
+    """--dtype float64: kernel B's float64 form against the baseline's."""
+    import torch
+    from rvspecfit_torch.ops import ccf_chisq, cuda_build
+    device = torch.device('cuda', 0)
+    smi = chip_smoke.environment()
+    chip_smoke.build_kernels()
+    base, base_ptxas = build_baseline_f64(baseline_csrc)
+    chip_smoke.log(f'baseline ({base[1]} interface): ' + ' | '.join(
+        line.strip() for line in base_ptxas.splitlines()
+        if 'registers' in line or 'spill' in line))
+    rows = []
+    for label, kargs, cont, graph in f64_cases(device):
+
+        def call(*a):
+            return ccf_chisq.ccf_chisq(*a, continuum=cont)
+
+        def old_call(*a):
+            return baseline_ccf_f64(base, a, cont)
+        plain = lambda: ccf_chisq.ccf_chisq_plain(*kargs, continuum=cont)
+        errs = check_both(lambda: old_call(*kargs), lambda: call(*kargs),
+                          plain, chip_smoke.TOL['float64']['B'])
+        if graph:
+            old, new = ab_times(chip_smoke.cold_inputs(old_call, *kargs),
+                                chip_smoke.cold_inputs(call, *kargs),
+                                graph=True)
+        else:
+            old, new = ab_times(lambda: old_call(*kargs), lambda: call(*kargs))
+        library_ms = None
+        if cont:
+            mat, e = ccf_chisq.contraction_operands(*kargs, continuum=True)
+            mat = mat[0]
+            library_ms = chip_smoke.cuda_time(
+                chip_smoke.cold_inputs(torch.matmul, mat, e),
+                2 * chip_smoke.L2_COPIES, graph=True) if graph else \
+                chip_smoke.cuda_time(lambda: torch.matmul(mat, e),
+                                     REPS['library'])
+            del mat, e
+        shape = [kargs[2].shape[0], kargs[0].shape[0], kargs[0].shape[1],
+                 kargs[4].shape[1]]
+        bound, bound_by = chip_smoke.ccf_bound(*shape, 1 if cont else 2,
+                                               'float64')
+        rows.append(dict(kernel='ccf_chisq_f64', mode=label, shape=shape,
+                         baseline_ms=old, ms=new,
+                         plain_ms=chip_smoke.cuda_time(plain, REPS['plain']),
+                         library_ms=library_ms, bound_kind=bound_by,
+                         bound_ms=bound, rel_err_baseline=errs[0],
+                         rel_err=errs[1]))
+    report(rows)
+    print(json.dumps(dict(card=smi, baseline_interface=base[1], ptxas={
+        **{k: v['ptxas'] for k, v in cuda_build.build_log.items()},
+        'baseline_ccf_chisq': base_ptxas}, kernels=rows)))
+    return 0
+
+
+def report(rows):
+    for r in rows:
+        chip_smoke.log(
+            f'{r["kernel"]} {r["mode"]} {r["shape"]}: baseline '
+            f'{r["baseline_ms"]:.4f} ms, current {r["ms"]:.4f} ms, plain '
+            f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, bound '
+            f'{r["bound_ms"]:.4f} ms ({r["bound_kind"]}): current at '
+            f'{100 * r["bound_ms"] / r["ms"]:.1f}% of the bound')
 
 
 def baseline_has_adjoint(csrc):
@@ -199,10 +380,16 @@ def main():
     parser.add_argument('--baseline-csrc', required=True,
                         help='directory holding the baseline '
                              'spline_eval.cu and ccf_chisq.cu')
+    parser.add_argument('--dtype', choices=['float32', 'float64'],
+                        default='float32',
+                        help='the kernels\' form: float32 (all three), or '
+                             'float64 (kernel B)')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('torch_kernel_ab: no CUDA device', file=sys.stderr)
         return 2
+    if args.dtype == 'float64':
+        return main_f64(args.baseline_csrc)
     from rvspecfit_torch import convert
     from rvspecfit_torch.ops import ccf_chisq, cuda_build, spline_eval
     device = torch.device('cuda', 0)
@@ -290,13 +477,7 @@ def main():
                          bound_ms=chip_smoke.ccf_bound(
                              *shape, 1 if cont else 2, 'float32')[0],
                          rel_err_baseline=errs[0], rel_err=errs[1]))
-    for r in rows:
-        chip_smoke.log(
-            f'{r["kernel"]} {r["mode"]} {r["shape"]}: baseline '
-            f'{r["baseline_ms"]:.4f} ms, current {r["ms"]:.4f} ms, plain '
-            f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, bound '
-            f'{r["bound_ms"]:.4f} ms ({r["bound_kind"]}): current at '
-            f'{100 * r["bound_ms"] / r["ms"]:.1f}% of the bound')
+    report(rows)
     print(json.dumps(dict(card=smi, ptxas={
         **{k: v['ptxas'] for k, v in cuda_build.build_log.items()},
         **{f'baseline_{k}': v for k, v in base_ptxas.items()}},
