@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the rvspecfit_torch group fit, DESI and WEAVE drivers, the
-single-object fit and an NN template library on one CUDA card, in
-float64 (the port's working type), and check them.
+single-object fit, the NN trainer and a trained NN template library,
+and the RV pull harness on one CUDA card, in float64 (the port's
+working type), and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
@@ -69,13 +70,23 @@ and the CUDA toolkit):
    (velocities and parameters within sigma/2).
 8. The DESI driver with ``--param_init bruteforce`` (ccf_init=False) on
    an 8-fiber coadd: RVTAB schema and RV recovery.
-9. An NN template library (simulation.nn_template_artifacts: the
-   reference trainer's default widths, the grid's principal components
-   in its output layer, seeded hidden layers; no trainer) through
-   pipeline/library, two 500-fiber coadds of spectra drawn from that
-   model at known parameters and velocities, through
+9. The NN trainer (pipeline/train_nn.train_interpolator) on the card
+   at the reference CLI's widths (256 wide, 2 hidden layers, npc 64,
+   batch 100, lr0 1e-3, patience 20) on 24,960 templates x 4096 px,
+   cut to TRAIN_EPOCHS epochs: seconds per epoch, steps/s, first and
+   last epoch's loss (the last must be <= 0.3 of the first), peak
+   device memory; then 2 epochs on a 2000-template subset on the card
+   (profiled: kernels and device time per step) and on the CPU from one
+   init_state draw: losses and weights within 1e-9.
+10. The NN cell through the trained model (its checkpoint payload
+   through pipeline/library), two 500-fiber coadds of spectra drawn
+   from that model at known parameters and velocities, through
    survey/desi.proc_many at coalesce 2 with a CCF bank of the model at
-   the grid's nodes: RV recovery per file, every kernel launched.
+   the 6,6,6,4 grid's nodes: RV recovery per file, every kernel
+   launched, the BAD_HESSIAN share.
+11. The RV pull harness (validation.run_accuracy) at its defaults on
+   1000 trials: pull std within [0.9, 1.1]; 64 trials on the card and
+   on the CPU: velocities within sigma/2.
 
 Every path's kernel launches are counted from 0 just before it runs.
 Prints, last, the card, a JSON line of the kernels (each in its
@@ -1513,31 +1524,204 @@ def run_bruteforce(workdir, tm, bank_d):
 
 
 # ------------------------------------------------------------------
-# an NN template library: 2 coadds through survey/desi.proc_many
+# the NN trainer on the card, and the NN cell through the trained model
 
+# 24,960 templates x 4096 px (0.82 GB in float64): the order of the
+# PHOENIX library rvspecfit's trainer is fed (13 log g, 10 [Fe/H], 8
+# [alpha/Fe]); Teff cut from PHOENIX's ~73 steps to 24
+TRAIN_GRID = (24, 13, 10, 8)
+# rvstorch_train_nn_interpolator's defaults (the reference CLI's)
+TRAIN = dict(width=256, nlayers=2, npc=64, batch_size=100, lr0=1e-3,
+             min_lr=1e-8, plateau_patience=20, pca_init=False, seed=22)
+# the cut: a fixed number of epochs (the CLI trains up to 600), so that
+# the phase takes at most ~150 s
+TRAIN_EPOCHS = 100
+# the loss criterion of tests/test_train_nn.py
+TRAIN_DROP = 0.3
+# card vs CPU: 2 epochs on a 2000-template subset from one init_state
+# draw.  Both run the same float64 arithmetic (cuBLAS's and the CPU
+# BLAS's summation orders differ by ~1e-16 a product); over 40 Adam
+# steps that stays ~1e-15 (the port against the reference on the CPU,
+# tests/test_torch_train_nn.py: 5.6e-16 after 16 steps).  1e-9 leaves
+# room for Adam's division by sqrt(v) + 1e-8 (a rounding difference of
+# a gradient near 1e-8 is amplified) and for an L1 residual that
+# changes sign (one gradient entry moves by 2/N).
+TRAIN_CMP = dict(ntemplates=2000, epochs=2, rtol=1e-9)
 NN_NFILES = 2
 
 
-def run_nn(workdir, device):
-    """The NN slice on the card: an NN library (the reference trainer's
-    default widths, made by simulation.nn_template_artifacts, through
-    pipeline/library.template_model_from_artifacts), NN_NFILES coadds of
-    NFIBERS spectra drawn from the model itself at known parameters and
-    velocities (simulation.model_exposure, on the CPU), and a CCF bank
-    of the model at the grid's nodes (simulation.model_ccf_bank), through
-    proc_many at coalesce 2 (one group of 1000 fibers), launches counted
-    from 0 (run_driver: status lines, schema, RV recovery >= 98% per
-    file, RVMOD)."""
+def training_set():
+    """The training grid at 4096 px on 4550-5450 A: (lam, (nspec, 4)
+    mapped parameters, (nspec, npix) log-spectra, parnames)."""
+    from rvspecfit_torch import simulation
+    t0 = time.perf_counter()
+    lam, _, _, vecs, specs, parnames = simulation.make_template_grid(
+        *TRAIN_GRID, npix=4096, lam0=4550.0, lam1=5450.0)
+    log(f'training set: {specs.shape[0]} templates x {specs.shape[1]} px '
+        f'({specs.nbytes / 1e9:.2f} GB in float64, '
+        f'{time.perf_counter() - t0:.1f} s)')
+    return lam, vecs.T, specs, parnames
+
+
+def run_training(device, data):
+    """pipeline/train_nn.train_interpolator at full width on the card
+    for TRAIN_EPOCHS epochs: seconds per epoch, steps/s, the loss at the
+    first and last epoch, the peak device memory; the loss must fall to
+    TRAIN_DROP of its first epoch's.  Returns (model, numbers)."""
+    import torch
+    from rvspecfit_torch.pipeline import train_nn
+    _, x, specs, _ = data
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, hist = train_nn.train_interpolator(
+        x, specs, num_epochs=TRAIN_EPOCHS, device=device, **TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss = hist['loss']
+    steps = len(loss) * (len(x) // TRAIN['batch_size'])
+    res = dict(seconds=wall, epochs=len(loss), steps=steps,
+               s_per_epoch=wall / len(loss), steps_per_s=steps / wall,
+               loss_first=loss[0], loss_last=loss[-1], lr_last=hist['lr'][-1],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               counts=kernel_counts())
+    log(f'NN training on the card: {len(x)} templates, width '
+        f'{TRAIN["width"]}, {TRAIN["nlayers"]} layers, npc {TRAIN["npc"]}, '
+        f'batch {TRAIN["batch_size"]}, lr0 {TRAIN["lr0"]}, patience '
+        f'{TRAIN["plateau_patience"]}; cut: {len(loss)} epochs of the CLI\'s '
+        f'600; {wall:.3f} s -> {res["s_per_epoch"]:.4f} s/epoch, '
+        f'{res["steps_per_s"]:.1f} steps/s; loss {loss[0]:.6f} (epoch 1) -> '
+        f'{loss[-1]:.6f} (epoch {len(loss)}) = '
+        f'{loss[-1] / loss[0]:.4f} of the first, lr {hist["lr"][-1]:.3g}; '
+        f'peak device memory {res["peak_gb"]:.2f} GB; loss every 10 epochs '
+        f'{[round(v, 6) for v in loss[::10]]}')
+    check(len(loss) == TRAIN_EPOCHS, f'training stopped after {len(loss)} '
+          'epochs')
+    check(loss[-1] <= TRAIN_DROP * loss[0],
+          f'the training loss fell only to {loss[-1] / loss[0]:.3f} of its '
+          'first epoch\'s')
+    return model, res
+
+
+def device_activity(fn):
+    """{name: (device ms, calls)} of the work on the card (kernels and
+    memory copies, not the profiler's annotations) in one call of fn()
+    under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not getattr(e, 'is_user_annotation', False):
+            t, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + 1e-3 * e.time_range.elapsed_us(), n + 1)
+    return by_name
+
+
+def top_activity(by_name, n=5):
+    """The ``n`` names of device_activity's result with the most device
+    time: [(name, ms, calls)]."""
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [(k[:80], round(t, 3), c) for k, (t, c) in top]
+
+
+def training_against_cpu(device, data, train):
+    """TRAIN_CMP['epochs'] epochs on a TRAIN_CMP['ntemplates'] subset at
+    full width on the card and on the CPU, from one init_state draw (the
+    trainer's seeded torch.Generator): every epoch's loss and every
+    final weight array within TRAIN_CMP['rtol'] (relative to the
+    array's largest entry).  The card's run is profiled: its kernels
+    and kernel time per step, whose share of the timed run's time per
+    step is the device's busy share in training (its memory copies are
+    reported apart: most is the set-up's upload)."""
+    from rvspecfit_torch.interp import nn
+    from rvspecfit_torch.pipeline import train_nn
+    _, x, specs, _ = data
+    sub = np.random.RandomState(3).permutation(len(x))[
+        :TRAIN_CMP['ntemplates']]
+    kw = dict(TRAIN, num_epochs=TRAIN_CMP['epochs'])
+    runs = {}
+
+    def card():
+        runs['cuda'] = train_nn.train_interpolator(x[sub], specs[sub],
+                                                   device=device, **kw)
+    activity = device_activity(card)
+    copies = {k: v for k, v in activity.items()
+              if k.startswith(('Memcpy', 'Memset'))}
+    kernels = {k: v for k, v in activity.items() if k not in copies}
+    t0 = time.perf_counter()
+    runs['cpu'] = train_nn.train_interpolator(x[sub], specs[sub],
+                                              device='cpu', **kw)
+    t_cpu = time.perf_counter() - t0
+    steps = TRAIN_CMP['epochs'] * (len(sub) // TRAIN['batch_size'])
+    (mc, hc), (mp, hp) = runs['cuda'], runs['cpu']
+    dloss = float(np.max(np.abs(np.subtract(hc['loss'], hp['loss']))
+                         / np.abs(hp['loss'])))
+    got, want = nn.state_to_dict(mc), nn.state_to_dict(mp)
+    dw = {k: float(np.abs(got[k] - w).max() / np.abs(w).max())
+          for k, w in want.items()
+          if isinstance(w, np.ndarray) and np.abs(w).max() > 0}
+    kernel_ms = sum(t for t, _ in kernels.values())
+    res = dict(max_rel_dloss=dloss, max_rel_dweight=max(dw.values()),
+               kernels_per_step=sum(n for _, n in kernels.values()) / steps,
+               kernel_ms_per_step=kernel_ms / steps,
+               busy_share=(kernel_ms / steps) * 1e-3 * train['steps_per_s'],
+               copies_ms=sum(t for t, _ in copies.values()),
+               copies=sum(n for _, n in copies.values()),
+               cpu_s_per_epoch=t_cpu / TRAIN_CMP['epochs'])
+    log(f'NN training card vs CPU float64 ({len(sub)} templates, '
+        f'{TRAIN_CMP["epochs"]} epochs, {steps} steps): losses card '
+        f'{hc["loss"]} CPU {hp["loss"]}, max rel diff {dloss:.3e}; final '
+        f'weights max |diff| / max |w| {res["max_rel_dweight"]:.3e} (worst '
+        f'{max(dw, key=dw.get)}; limit {TRAIN_CMP["rtol"]}); CPU '
+        f'{res["cpu_s_per_epoch"]:.3f} s/epoch; the card\'s run profiled: '
+        f'{res["kernels_per_step"]:.2f} kernels and '
+        f'{res["kernel_ms_per_step"]:.4f} ms of kernel time per step -> '
+        f'busy {100 * res["busy_share"]:.1f}% of the timed run\'s '
+        f'{1e3 / train["steps_per_s"]:.4f} ms per step; besides, '
+        f'{res["copies"]} memory copies ({res["copies_ms"]:.3f} ms: the '
+        f'training set\'s upload, the epochs\' orders, the epochs\' loss '
+        f'reads); kernels with the most device time (name, ms, calls): '
+        f'{top_activity(kernels)}')
+    check(dloss <= TRAIN_CMP['rtol'] and res['max_rel_dweight']
+          <= TRAIN_CMP['rtol'], 'the card\'s training disagrees with the '
+          'CPU\'s')
+    return res
+
+
+def run_nn(workdir, device, model, data):
+    """The NN cell on the card through the trained model: its
+    checkpoint payload (interp/nn.state_to_dict) and the trainer's
+    library descriptor through pipeline/library.
+    template_model_from_artifacts (on the card and on the CPU),
+    NN_NFILES coadds of NFIBERS spectra drawn from the model itself at
+    known parameters and velocities (simulation.model_exposure, on the
+    CPU), and a CCF bank of the model at the 6,6,6,4 grid's nodes
+    (simulation.model_ccf_bank), through proc_many at coalesce 2 (one
+    group of 1000 fibers), launches counted from 0 (run_driver: status
+    lines, schema, RV recovery >= 98% per file, RVMOD).  Logs the
+    BAD_HESSIAN share."""
     from rvspecfit_torch import convert, simulation
+    from rvspecfit_torch.interp import nn
+    from rvspecfit_torch.pipeline import train_nn
     from rvspecfit_torch.pipeline.library import \
         template_model_from_artifacts
     t0 = time.perf_counter()
-    fd, payload = simulation.nn_template_artifacts(6, 6, 6, 4, npix=4096,
-                                                   lam0=4550.0, lam1=5450.0)
+    lam, _, specs, parnames = data
+    payload = nn.state_to_dict(model)
+    fd = train_nn.library_descriptor(
+        lam, parnames, True, True, [0], np.zeros(len(specs)),
+        TRAIN['width'], TRAIN['nlayers'], TRAIN['npc'])
     tm_cpu = template_model_from_artifacts(fd, payload, device='cpu')
     tm = template_model_from_artifacts(fd, payload, device=device)
     bank = simulation.model_ccf_bank(tm_cpu, every=8, device='cpu')
-    log(f'NN library: {tm.state.ndim} -> '
+    log(f'NN library (trained): {tm.state.ndim} -> '
         f'{[lin.out_features for lin in tm.state.layers]} -> '
         f'{tm.state.npix} px, {tm.state.nonlinearity}, '
         f'{tm.state.mean.dtype} on {tm.state.mean.device}; CCF bank '
@@ -1551,7 +1735,58 @@ def run_nn(workdir, device):
     nn_run = run_driver(workdir, files, truths, tm,
                         convert.ccf_bank(*bank, device=device), 'nn')
     check_launches('NN path', nn_run['counts'])
+    bad = sum(int(r['out']['bad_hess'].sum()) for r in nn_run['records'])
+    nfib = sum(r['nfibers'] for r in nn_run['records'])
+    nn_run['bad_hessian_share'] = bad / nfib
+    log(f'NN cell through the trained model: BAD_HESSIAN {bad}/{nfib} = '
+        f'{100 * bad / nfib:.1f}%; '
+        f'driver wall {nn_run["wall"]:.3f} s')
+    nn_run['records'] = None
     return nn_run
+
+
+# the reference's calibration gate on the pull standard deviation
+PULL_STD = (0.9, 1.1)
+PULL_TRIALS = 1000
+PULL_CMP_TRIALS = 64
+
+
+def run_pull(device, tm, tm_cpu):
+    """validation.run_accuracy at its defaults on the card
+    (PULL_TRIALS trials: scan -> Nelder-Mead -> polish -> refinement,
+    float64), launches counted from 0: its statistics and the gate
+    PULL_STD on the pull std; then PULL_CMP_TRIALS trials on the card
+    and on the CPU through the same 6,6,6,4 grid at 4096 px (the
+    default's, built here once a device): every trial's velocity within
+    sigma/2."""
+    import torch
+    from rvspecfit_torch import validation
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats, _ = validation.run_accuracy(ntrials=PULL_TRIALS, device=device)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    log(f'pull harness, {PULL_TRIALS} trials on the card: {wall:.3f} s; '
+        f'{json.dumps(stats)}; kernel launches {counts}')
+    check_launches('pull harness', counts, unused=('ccf_chisq',))
+    check(PULL_STD[0] <= stats['pull_std'] <= PULL_STD[1],
+          f'pull std {stats["pull_std"]:.4f} outside {PULL_STD}')
+    raw = {}
+    for key, tm_d in (('cuda', tm), ('cpu', tm_cpu)):
+        t0 = time.perf_counter()
+        raw[key] = validation.run_accuracy(ntrials=PULL_CMP_TRIALS,
+                                           templates={'acc': tm_d})[1]
+        raw[key]['seconds'] = time.perf_counter() - t0
+    dv = np.abs(raw['cuda']['vfit'] - raw['cpu']['vfit']) \
+        / raw['cpu']['verr']
+    log(f'pull harness, {PULL_CMP_TRIALS} trials card vs CPU float64: '
+        f'max |dv|/sigma {dv.max():.3e} (limit 0.5); card '
+        f'{raw["cuda"]["seconds"]:.3f} s, CPU {raw["cpu"]["seconds"]:.3f} s')
+    check((dv < 0.5).all(), 'the pull harness\'s velocities on the card '
+          'disagree with the CPU\'s')
+    return dict(stats=stats, wall=wall, counts=counts,
+                max_dv_sigma_64=float(dv.max()))
 
 
 def launches_of(counts, name):
@@ -1769,7 +2004,18 @@ def main():
         res_b1 = kernel_b_single(objs[0][0], both_b)
         wv = run_weave(workdir, models, bks)
         bf = run_bruteforce(workdir, tm, bank_d)
-        nn_run = run_nn(workdir, device)
+        t_phase = time.perf_counter()
+        data = training_set()
+        train_model, train = run_training(device, data)
+        train_cmp = training_against_cpu(device, data, train)
+        log(f'phase NN training: {time.perf_counter() - t_phase:.1f} s')
+        t_phase = time.perf_counter()
+        nn_run = run_nn(workdir, device, train_model, data)
+        del data, train_model
+        log(f'phase NN cell: {time.perf_counter() - t_phase:.1f} s')
+    t_phase = time.perf_counter()
+    pull = run_pull(device, tm, tm_cpu)
+    log(f'phase pull harness: {time.perf_counter() - t_phase:.1f} s')
     log('card float64 vs CPU float64 (ROADMAP C.1, C.2): ' + json.dumps(dict(
         group_fit_8=stats8, coadd8=c8, coadd64res=c64,
         single_object=single['stats'], weave8=wv['stats'])))
@@ -1781,6 +2027,14 @@ def main():
         f'(8) {single["cuda"]["seconds"]["fit"]:.3f} / '
         f'{single["cuda32"]["seconds"]["fit"]:.3f}; NN driver group '
         f'{nn_run["cold"]:.3f} s')
+    log('NN training and pull harness: ' + json.dumps(dict(
+        training={k: v for k, v in train.items() if k != 'counts'},
+        training_vs_cpu=train_cmp,
+        nn_cell=dict(cold_group_s=nn_run['cold'], wall_s=nn_run['wall'],
+                     recovered=nn_run['recovered'],
+                     bad_hessian_share=nn_run['bad_hessian_share']),
+        pull=dict(pull['stats'], seconds=pull['wall'],
+                  max_dv_sigma_64=pull['max_dv_sigma_64']))))
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -1803,6 +2057,10 @@ def main():
                 bf['counts'][form], base)
             k['launches_nn_driver'] = launches_of(nn_run['counts'][form],
                                                   base)
+            k['launches_nn_training'] = launches_of(
+                train['counts'][form], base)
+            k['launches_pull_harness'] = launches_of(pull['counts'][form],
+                                                     base)
     log(f'chip_smoke: {time.perf_counter() - t_script:.1f} s')
     print(smi)
     print(json.dumps(dict(kernels=kernels)))

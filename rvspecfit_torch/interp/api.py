@@ -1,8 +1,9 @@
 """Template model: interpolator + wavelength geometry.
 
 Counterpart of rvspecfit_tpu/interp/api.py for regular-grid libraries
-(multilinear, interp/grid.py) and NN libraries (interp/nn.py); the
-reference's triangulation libraries are not ported yet (ROADMAP A5).
+(multilinear, interp/grid.py; a triangulation library is fitted
+through the regular grid pipeline/library.py rasterizes from it) and
+NN libraries (interp/nn.py).
 """
 from __future__ import annotations
 

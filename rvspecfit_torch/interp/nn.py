@@ -16,9 +16,12 @@ squared positive distance to the convex hull of the training
 parameters' (p0, p1) and (p2, p3) projections, from facet equations
 computed on the host (:func:`hull_equations`).
 
-:class:`NNInterpolator` is an ``nn.Module`` whose weights do not
-require gradients (the fit differentiates the spectra in the
-parameters, not in the weights); it reads and writes the reference's
+:class:`NNInterpolator` is an ``nn.Module``: its parameters are the
+trained weights (the Linear layers, the batch-norm affines, the output
+layer) and its buffers the standardization and the hull equations.
+The parameters require gradients only while pipeline/train_nn.py
+trains them: the fit differentiates the spectra in the stellar
+parameters, not in the weights.  It reads and writes the reference's
 checkpoint payload (:func:`state_to_dict`, :func:`state_from_dict`:
 same magic, versions and keys), so a library the JAX trainer wrote
 loads here.  Clamps that are differentiated go through ops/clip.py,
@@ -82,8 +85,9 @@ class NNInterpolator(torch.nn.Module):
         self.output = _linear(pc_w, pc_b, to)
         self.bn_layers = tuple(i for i, x in enumerate(bn) if x is not None)
         for i in self.bn_layers:
-            self.register_buffer(f'bn_scale_{i}', to(bn[i][0]))
-            self.register_buffer(f'bn_shift_{i}', to(bn[i][1]))
+            for part, a in (('scale', bn[i][0]), ('shift', bn[i][1])):
+                self.register_parameter(f'bn_{part}_{i}',
+                                        torch.nn.Parameter(to(a)))
         self.register_buffer('mean', to(mean))
         self.register_buffer('std', to(std))
         self.register_buffer('hull_eq_0', to(hull_eqs[0]))

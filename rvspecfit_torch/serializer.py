@@ -1,17 +1,75 @@
-"""Read the template library's HDF5 artifacts (nested dicts).
+"""Read and write the template library's HDF5 artifacts (nested dicts).
 
-The port's own copy of the loading half of
-rvspecfit_tpu/serializer.py: one ``type`` attribute per node says how
-to rebuild it.  Pickle-free: a ``pickle`` node raises.  ``h5py`` is
-imported inside :func:`load_dict_from_hdf5` only, so the modules that
-use this one import on a machine without it (reading a library needs
-it).
+The port's own copy of rvspecfit_tpu/serializer.py: one ``type``
+attribute per node says how to rebuild it, so each side reads what the
+other writes.  Pickle-free: a ``pickle`` node raises on reading, and
+an object without a node type raises on writing.  ``h5py`` is imported
+inside :func:`load_dict_from_hdf5` and :func:`save_dict_to_hdf5` only,
+so the modules that use this one import on a machine without it
+(reading or writing a library needs it).
 """
 from __future__ import annotations
 
 import os
 
+import numpy as np
+
 CURRENT_VERSION = 1
+
+
+def _save_node(h5py, h5, path, item):
+    if isinstance(item, dict):
+        grp = h5.require_group(path)
+        grp.attrs['type'] = 'dict'
+        for k, v in item.items():
+            _save_node(h5py, h5, f'{path}/{k}', v)
+    elif item is None:
+        h5.create_dataset(path, data=0)
+        h5[path].attrs['type'] = 'none'
+    elif isinstance(item, str):
+        h5.create_dataset(path, data=item, dtype=h5py.string_dtype('utf-8'))
+        h5[path].attrs['type'] = 'str'
+    elif isinstance(item, (bool, np.bool_)):
+        h5.create_dataset(path, data=int(item))
+        h5[path].attrs['type'] = 'bool'
+    elif isinstance(item, (int, float, complex, np.generic)):
+        h5.create_dataset(path, data=item)
+        h5[path].attrs['type'] = 'scalar'
+    elif isinstance(item, (list, tuple)):
+        kind = 'list' if isinstance(item, list) else 'tuple'
+        arr = None
+        if len(item) > 0 and all(
+                isinstance(x, type(item[0])) for x in item) and not isinstance(
+                    item[0], (dict, list, tuple, type(None))):
+            try:
+                arr = np.asarray(item)
+            except ValueError:
+                arr = None
+        if arr is not None and arr.dtype != object:
+            if arr.dtype.char == 'U':
+                ds = h5.create_dataset(path, shape=len(item),
+                                       dtype=h5py.string_dtype('utf-8'))
+                ds[:] = arr
+            else:
+                h5.create_dataset(path, data=arr)
+            h5[path].attrs['type'] = kind
+        else:
+            grp = h5.require_group(path)
+            grp.attrs['type'] = 'seq_' + kind
+            grp.attrs['length'] = len(item)
+            for i, x in enumerate(item):
+                _save_node(h5py, h5, f'{path}/_{i}', x)
+    elif isinstance(item, np.ndarray):
+        if item.dtype.char == 'U' or item.dtype == object:
+            ds = h5.create_dataset(path, shape=item.shape,
+                                   dtype=h5py.string_dtype('utf-8'))
+            ds[...] = item.astype(str)
+        else:
+            h5.create_dataset(path, data=item)
+        h5[path].attrs['type'] = 'ndarray'
+    else:
+        raise ValueError(f'{path}: cannot serialize {type(item)} '
+                         '(pickled nodes are not written)')
 
 
 def _load_node(h5py, node):
@@ -46,6 +104,23 @@ def _load_node(h5py, node):
     if typ == 'pickle':
         raise ValueError(f'{node.name}: pickled nodes are not loaded')
     raise ValueError(f'Unknown node type {typ!r}')
+
+
+def save_dict_to_hdf5(filename, dic):
+    """Save a nested dict to an HDF5 artifact file (atomically: written
+    to ``filename + '.tmp'``, then renamed; removed if writing fails)."""
+    import h5py
+    tmp = filename + '.tmp'
+    try:
+        with h5py.File(tmp, 'w') as h5:
+            h5.attrs['version'] = CURRENT_VERSION
+            h5.attrs['writer'] = 'rvspecfit_torch'
+            for k, v in dic.items():
+                _save_node(h5py, h5, f'/{k}', v)
+    except BaseException:
+        os.remove(tmp)
+        raise
+    os.replace(tmp, filename)
 
 
 def load_dict_from_hdf5(filename):

@@ -7,11 +7,10 @@ package; tests/test_torch_ccf.py checks they produce identical arrays.
 ``build_template_model`` and ``build_ccf_bank`` are the counterparts
 of the reference functions of the same names.
 
-An NN library without a trainer (:func:`nn_template_artifacts`), the
-exposures drawn from a template model itself (:func:`model_exposure`)
-and the CCF bank of a template model at the grid's nodes
-(:func:`model_ccf_bank`) let the NN slice run on the card, where there
-is no JAX to train one.
+The exposures drawn from a template model itself
+(:func:`model_exposure`) and the CCF bank of a template model at the
+grid's nodes (:func:`model_ccf_bank`) let a trained NN library
+(pipeline/train_nn.py) be fitted on spectra it can reproduce exactly.
 """
 import itertools
 
@@ -174,43 +173,6 @@ def _ccf_bank_of(lam, specs, vecs, parnames, every, ccf_lam0, ccf_lam1,
                 vsini_is_none=[v is None for v in vsinis_list],
                 parnames=list(parnames))
     return np.fft.rfft(models, axis=1), np.fft.rfft(models**2, axis=1), info
-
-
-def nn_template_artifacts(nt=6, nl=6, nf=6, na=4, npix=4096, lam0=4550.0,
-                          lam1=5450.0, wresol=2.0, width=256, nlayers=2,
-                          npc=64, seed=0):
-    """An NN library of the synthetic grid, made without a trainer: (the
-    interp dict as the NN trainer writes it, the checkpoint payload);
-    pipeline/library.template_model_from_artifacts builds the model.
-
-    The output layer holds the grid's top ``npc`` principal components
-    of its log-spectra, each scaled by the rms of its scores over the
-    grid, with their mean as the bias, so that unit activations vary the
-    spectra as much as the grid does; the hidden layers are the random
-    initialization (interp/nn.init_state from a torch.Generator seeded
-    with ``seed``) at the reference trainer's default widths
-    (train_nn.execute: width 256, 2 layers, npc 64); the inputs are
-    standardized by the grid nodes' mean and std, and the hull is that
-    of the nodes."""
-    import torch
-
-    from rvspecfit_torch.interp import nn as nn_mod
-    lam, uvecs, idgrid, vecs, specs, parnames = make_template_grid(
-        nt, nl, nf, na, npix=npix, lam0=lam0, lam1=lam1, wresol=wresol)
-    nodes = vecs.T
-    mean = specs.mean(0)
-    _, sv, vt = np.linalg.svd(specs - mean, full_matrices=False)
-    model = nn_mod.init_state(
-        torch.Generator().manual_seed(seed), nodes.shape[1], width, nlayers,
-        npc, npix, mean=nodes.mean(0), std=nodes.std(0),
-        hull_eqs=nn_mod.hull_equations(nodes), device='cpu')
-    payload = nn_mod.state_to_dict(model)
-    payload.update(pc_w=vt[:npc] * (sv[:npc] / np.sqrt(len(specs)))[:, None],
-                   pc_b=mean)
-    fd = dict(interpolation_type='nn', lam=lam, log_step=True, log_spec=True,
-              log_ids=[0], parnames=list(parnames),
-              nn_kwargs=dict(width=width, nlayers=nlayers, npc=npc))
-    return fd, payload
 
 
 def _lam_of(tm):

@@ -33,10 +33,16 @@ def test_every_module_imports_without_jax():
             'rvspecfit_torch.fit.find_best', 'rvspecfit_torch.fit.vel_fit',
             'rvspecfit_torch.fit.likelihood',
             'rvspecfit_torch.survey.weave', 'rvspecfit_torch.interp.nn',
-            'rvspecfit_torch.interp.mapper'} <= set(mods)
-    # h5py and yaml are missing on the card's machine too
+            'rvspecfit_torch.interp.mapper',
+            'rvspecfit_torch.pipeline.train_nn',
+            'rvspecfit_torch.interp.triangulation',
+            'rvspecfit_torch.validation'} <= set(mods)
+    # h5py and yaml are missing on the card's machine too; the trainer
+    # takes optax's place and computes its PCA without sklearn
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['optax'] = None\n"
+            "sys.modules['sklearn'] = None\n"
             "sys.modules['rvspecfit_tpu'] = None\n"
             "sys.modules['h5py'] = None\n"
             "sys.modules['yaml'] = None\n"
@@ -45,6 +51,12 @@ def test_every_module_imports_without_jax():
             "import torch\n"
             "assert not torch.backends.cuda.matmul.allow_tf32\n"
             "assert not torch.backends.cudnn.allow_tf32\n"
+            # the trainer with its PCA initialization runs too
+            "import numpy as np\n"
+            "from rvspecfit_torch.pipeline import train_nn\n"
+            "rng = np.random.RandomState(0)\n"
+            "train_nn.train_interpolator(rng.rand(12, 4), rng.rand(12, 9),"
+            " width=4, nlayers=1, npc=3, num_epochs=1, device='cpu')\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, '-c', code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

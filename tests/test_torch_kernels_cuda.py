@@ -552,3 +552,32 @@ def test_process_on_the_card(cuda_device):
     assert abs(got['vel'] - want['vel']) <= max(1.0, 0.5 * want['vel_err'])
     assert abs(want['vel'] - truth['vel'][0]) < max(10.0,
                                                     3 * want['vel_err'])
+
+
+def test_trainer_on_the_card(cuda_device):
+    """pipeline/train_nn on the card against the CPU float64 run from
+    the same seed (one init_state draw, the same batches): 2 epochs'
+    losses within rtol 1e-9 and the folded weights within 1e-9 of each
+    array's largest entry (the same arithmetic in another BLAS's
+    order); the PCA layer (cuSOLVER against LAPACK) within 1e-9."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.interp import nn
+    from rvspecfit_torch.pipeline import train_nn
+    _, _, _, vecs, specs, _ = simulation.make_template_grid(5, 5, 4, 3,
+                                                            npix=60)
+    kw = dict(width=32, nlayers=2, npc=8, batch_size=64, lr0=1e-3,
+              num_epochs=2, pca_init=False, seed=5)
+    runs = {dev: train_nn.train_interpolator(vecs.T, specs, device=dev, **kw)
+            for dev in (cuda_device, 'cpu')}
+    (card, hcard), (cpu, hcpu) = runs[cuda_device], runs['cpu']
+    assert card.mean.device.type == 'cuda' and card.mean.dtype == torch.float64
+    np.testing.assert_allclose(hcard['loss'], hcpu['loss'], rtol=1e-9)
+    got, want = nn.state_to_dict(card), nn.state_to_dict(cpu)
+    for k, w in want.items():
+        if isinstance(w, np.ndarray):
+            assert np.abs(got[k] - w).max() <= 1e-9 * np.abs(w).max(), k
+    targets = torch.as_tensor((specs - specs.mean(0)) / specs.std(0))
+    pcs = [train_nn.pca_init_pc_layer(targets.to(dev), 8)
+           for dev in (cuda_device, 'cpu')]
+    for a, b in zip(*pcs):
+        assert float((a.cpu() - b).abs().max()) <= 1e-9

@@ -102,12 +102,13 @@ def test_template_model_matches_reference(desi_library, setup):
 
 
 def test_other_interpolation_types_raise(desi_library):
-    """Types other than regulargrid and nn (ported since the NN slice)
-    raise, naming the ROADMAP item."""
+    """A missing or unknown interpolation type raises, as the
+    reference's loader does (a triangulation library loads since the
+    triangulation branch was ported: tests/test_torch_triangulation.py)."""
     fd, dats = library.read_template_artifacts('desi_b',
                                                _config(desi_library))
-    for itype in ('triangulation', None):
-        with pytest.raises(ValueError, match='not ported.*ROADMAP A5'):
+    for itype in (None, 'spline'):
+        with pytest.raises(RuntimeError, match='Unknown interpolation type'):
             library.template_model_from_artifacts(
                 dict(fd, interpolation_type=itype), dats, device='cpu')
 

@@ -1,6 +1,7 @@
 """Parity of the port's NN template interpolator (interp/nn.py,
-interp/mapper.py, the NN branch of pipeline/library.py, convert.nn_state
-and simulation's NN library) with the JAX reference (float64, CPU)."""
+interp/mapper.py, the NN branch of pipeline/library.py, convert.nn_state)
+with the JAX reference (float64, CPU), through a library the port's
+trainer made."""
 import dataclasses
 import os
 
@@ -25,7 +26,7 @@ from rvspecfit_tpu.utils import freeze
 from rvspecfit_torch import convert, simulation
 from rvspecfit_torch.fit import batch, ccf, likelihood, vel_fit
 from rvspecfit_torch.interp import mapper, nn
-from rvspecfit_torch.pipeline import library
+from rvspecfit_torch.pipeline import library, train_nn
 
 # float64 on both sides: the same formulas in another library's
 # operation order
@@ -216,39 +217,23 @@ def test_reference_checkpoint_loads_in_the_port(tmp_path):
 
 @pytest.fixture(scope='module')
 def nn_library():
-    """simulation's NN library of a small synthetic grid: (fd, payload,
-    the port's model, the reference's model from the same payload)."""
-    fd, payload = simulation.nn_template_artifacts(3, 3, 3, 2, npix=512,
-                                                   width=32, npc=8, seed=3)
+    """An NN library of a small synthetic grid trained by the port's
+    trainer on the CPU: (fd, payload, the port's model, the reference's
+    model from the same payload)."""
+    lam, _, _, vecs, specs, parnames = simulation.make_template_grid(
+        3, 3, 3, 2, npix=512)
+    model, hist = train_nn.train_interpolator(
+        vecs.T, specs, width=32, nlayers=2, npc=8, lr0=3e-3, num_epochs=150,
+        batch_size=64, seed=3, device='cpu')
+    assert hist['loss'][-1] < 0.3 * hist['loss'][0]
+    payload = nn.state_to_dict(model)
+    fd = train_nn.library_descriptor(lam, parnames, True, True, [0],
+                                     np.zeros(len(specs)), 32, 2, 8)
     tm = library.template_model_from_artifacts(fd, payload, device='cpu')
     rtm = RTemplateModel(kind='nn', state=rnn.state_from_dict(payload),
                          geom=RSplineGeometry.from_knots(fd['lam'], True),
                          parnames=tuple(fd['parnames']), log_ids=(0,))
     return fd, payload, tm, rtm
-
-
-def test_synthetic_nn_library(nn_library):
-    """The output layer holds the grid's principal components (scaled by
-    their scores' rms) and their mean; the payload is a reference
-    checkpoint whose model equals the port's."""
-    fd, payload, tm, rtm = nn_library
-    lam, _, _, vecs, specs, _ = simulation.make_template_grid(3, 3, 3, 2,
-                                                              npix=512)
-    np.testing.assert_allclose(payload['pc_b'], specs.mean(0), rtol=1e-14)
-    scores = (specs - specs.mean(0)) @ payload['pc_w'].T
-    norms = np.linalg.norm(payload['pc_w'], axis=1)
-    np.testing.assert_allclose(np.sqrt((scores**2).mean(0)), norms**2,
-                               rtol=1e-10)
-    assert [w.shape for w in (payload[f'w_{i}'] for i in range(4))] == [
-        (4, 32), (32, 32), (32, 32), (32, 8)]
-    np.testing.assert_array_equal(tm.geom.xs.numpy(), lam)
-    nodes = vecs.T.copy()
-    nodes[:, 0] = 10**nodes[:, 0]
-    spec, out = tm.eval_batch(_t(nodes))
-    rspec, rout = rtm.eval_batch(jnp.asarray(nodes))
-    np.testing.assert_allclose(spec.numpy(), np.asarray(rspec), rtol=RTOL)
-    assert (out.numpy() < 1e-20).all() and (np.asarray(rout) < 1e-20).all()
-    assert np.isfinite(spec.numpy()).all() and (spec.numpy() > 0).all()
 
 
 def test_model_exposure_and_bank(nn_library):

@@ -33,27 +33,20 @@ import chip_smoke  # noqa: E402
 
 def profiled(fn):
     """(wall s, device busy s, kernel count, top-5 [(name, ms, calls)])
-    of one call of fn() after a synchronize."""
+    of one call of fn() under torch.profiler (chip_smoke.device_activity:
+    kernels and memory copies; the wall with the profiler on)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    wall = []
+
+    def timed():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dur = [e.time_range.elapsed_us() for e in kern]
-    busy = sum(dur) * 1e-6
-    by_name = {}
-    for e, d in zip(kern, dur):
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + d * 1e-3, n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return wall, busy, len(kern), [(k[:90], round(v[0], 3), v[1])
-                                   for k, v in top]
+        wall.append(time.perf_counter() - t0)
+    activity = chip_smoke.device_activity(timed)
+    return (wall[0], 1e-3 * sum(t for t, _ in activity.values()),
+            sum(n for _, n in activity.values()),
+            chip_smoke.top_activity(activity))
 
 
 def main():
