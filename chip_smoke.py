@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the rvspecfit_torch group fit, DESI and WEAVE drivers, the
 single-object fit, the NN trainer and a trained NN template library,
-and the RV pull harness on one CUDA card, in float64 (the port's
-working type), and check them.
+the RV pull harness and the offline template pipeline on one CUDA
+card, in float64 (the port's working type), and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card
 and the CUDA toolkit):
@@ -87,6 +87,19 @@ and the CUDA toolkit):
 11. The RV pull harness (validation.run_accuracy) at its defaults on
    1000 trials: pull std within [0.9, 1.1]; 64 trials on the card and
    on the CPU: velocities within sigma/2.
+12. The offline template pipeline through each stage's core (the
+   card's machine has no h5py for the writers): the 6,6,6,4 grid as
+   864 FITS templates of 20,000 px with PHOENIX keywords ->
+   read_grid.makedb -> mask_grid's PHOENIX rules -> make_interpol with
+   DESI's options (R = x/1.55, step 0.4 A, 4600-5400 A, float32) ->
+   make_nd's regular grid -> make_ccf's bank (vsinis 0 and 300, every
+   8: 216 templates x 1025 frequencies) with its continua fitted on the
+   card, held against the same bank built on the CPU (rtol 1e-8);
+   kernel B against its plain version at the bank's shapes; 500 fibers
+   of 3 arms drawn from the library through survey/desi._run_group_fit
+   with the card-built bank: RV recovery, every kernel launched, and 8
+   fibers against the CPU float64 run (velocities and parameters
+   within sigma/2); each stage's seconds.
 
 Every path's kernel launches are counted from 0 just before it runs.
 Prints, last, the card, a JSON line of the kernels (each in its
@@ -1789,6 +1802,234 @@ def run_pull(device, tm, tm_cpu):
                 max_dv_sigma_64=float(dv.max()))
 
 
+# ------------------------------------------------------------------
+# the offline template pipeline on the card's machine: FITS grid ->
+# read_grid -> mask_grid -> make_interpol -> make_nd -> make_ccf, through
+# each stage's core (the writers need h5py, which that machine lacks),
+# then a group fit through the library and bank it built
+
+# bench.py's 6,6,6,4 grid as FITS templates at LIB_NPIX px over LIB_LAM
+# (a PHOENIX build's ~25,000 templates at R ~ 500,000 are not here)
+LIB_GRID = (6, 6, 6, 4)
+LIB_NPIX = 20000
+LIB_LAM = (4500.0, 5500.0)
+PHOENIX_KEYWORDS = dict(teff='PHXTEFF', logg='PHXLOGG', feh='PHXM_H',
+                        alpha='PHXALPHA')
+# DESI's build options (surveys/desi/make_desi.sh): the specs (float32,
+# log grid, linear-continuum normalization) and the CCF bank
+LIB_SETUP = 'desi_like'
+LIB_RANGE = (4600.0, 5400.0)
+LIB_STEP = 0.4
+LIB_RESOL = 'x/1.55'
+# the FITS grid's own resolution (make_interpol's --resolution0 default)
+LIB_RESOLUTION0 = 100000.0
+LIB_VSINIS = [0.0, 300.0]
+LIB_EVERY = 8
+# three arms inside the library's range at +-1000 km/s
+LIB_LAYOUT = {'B': (4620.0, 4880.0), 'R': (4880.0, 5140.0),
+              'Z': (5140.0, 5390.0)}
+# the card's bank against the CPU's (tests/test_torch_ccf.py:153)
+BANK_RTOL = 1e-8
+
+
+@contextlib.contextmanager
+def timed(module, name, seconds, key):
+    """Add the seconds spent in ``module.name`` to ``seconds[key]``."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+    with mock.patch.object(module, name, wrapper):
+        yield
+
+
+def write_fits_grid(root):
+    """LIB_GRID's templates (simulation.fake_spectrum, no instrumental
+    broadening) as FITS files under ``root/specs`` with PHOENIX
+    keywords, and ``root/wave.fits``, through the port's FITS module."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.io import fitsio
+    os.makedirs(os.path.join(root, 'specs'))
+    lam = np.linspace(*LIB_LAM, LIB_NPIX)
+    values = dict(teff=np.linspace(4000.0, 10000.0, LIB_GRID[0]),
+                  logg=np.linspace(0.5, 5.0, LIB_GRID[1]),
+                  feh=np.linspace(-2.0, 0.0, LIB_GRID[2]),
+                  alpha=np.linspace(0.0, 1.0, LIB_GRID[3]))
+    for i, combo in enumerate(itertools.product(*values.values())):
+        par = dict(zip(values, combo))
+        fitsio.write(os.path.join(root, 'specs', f'lte{i:05d}.fits'),
+                     [dict(kind='image',
+                           data=simulation.fake_spectrum(lam, **par),
+                           header=[(PHOENIX_KEYWORDS[k], float(v), '')
+                                   for k, v in par.items()])])
+    fitsio.write(os.path.join(root, 'wave.fits'),
+                 [dict(kind='image', data=lam)])
+    return i + 1
+
+
+def build_library(workdir, device):
+    """The library and its CCF bank from a FITS grid, each stage
+    through its core: (specs dict, interp dict, stored spectra, bank
+    (models, ffts, fft2s, info) with the continua fitted on ``device``,
+    the CCF configuration, seconds per stage)."""
+    from rvspecfit_torch.pipeline import (make_ccf, make_interpol, make_nd,
+                                          mask_grid, read_grid)
+    root = os.path.join(workdir, 'fits_grid')
+    sec = {}
+    t0 = time.perf_counter()
+    ntempl = write_fits_grid(root)
+    sec['fits_write'] = time.perf_counter() - t0
+    db = os.path.join(root, 'files.db')
+    t0 = time.perf_counter()
+    read_grid.makedb(root, dbfile=db, mask='specs/*fits')
+    sec['makedb'] = time.perf_counter() - t0
+    nbad = mask_grid.mask_templates(db, mask_grid.PHOENIX_RULES)
+    check(nbad == 0, f'the PHOENIX rules masked {nbad} of the synthetic '
+          'grid\'s templates, none of which they name')
+    t0 = time.perf_counter()
+    with timed(read_grid, 'make_rebinner', sec, 'rebinner'):
+        d = make_interpol.build_specs(
+            (LIB_SETUP, *LIB_RANGE,
+             make_interpol.Resolution(resol_func=LIB_RESOL), LIB_STEP,
+             True), dbfile=db, prefix=root,
+            wavefile=os.path.join(root, 'wave.fits'),
+            resolution0=LIB_RESOLUTION0)
+    sec['specs'] = time.perf_counter() - t0 - sec['rebinner']
+    check(d['specs'].shape[0] == ntempl and d['specs'].dtype == np.float32
+          and np.isfinite(d['specs']).all(),
+          f'make_interpol gave specs {d["specs"].shape} '
+          f'{d["specs"].dtype}')
+    t0 = time.perf_counter()
+    fd, dats = make_nd.build_interpolator(d, regular=True)
+    sec['make_nd'] = time.perf_counter() - t0
+    check(fd['idgrid'].shape == LIB_GRID and (fd['idgrid'] >= 0).all(),
+          f'make_nd gave the id grid {fd["idgrid"].shape} with holes')
+    ccfconf = make_ccf.get_ccf_config(
+        logl0=np.log(LIB_RANGE[0]), logl1=np.log(LIB_RANGE[1]),
+        npoints=make_ccf.to_power_two(
+            int((LIB_RANGE[1] - LIB_RANGE[0]) / LIB_STEP)))
+    t0 = time.perf_counter()
+    with timed(make_ccf, 'preprocess_model_list', sec, 'bank_continua'):
+        bank = make_ccf.build_bank(d, ccfconf, every=LIB_EVERY,
+                                   vsinis=LIB_VSINIS, device=device)
+    sec['bank_ffts'] = time.perf_counter() - t0 - sec['bank_continua']
+    return d, fd, dats, bank, ccfconf, sec
+
+
+def bank_against_cpu(d, ccfconf, bank):
+    """The same bank built on the CPU: models and rFFTs within
+    BANK_RTOL of the CPU's (relative to each array's largest entry),
+    the same templates; returns (the largest difference relative to
+    its array's largest entry, seconds, the CPU's bank)."""
+    from rvspecfit_torch.pipeline import make_ccf
+    t0 = time.perf_counter()
+    cpu = make_ccf.build_bank(d, ccfconf, every=LIB_EVERY,
+                              vsinis=LIB_VSINIS, device='cpu')
+    seconds = time.perf_counter() - t0
+    worst = 0.0
+    for name, got, want in zip(('models', 'fft', 'fft2'), bank[:3],
+                               cpu[:3]):
+        scale = float(np.abs(want).max())
+        worst = max(worst, float(np.abs(got - want).max()) / scale)
+        check(np.allclose(got, want, rtol=BANK_RTOL,
+                          atol=BANK_RTOL * scale),
+              f'the card\'s bank {name} disagrees with the CPU\'s')
+    for key in ('params', 'vsinis', 'vsini_is_none', 'parnames'):
+        check(np.array_equal(bank[3][key], cpu[3][key]),
+              f'the card\'s bank {key} differ from the CPU\'s')
+    return worst, seconds, cpu
+
+
+def run_library_builder(workdir, device):
+    """Phase 12: the offline pipeline on the card's machine (build_library,
+    the bank's continua on the card), the bank against the CPU's,
+    kernel B against its plain version at the bank's shapes, then
+    NFIBERS fibers of 3 arms drawn from the library through
+    survey/desi._run_group_fit with the card-built bank, launches
+    counted from 0: RV recovery, every kernel launched, and 8 fibers
+    against the CPU float64 run (CPU model, CPU-built bank)."""
+    import torch
+    from rvspecfit_torch import convert, simulation
+    from rvspecfit_torch.fit.batch import BatchArm
+    from rvspecfit_torch.pipeline.library import \
+        template_model_from_artifacts
+    d, fd, dats, bank, ccfconf, sec = build_library(workdir, device)
+    models, ffts, fft2s, info = bank
+    log(f'library builder: {d["specs"].shape[0]} FITS templates x '
+        f'{LIB_NPIX} px -> specs {d["specs"].shape} {d["specs"].dtype} '
+        f'(R = {LIB_RESOL}, step {LIB_STEP} A) -> regular grid '
+        f'{fd["idgrid"].shape} -> CCF bank {ffts.shape[0]} templates x '
+        f'{ffts.shape[1]} frequencies (npoints {ccfconf["npoints"]}, '
+        f'vsinis {LIB_VSINIS}, every {LIB_EVERY})')
+    log('library builder seconds: ' + ', '.join(
+        f'{k} {v:.3f}' for k, v in sec.items()))
+    check(ffts.shape == (len(LIB_VSINIS) * int(np.ceil(
+        np.prod(LIB_GRID) / LIB_EVERY)), ccfconf['npoints'] // 2 + 1),
+        f'the bank has shape {ffts.shape}')
+    worst, cpu_s, cpu_bank = bank_against_cpu(d, ccfconf, bank)
+    log(f'bank built on the card vs on the CPU: max|diff| / max|cpu| '
+        f'{worst:.3e} (limit rtol {BANK_RTOL:.0e}); CPU build '
+        f'{cpu_s:.3f} s')
+
+    tm = template_model_from_artifacts(fd, dats, device=device)
+    tm_cpu = template_model_from_artifacts(fd, dats, device='cpu')
+    bank_d = convert.ccf_bank(ffts, fft2s, info, device=device)
+    arms_data, truth = simulation.model_exposure(
+        tm_cpu, NFIBERS, npix_arm=NPIX_ARM, snr=50.0, seed=12,
+        layout=LIB_LAYOUT)
+    arms = [BatchArm(n, lam, fl, iv) for n, (lam, fl, iv)
+            in arms_data.items()]
+    args, cont = kernel_b_args(arms, bank_d)
+    res_b = kernel_b_case(args, cont, 'kernel B on the built bank float64',
+                          'float64')
+    del args
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_group_fit(tm, arms, {a.name: bank_d for a in arms})
+    torch.cuda.synchronize()
+    sec['fit'] = time.perf_counter() - t0
+    counts = kernel_counts()
+    log(f'group fit through the built library: {sec["fit"]:.3f} s ('
+        + ' '.join(f'{k}={out["phases"][k]:.3f}s' for k in PHASES)
+        + f'); kernel launches {counts}')
+    check_launches('library builder path', counts)
+    check_outputs(out, NFIBERS, NPIX_ARM)
+    dv = out['ref']['best_vel'] - truth['vel']
+    ok = np.abs(dv) < np.maximum(10.0, 5 * out['ref']['vel_err'])
+    log(f'RV recovery through the built library: {int(ok.sum())}/'
+        f'{NFIBERS} within max(10, 5 sigma); median |dv| '
+        f'{np.median(np.abs(dv)):.3f} km/s; BAD_HESSIAN '
+        f'{int(out["bad_hess"].sum())}/{NFIBERS}')
+    check(ok.sum() >= 0.98 * NFIBERS,
+          f'RV recovery through the built library {ok.sum()}/{NFIBERS}')
+
+    sub = [BatchArm(a.name, a.lam, a.flux[:8], a.ivar[:8]) for a in arms]
+    cpu_bank_d = convert.ccf_bank(*cpu_bank[1:], device='cpu')
+    small = {key: run_group_fit(tm_d, sub, {a.name: b for a in sub})
+             for key, tm_d, b in (('cuda', tm, bank_d),
+                                  ('cpu', tm_cpu, cpu_bank_d))}
+    gc = small['cpu']
+    dv8 = np.abs(small['cuda']['ref']['best_vel'] - gc['ref']['best_vel']) \
+        / gc['ref']['vel_err']
+    dp8 = np.abs(small['cuda']['params'] - gc['params']) / gc['errs']
+    log(f'8 fibers through the built library, card vs CPU float64: max '
+        f'|dv|/sigma {dv8.max():.3e}, max |dp|/sigma {np.nanmax(dp8):.3e} '
+        '(limit 0.5)')
+    check(dv8.max() <= 0.5 and np.nanmax(dp8) <= 0.5,
+          'the card\'s fit through the built library disagrees with the '
+          'CPU\'s')
+    return dict(seconds=sec, counts=counts, kernel_b=res_b,
+                recovered=int(ok.sum()), bank_max_rel=worst,
+                max_dv_sigma_8=float(dv8.max()),
+                max_dp_sigma_8=float(np.nanmax(dp8)),
+                bank_shape=list(ffts.shape))
+
+
 def launches_of(counts, name):
     """A kernels-line entry's launches in one form's counts (kernel A's:
     both modes)."""
@@ -2016,6 +2257,10 @@ def main():
     t_phase = time.perf_counter()
     pull = run_pull(device, tm, tm_cpu)
     log(f'phase pull harness: {time.perf_counter() - t_phase:.1f} s')
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        libb = run_library_builder(workdir, device)
+    log(f'phase library builder: {time.perf_counter() - t_phase:.1f} s')
     log('card float64 vs CPU float64 (ROADMAP C.1, C.2): ' + json.dumps(dict(
         group_fit_8=stats8, coadd8=c8, coadd64res=c64,
         single_object=single['stats'], weave8=wv['stats'])))
@@ -2034,7 +2279,9 @@ def main():
                      recovered=nn_run['recovered'],
                      bad_hessian_share=nn_run['bad_hessian_share']),
         pull=dict(pull['stats'], seconds=pull['wall'],
-                  max_dv_sigma_64=pull['max_dv_sigma_64']))))
+                  max_dv_sigma_64=pull['max_dv_sigma_64']),
+        library_builder={k: v for k, v in libb.items()
+                         if k not in ('counts', 'kernel_b')})))
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -2061,6 +2308,15 @@ def main():
                 train['counts'][form], base)
             k['launches_pull_harness'] = launches_of(pull['counts'][form],
                                                      base)
+            k['launches_library_builder'] = launches_of(
+                libb['counts'][form], base)
+            if base == 'ccf_chisq':
+                shape = 'T{}_F{}'.format(*libb['bank_shape'])
+                k.update({f'{key}_{shape}': libb['kernel_b'][key] for key in (
+                    'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
+                    'library_ms')})
+                k['max_abs_err'] = max(k['max_abs_err'],
+                                       libb['kernel_b']['max_abs_err'])
     log(f'chip_smoke: {time.perf_counter() - t_script:.1f} s')
     print(smi)
     print(json.dumps(dict(kernels=kernels)))

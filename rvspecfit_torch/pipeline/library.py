@@ -16,7 +16,12 @@ card fits every library through the grid or the NN interpolator.
 :func:`template_model_from_artifacts` builds the TemplateModel on a
 device from a regular grid's or an NN library's artifacts;
 :func:`load_template_model` does both, and :func:`load_template_models`
-for several setups.
+for several setups.  Loaded models are kept in one process-wide cache
+(:func:`clear_cache` empties it), keyed by the library's absolute path,
+the setup, the dtype, the device and what else changes the model built
+(``config['auto_regularize']``, ``RVST_AUTO_REGULARIZE`` and
+``RVST_AUTO_REGULARIZE_N``): every caller of one key shares one
+model, whose tensors nothing writes to.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ from rvspecfit_torch.interp import nn as nn_mod
 from rvspecfit_torch.interp.api import TemplateModel
 from rvspecfit_torch.interp.grid import GridInterpState
 from rvspecfit_torch.ops.spline import SplineGeometry
+from rvspecfit_torch.pipeline.make_nd import (INTERPOL_DAT_NAME,
+                                              INTERPOL_H5_NAME)
 
-INTERPOL_H5_NAME = 'interp_%s.h5'
-INTERPOL_DAT_NAME = 'interpdat_%s.npy'
 NN_STATE_NAME = 'nnstate_%s.h5'
 # interpolation_type -> TemplateModel kind (a triangulation library
 # reaches template_model_from_artifacts as its rasterized regular grid)
@@ -276,15 +281,37 @@ def template_model_from_artifacts(fd, data, device=None, dtype=None):
                          kind=kind, extra=extra)
 
 
-def load_template_model(setup, config, device=None):
+_cache = {}
+
+
+def clear_cache():
+    """Forget every loaded template model."""
+    _cache.clear()
+
+
+def _cache_key(setup, config, device, dtype):
+    return (os.path.abspath(config['template_lib']), setup, dtype,
+            str(resolve_device(device)), bool(config.get('auto_regularize')),
+            os.environ.get('RVST_AUTO_REGULARIZE'),
+            os.environ.get('RVST_AUTO_REGULARIZE_N'))
+
+
+def load_template_model(setup, config, device=None, dtype=None):
     """One setup's TemplateModel from ``config['template_lib']`` on
-    ``device`` (None: the CUDA card)."""
-    return template_model_from_artifacts(
-        *read_template_artifacts(setup, config), device=device)
+    ``device`` (None: the CUDA card), in ``dtype`` (None: the device's
+    working dtype); read and built once per cache key (see the module's
+    docstring)."""
+    key = _cache_key(setup, config, device, dtype)
+    if key not in _cache:
+        _cache[key] = template_model_from_artifacts(
+            *read_template_artifacts(setup, config), device=device,
+            dtype=dtype)
+    return _cache[key]
 
 
-def load_template_models(config, setups, device=None):
+def load_template_models(config, setups, device=None, dtype=None):
     """{setup: TemplateModel} of several setups from
-    ``config['template_lib']`` on ``device`` (None: the CUDA card)."""
-    return {s: load_template_model(s, config, device=device)
+    ``config['template_lib']`` on ``device`` (None: the CUDA card),
+    through :func:`load_template_model`'s cache."""
+    return {s: load_template_model(s, config, device=device, dtype=dtype)
             for s in setups}

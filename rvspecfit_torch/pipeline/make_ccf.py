@@ -1,24 +1,36 @@
-"""CCF template-bank core and the per-spectrum preprocessing.
+"""CCF template bank: the bank's core, its files and the per-spectrum
+preprocessing.
 
-Counterpart of the bank-building core of
-rvspecfit_tpu/pipeline/make_ccf.py: Morton-curve subsampling of the
-template set, continuum normalization (ops/continuum.fit_continuum)
-and resampling onto the power-of-two log-lambda CCF grid, and the names of
-the bank's files (fit/ccf.get_ccf_info reads them); and of its
-single-spectrum functions, :func:`get_continuum`, :func:`interp_masker`
-and :func:`preprocess_data`, thin wrappers over the batched device
-versions in ops/continuum.py.  Writing the on-disk artifacts is not
-ported yet.
+Counterpart of rvspecfit_tpu/pipeline/make_ccf.py.  :func:`build_bank`
+makes the bank of a specs dict (as make_interpol writes it): Morton-
+curve subsampling of the template set, continuum normalization on a
+device (ops/continuum.fit_continuum) and resampling onto the
+power-of-two log-lambda CCF grid (:func:`preprocess_model_list`), then
+rfft(model) and rfft(model^2) on the host.  :func:`ccf_executor` and
+:func:`main` write it as ``ccf_*.h5``, ``ccfdat_*.npz`` and
+``ccfmod_*.npy`` (the names fit/ccf.get_ccf_info reads; writing needs
+``h5py``).  The single-spectrum functions :func:`get_continuum`,
+:func:`interp_masker` and :func:`preprocess_data` are thin wrappers
+over the batched device versions in ops/continuum.py.
 """
 from __future__ import annotations
+
+import argparse
+import logging
+import os
+import shlex
+import sys
 
 import numpy as np
 import scipy.signal
 import scipy.stats
 import torch
 
+from rvspecfit_torch import __version__ as git_rev
+from rvspecfit_torch import serializer
 from rvspecfit_torch.ops import continuum as continuum_mod
 from rvspecfit_torch.ops import vsini as vsini_mod
+from rvspecfit_torch.pipeline.make_interpol import SPECS_H5_NAME
 
 
 def get_continuum_prefix(continuum):
@@ -160,3 +172,87 @@ def preprocess_model_list(lammodels, models, params, ccfconf, vsinis=None,
     w = (logl[ins] - loglam[li]) / (loglam[li + 1] - loglam[li])
     out[:, ins] = big[:, li] * (1 - w)[None, :] + big[:, li + 1] * w[None, :]
     return out, np.array(retparams), retvsinis
+
+
+def build_bank(d, ccfconf, every=10, vsinis=None, device=None):
+    """The CCF bank of the specs dict ``d`` (vec (ndim, nspec) raw
+    parameters, specs (nspec, npix) logged where ``log_spec``, lam,
+    parnames): every ``every``-th template in Morton order of its
+    parameters, times each of ``vsinis``, with the continua fitted on
+    ``device`` (None: the CUDA card).  Returns (models (T, npoints),
+    ffts, fft2s (T, npoints // 2 + 1) complex, info), host arrays."""
+    vec, specs = np.asarray(d['vec']), np.asarray(d['specs'])
+    if d.get('log_spec', True):
+        specs = np.exp(specs)
+    inds = np.argsort(get_mortoncurve_id(vec.T))[::every]
+    models, params, vsinis_list = preprocess_model_list(
+        d['lam'], specs[inds], vec.T[inds], ccfconf, vsinis=vsinis,
+        device=device)
+    info = dict(params=params, ccfconf=ccfconf,
+                vsinis=[-1.0 if v is None else float(v)
+                        for v in vsinis_list],
+                vsini_is_none=[v is None for v in vsinis_list],
+                parnames=[str(p) for p in d['parnames']])
+    return (models, np.fft.rfft(models, axis=1),
+            np.fft.rfft(models**2, axis=1), info)
+
+
+def ccf_executor(spec_setup, ccfconf, prefix=None, oprefix=None, every=10,
+                 vsinis=None, revision='', cmdline='', device=None):
+    """Build (:func:`build_bank`, continua on ``device``, None: the CUDA
+    card) and write the CCF files of one setup from
+    ``prefix/specs_{setup}.h5`` into ``oprefix``."""
+    d = serializer.load_dict_from_hdf5(
+        os.path.join(prefix, SPECS_H5_NAME % spec_setup))
+    models, ffts, fft2s, info = build_bank(d, ccfconf, every=every,
+                                           vsinis=vsinis, device=device)
+    info.update(revision=revision, cmdline=cmdline, git_rev=git_rev)
+    cont = ccfconf['continuum']
+    os.makedirs(oprefix, exist_ok=True)
+    serializer.save_dict_to_hdf5(
+        os.path.join(oprefix, get_ccf_info_name(spec_setup, cont)), info)
+    np.savez(os.path.join(oprefix, get_ccf_dat_name(spec_setup, cont)),
+             fft=ffts, fft2=fft2s)
+    np.save(os.path.join(oprefix, get_ccf_mod_name(spec_setup, cont)),
+            models)
+    logging.info('wrote %d CCF templates for %s', len(models), spec_setup)
+
+
+def main(args=None):
+    if args is None:
+        args = sys.argv[1:]
+    cmdline = shlex.join(['rvstorch_make_ccf'] + list(args))
+    parser = argparse.ArgumentParser(
+        description='Create Fourier-transformed CCF templates')
+    parser.add_argument('--prefix', type=str, required=True)
+    parser.add_argument('--oprefix', type=str, default='templ_data/')
+    parser.add_argument('--setup', type=str, required=True)
+    parser.add_argument('--lambda0', type=float, required=True)
+    parser.add_argument('--lambda1', type=float, required=True)
+    parser.add_argument('--step', type=float, required=True)
+    parser.add_argument('--nocontinuum', action='store_true',
+                        default=False)
+    parser.add_argument('--revision', type=str, default='')
+    parser.add_argument('--vsinis', type=str, default=None,
+                        help='comma-separated vsini values')
+    parser.add_argument('--every', type=int, default=30)
+    parser.add_argument('--cpu', action='store_true', default=False,
+                        help='fit the continua on the CPU (default: the '
+                        'CUDA card)')
+    args = parser.parse_args(args)
+
+    npoints = to_power_two(int((args.lambda1 - args.lambda0) / args.step))
+    ccfconf = get_ccf_config(
+        logl0=np.log(args.lambda0), logl1=np.log(args.lambda1),
+        npoints=npoints,
+        splinestep=None if args.nocontinuum else 1000)
+    vsinis = None
+    if args.vsinis is not None:
+        vsinis = [float(x) for x in args.vsinis.split(',')]
+    ccf_executor(args.setup, ccfconf, args.prefix, args.oprefix,
+                 args.every, vsinis, revision=args.revision,
+                 cmdline=cmdline, device='cpu' if args.cpu else None)
+
+
+if __name__ == '__main__':
+    main()

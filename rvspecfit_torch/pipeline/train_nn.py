@@ -48,9 +48,10 @@ from rvspecfit_torch import serializer
 from rvspecfit_torch.device import dtype_for, resolve_device
 from rvspecfit_torch.interp import nn as nn_mod
 from rvspecfit_torch.interp.mapper import LogMapper
-from rvspecfit_torch.pipeline.library import INTERPOL_H5_NAME, NN_STATE_NAME
+from rvspecfit_torch.pipeline.library import NN_STATE_NAME
+from rvspecfit_torch.pipeline.make_interpol import SPECS_H5_NAME
+from rvspecfit_torch.pipeline.make_nd import INTERPOL_H5_NAME
 
-SPECS_H5_NAME = 'specs_%s.h5'
 NN_TMP_STATE_NAME = 'tmp_nnstate_%s.h5'
 NN_PRED_NAME = 'pred_%s.h5'
 PRED_CHUNK = 4096

@@ -155,24 +155,19 @@ def _ccf_bank_of(lam, specs, vecs, parnames, every, ccf_lam0, ccf_lam1,
                  step, vsinis, continuum, device):
     """The bank of (nspec, npix) template spectra on ``lam`` at the
     (ndim, nspec) mapped parameters ``vecs`` (log10 teff first), through
-    pipeline/make_ccf's core."""
+    pipeline/make_ccf.build_bank."""
     from rvspecfit_torch.pipeline import make_ccf
-    raw = vecs.T.copy()
-    raw[:, 0] = 10.0**raw[:, 0]          # mapped log10(teff) -> teff
-    inds = np.argsort(make_ccf.get_mortoncurve_id(raw))[::every]
+    raw = vecs.copy()
+    raw[0] = 10.0**raw[0]                # mapped log10(teff) -> teff
     npoints = make_ccf.to_power_two(int((ccf_lam1 - ccf_lam0) / step))
     ccfconf = make_ccf.get_ccf_config(
         logl0=np.log(ccf_lam0), logl1=np.log(ccf_lam1), npoints=npoints,
         splinestep=1000 if continuum else None)
-    models, params, vsinis_list = make_ccf.preprocess_model_list(
-        lam, specs[inds], raw[inds], ccfconf, vsinis=vsinis,
+    _, ffts, fft2s, info = make_ccf.build_bank(
+        dict(vec=raw, specs=specs, lam=lam, parnames=parnames,
+             log_spec=False), ccfconf, every=every, vsinis=vsinis,
         device=resolve_device(device))
-    info = dict(params=params, ccfconf=ccfconf,
-                vsinis=[-1.0 if v is None else float(v)
-                        for v in vsinis_list],
-                vsini_is_none=[v is None for v in vsinis_list],
-                parnames=list(parnames))
-    return np.fft.rfft(models, axis=1), np.fft.rfft(models**2, axis=1), info
+    return ffts, fft2s, info
 
 
 def _lam_of(tm):

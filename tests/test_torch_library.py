@@ -187,3 +187,121 @@ def test_loaders_need_h5py_only_when_reading(desi_library):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+
+
+# ------------------------------------------------------------------
+# the template-model cache (ROADMAP C.4)
+
+@pytest.fixture
+def reads(monkeypatch):
+    """The setups whose library the loader reads
+    (read_template_artifacts calls), from an empty cache."""
+    library.clear_cache()
+    setups = []
+    real = library.read_template_artifacts
+
+    def counted(setup, config):
+        setups.append(setup)
+        return real(setup, config)
+    monkeypatch.setattr(library, 'read_template_artifacts', counted)
+    yield setups
+    library.clear_cache()
+
+
+def _state_tensors(tm):
+    return [t.clone() for part in (tm.state, tm.geom)
+            for t in _tensor_fields(part).values()
+            if isinstance(t, torch.Tensor)]
+
+
+def test_process_reads_the_library_once(desi_library, reads):
+    """A second vel_fit.process reads the library 0 more times and
+    leaves the shared model's tensors as they were; after clear_cache
+    the next call reads it again."""
+    from rvspecfit_torch.fit import vel_fit
+    from rvspecfit_torch.fit.spec_data import SpecData
+    rng = np.random.RandomState(1)
+    lam = np.linspace(4890.0, 5130.0, 250)
+    flux = rsim.fake_spectrum(lam / (1 + 80.0 / 299792.458), 6000.0, 3.0,
+                              -1.0, 0.3, wresol=1.0)
+    flux += rng.normal(size=lam.size) * flux / 60.0
+    sd = SpecData('desi_r', lam, flux, flux / 60.0)
+    cfg = dict(_config(desi_library), second_minimizer=False)
+
+    def run():
+        return vel_fit.process([sd], dict(teff=5800.0, logg=3.2, feh=-0.9,
+                                          alpha=0.4), config=cfg,
+                               options={'npoly': 5}, device='cpu')
+    first = run()
+    assert reads == ['desi_r']
+    tm = library.load_template_model('desi_r', cfg, device='cpu')
+    before = _state_tensors(tm)
+    second = run()
+    assert reads == ['desi_r']
+    assert second['vel'] == first['vel'] and abs(first['vel'] - 80.0) < 10
+    for a, b in zip(_state_tensors(tm), before):
+        assert torch.equal(a, b)
+    library.clear_cache()
+    run()
+    assert reads == ['desi_r'] * 2
+
+
+def test_weave_proc_many_reads_the_library_once(desi_library, reads,
+                                                tmp_path):
+    """proc_many over two WEAVE pairs without in-memory models reads
+    each setup's library once."""
+    from rvspecfit_torch import utils
+    from rvspecfit_torch.pipeline import make_nd
+    from rvspecfit_torch.survey import weave
+    from test_torch_weave import write_pair
+    lib = tmp_path / 'lib'
+    lib.mkdir()
+    for s in ('b', 'r'):
+        for name in (make_nd.INTERPOL_H5_NAME, make_nd.INTERPOL_DAT_NAME,
+                     make_ccf.get_ccf_info_name('%s'),
+                     make_ccf.get_ccf_dat_name('%s'),
+                     make_ccf.get_ccf_mod_name('%s')):
+            os.symlink(os.path.join(desi_library, name % f'desi_{s}'),
+                       lib / (name % f'weave_{s}'))
+    cfg = utils.read_config(None, {'template_lib': str(lib)})
+    grps = [write_pair(tmp_path, seed=seed)[0] for seed in (5, 6)]
+    weave.proc_many(grps, str(tmp_path / 'out'), cfg,
+                    options={'npoly': 8}, device='cpu',
+                    throw_exceptions=True)
+    assert sorted(reads) == ['weave_b', 'weave_r']
+    for grp in grps:
+        assert os.path.exists(weave.output_path(grp, str(tmp_path / 'out')))
+
+
+def test_cache_keys_hold_dtype_device_and_regularization(desi_library, reads,
+                                                        monkeypatch):
+    """A different dtype, device, auto_regularize or
+    RVST_AUTO_REGULARIZE(_N) gets an entry of its own; the same key
+    gives the same model."""
+    cfg = _config(desi_library)
+    f64 = library.load_template_model('desi_b', cfg, device='cpu')
+    f32 = library.load_template_model('desi_b', cfg, device='cpu',
+                                      dtype=torch.float32)
+    assert f64.state.dats.dtype == torch.float64
+    assert f32.state.dats.dtype == torch.float32
+    assert library.load_template_models(cfg, ['desi_b'], device='cpu') \
+        == {'desi_b': f64}
+    assert library.load_template_model('desi_b', cfg, device='cpu') is f64
+    assert reads == ['desi_b'] * 2
+    # another device: a stand-in builds the model where the card would
+    monkeypatch.setattr(library, 'template_model_from_artifacts',
+                        lambda fd, data, device=None, dtype=None:
+                        ('model on', str(device)))
+    assert library.load_template_model('desi_b', cfg, device='meta') \
+        == ('model on', 'meta')
+    library.load_template_model('desi_b', dict(cfg, auto_regularize=True),
+                                device='cpu')
+    monkeypatch.setenv('RVST_AUTO_REGULARIZE', '1')
+    library.load_template_model('desi_b', cfg, device='cpu')
+    monkeypatch.setenv('RVST_AUTO_REGULARIZE_N', '5')
+    library.load_template_model('desi_b', cfg, device='cpu')
+    assert reads == ['desi_b'] * 6
+    monkeypatch.delenv('RVST_AUTO_REGULARIZE')
+    monkeypatch.delenv('RVST_AUTO_REGULARIZE_N')
+    assert library.load_template_model('desi_b', cfg, device='cpu') is f64
+    assert len(reads) == 6
