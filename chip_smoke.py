@@ -100,13 +100,32 @@ and the CUDA toolkit):
    with the card-built bank: RV recovery, every kernel launched, and 8
    fibers against the CPU float64 run (velocities and parameters
    within sigma/2); each stage's seconds.
+13. The fleet: 8 coadds of 500 fibers (seeds 100-107) through
+   survey/desi.proc_many at coalesce 1, run 1 in this process over the
+   static list, run 2 by two rank processes of this script on the one
+   card (``chip_smoke.py --fleet-rank RANK HOST:PORT DIR``), which join
+   a world on 127.0.0.1 through the driver's own wiring
+   (survey/desi.fleet, parallel/distributed's TCPStore), claim the
+   files through --dynamic_queue and write per-rank status and log
+   files.  A rank that exits non-zero fails the phase.  Checks every
+   file fitted exactly once across the ranks, RV recovery per file, and
+   every fiber of run 2 within sigma/100 of run 1; prints the walls,
+   files and s/file per rank, the aggregate files/s of 2 ranks against
+   1 and each rank's peak device memory.
+14. Fiber microbatching: _run_group_fit on 2000 fibers whole and with
+   config fit_microbatch=500: wall, phases and peak device memory of
+   each (and of the untiled CCF start); every fiber within sigma/100,
+   RV recovery.
+15. One vel_fit.process with options fast_interp (nearest-pixel
+   templates) on the card, its chi-square at the optimum on the card
+   against the CPU (rtol 1e-9).
+16. pipeline/prewarm's core on a 64-fiber synthetic coadd.
 
 Every path's kernel launches are counted from 0 just before it runs.
 Prints, last, the card, a JSON line of the kernels (each in its
 float64 and float32 form) and then the ok line.  Exits non-zero,
 printing no result, without a CUDA device or on any failure.
 """
-import concurrent.futures
 import contextlib
 import itertools
 import json
@@ -198,15 +217,12 @@ def environment():
 
 
 def build_kernels():
-    import torch
-    from rvspecfit_torch.ops import ccf_chisq, cuda_build, spline_eval
+    """Both kernel libraries through pipeline/prewarm.build_kernels (one
+    nvcc per source, started together), and what nvcc reported."""
+    from rvspecfit_torch.ops import cuda_build
+    from rvspecfit_torch.pipeline import prewarm
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor() as ex:
-        list(ex.map(cuda_build.load, ('spline_eval', 'ccf_chisq')))
-    for dtype in (torch.float64, torch.float32):
-        spline_eval.build(dtype)
-        spline_eval.build_adjoint(dtype)
-        ccf_chisq.build(dtype)
+    prewarm.build_kernels()
     log(f'kernel build: {time.perf_counter() - t0:.2f} s')
     for name, info in cuda_build.build_log.items():
         log(f'  {name}: nvcc {info["seconds"]:.2f} s; ptxas: '
@@ -2030,6 +2046,349 @@ def run_library_builder(workdir, device):
                 bank_shape=list(ffts.shape))
 
 
+# ------------------------------------------------------------------
+# the fleet: the DESI driver as processes claiming files from one queue
+
+FLEET_FILES = 8
+FLEET_RANKS = 2
+FLEET_SEED0 = 100
+# a rank's run, its model build included, and the barrier's timeout (s)
+FLEET_TIMEOUT = 600
+# the fleet's run 2 against its run 1, and tiles against a whole group:
+# every fiber's velocity and parameters within this share of the errors
+SAME_SIGMA = 0.01
+PARAM_COLUMNS = ('TEFF', 'LOGG', 'FEH', 'ALPHAFE')
+
+
+def fleet_rank(argv):
+    """One rank of the fleet phase (``chip_smoke.py --fleet-rank RANK
+    HOST:PORT DIR``): builds the template model and the bank on its
+    card (LOCAL_RANK picks it), joins the world through the driver's
+    own wiring (survey/desi.fleet, as ``rvstorch_desi_fit
+    --dynamic_queue --coordinator`` joins it), fits the files it claims
+    at coalesce 1 with per-rank status and log files, and writes its
+    wall times, launches and peak device memory to DIR/rank<RANK>.json."""
+    import logging
+    import torch
+    from rvspecfit_torch import convert
+    from rvspecfit_torch.device import resolve_device
+    from rvspecfit_torch.pipeline import prewarm
+    from rvspecfit_torch.survey import desi
+    rank, addr, fdir = int(argv[0]), argv[1], argv[2]
+    device = resolve_device(None)
+    prewarm.build_kernels()
+    tm = make_template_model(device)
+    bank_d = convert.ccf_bank(*make_bank(), device=device)
+    logging.basicConfig(filename=desi.per_rank(
+        os.path.join(fdir, 'log_%d.txt'), rank), level=logging.INFO)
+    with desi.fleet(input_file_from=os.path.join(fdir, 'files.txt'),
+                    dynamic_queue=True, rank=rank, world=FLEET_RANKS,
+                    coordinator=addr) as fl:
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.time()
+        desi.proc_many(fl.files, os.path.join(fdir, 'out2'), config=CONFIG,
+                       options=OPTIONS, coalesce=1,
+                       status_fname=desi.per_rank(
+                           os.path.join(fdir, 'status2_%d.txt'), fl.rank),
+                       templates=per_setup(tm), banks=per_setup(bank_d),
+                       throw_exceptions=True)
+        torch.cuda.synchronize()
+        rec = dict(rank=fl.rank, world=fl.world, t0=t0, t1=time.time(),
+                   counts=kernel_counts(), device=str(device),
+                   peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+    with open(os.path.join(fdir, f'rank{rank}.json'), 'w') as fp:
+        json.dump(rec, fp)
+    return 0
+
+
+def free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(fdir):
+    """FLEET_RANKS rank processes of this script on the card: their
+    exit codes (each rank's output in DIR/rank<r>.out) and the wall from
+    their start to the last one's exit.  A rank still running at
+    FLEET_TIMEOUT is killed."""
+    addr = f'127.0.0.1:{free_port()}'
+    env = dict(os.environ, RVST_BARRIER_TIMEOUT_MS=str(FLEET_TIMEOUT * 1000))
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(FLEET_RANKS):
+            outs.append(open(os.path.join(fdir, f'rank{r}.out'), 'w'))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), '--fleet-rank',
+                 str(r), addr, fdir], stdout=outs[-1],
+                stderr=subprocess.STDOUT, env=dict(env, LOCAL_RANK=str(r))))
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fp in outs:
+            fp.close()
+    return rcs, time.perf_counter() - t0
+
+
+def fleet_tables(files, outdir):
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import desi
+    return [fitsio.read(desi.output_paths(f, outdir)[0])['RVTAB'].data
+            for f in files]
+
+
+def sigma_spread(got, want, err):
+    """|got - want| / err elementwise, 0 where got equals want (so an
+    equal value with a non-finite error passes)."""
+    with np.errstate(divide='ignore', invalid='ignore'):
+        return np.where(got == want, 0.0, np.abs(got - want) / err)
+
+
+def table_values(tab):
+    """(values, errors) of VRAD and the parameters of an RVTAB: two
+    (nfib, 5) arrays."""
+    cols = ('VRAD',) + PARAM_COLUMNS
+    return (np.stack([tab[c] for c in cols], 1),
+            np.stack([tab[c + '_ERR'] for c in cols], 1))
+
+
+def run_fleet(workdir, tm, bank_d):
+    """The slice's path at full width: FLEET_FILES coadds of NFIBERS
+    fibers (seeds 100-107), run 1 in this process over the static list
+    at coalesce 1, run 2 by FLEET_RANKS rank processes on the one card
+    claiming the same files through --dynamic_queue (fleet_rank).
+    Checks that each rank exited 0, that every file was fitted exactly
+    once across the ranks, RV recovery per file, and every fiber of run
+    2 within SAME_SIGMA of run 1's errors; prints the walls, files and
+    s/file per rank, the aggregate files/s of 2 ranks against 1 and the
+    peak device memory of each."""
+    import torch
+    from rvspecfit_torch.survey import desi
+    fdir = os.path.join(workdir, 'fleet')
+    os.makedirs(fdir)
+    files, truths = driver_inputs(fdir, nfiles=FLEET_FILES, seed0=FLEET_SEED0)
+    with open(os.path.join(fdir, 'files.txt'), 'w') as fp:
+        fp.write(''.join(f + '\n' for f in files))
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    desi.proc_many(files, os.path.join(fdir, 'out1'), config=CONFIG,
+                   options=OPTIONS, coalesce=1, templates=per_setup(tm),
+                   banks=per_setup(bank_d), throw_exceptions=True,
+                   status_fname=os.path.join(fdir, 'status1.txt'))
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    counts1 = kernel_counts()
+    peak1 = torch.cuda.max_memory_allocated() / 1e9
+    check_launches('fleet run 1', counts1)
+    log(f'fleet run 1 (one process, coalesce 1): {FLEET_FILES} files in '
+        f'{wall1:.3f} s = {wall1 / FLEET_FILES:.3f} s/file, '
+        f'{FLEET_FILES / wall1:.4f} files/s; peak device memory '
+        f'{peak1:.2f} GB; launches {counts1}')
+
+    torch.cuda.empty_cache()
+    rcs, wall2 = start_ranks(fdir)
+    for r, rc in enumerate(rcs):
+        if rc:
+            with open(os.path.join(fdir, f'rank{r}.out')) as fp:
+                log(f'fleet rank {r} exited {rc}; its output ends:\n'
+                    + fp.read()[-3000:])
+    check(rcs == [0] * FLEET_RANKS, f'fleet ranks exited {rcs}')
+    recs = []
+    for r in range(FLEET_RANKS):
+        with open(os.path.join(fdir, f'rank{r}.json')) as fp:
+            recs.append(json.load(fp))
+    fitted = {r: read_status(os.path.join(fdir, f'status2_{r}.txt'))
+              for r in range(FLEET_RANKS)}
+    claimed = [ln[0] for lines in fitted.values() for ln in lines]
+    check(sorted(claimed) == sorted(files), 'fleet: the files fitted across '
+          f'the ranks are not each file once: {fitted}')
+    check(all(ln[1:3] == ['SUCCESS', str(NFIBERS)]
+              for lines in fitted.values() for ln in lines),
+          f'fleet status lines: {fitted}')
+    span = max(r['t1'] for r in recs) - min(r['t0'] for r in recs)
+    counts2 = {f: {k: sum(r['counts'][f][k] for r in recs) for k in KERNELS}
+               for f in FORMS}
+    check_launches('fleet run 2 (both ranks)', counts2)
+    for r, rec in enumerate(recs):
+        n = len(fitted[r])
+        fit_s = rec['t1'] - rec['t0']
+        log(f'fleet rank {r} ({rec["device"]}): {n} files in {fit_s:.3f} s'
+            + (f' = {fit_s / n:.3f} s/file' if n else '')
+            + f'; peak device memory {rec["peak_gb"]:.2f} GB; launches '
+            f'{rec["counts"]["float64"]}')
+    log(f'fleet run 2 ({FLEET_RANKS} ranks on one card, --dynamic_queue): '
+        f'wall {wall2:.3f} s from the ranks\' start to their exit (start-up '
+        f'and model build included); fitting span {span:.3f} s -> '
+        f'{FLEET_FILES / span:.4f} files/s against run 1\'s '
+        f'{FLEET_FILES / wall1:.4f} ({wall1 / span:.3f}x); files per rank '
+        f'{[len(fitted[r]) for r in range(FLEET_RANKS)]}')
+
+    tabs1 = fleet_tables(files, os.path.join(fdir, 'out1'))
+    tabs2 = fleet_tables(files, os.path.join(fdir, 'out2'))
+    recovered, worst = [], 0.0
+    for f, t1, t2, truth in zip(files, tabs1, tabs2, truths):
+        check(np.array_equal(t1['TARGETID'], t2['TARGETID']),
+              f'{f}: fleet runs fitted other targets')
+        for tag, t in (('run 1', t1), ('run 2', t2)):
+            ok = np.abs(t['VRAD'] - truth['vel']) < np.maximum(
+                10.0, 5 * t['VRAD_ERR'])
+            check(ok.sum() >= 0.98 * NFIBERS,
+                  f'{f} (fleet {tag}): RV recovery {ok.sum()}/{NFIBERS}')
+            if tag == 'run 2':
+                recovered.append(int(ok.sum()))
+        d = sigma_spread(table_values(t2)[0], *table_values(t1))
+        check((d <= SAME_SIGMA).all(), f'{f}: fleet run 2 differs from run '
+              f'1 by up to {np.nanmax(d):.3g} sigma (limit {SAME_SIGMA})')
+        worst = max(worst, float(d.max()))
+    log(f'fleet: every file fitted once across the ranks; RV recovery per '
+        f'file (run 2, of {NFIBERS}) {recovered}; run 2 against run 1, '
+        f'largest difference over all fibers {worst:.3g} sigma (limit '
+        f'{SAME_SIGMA})')
+    return dict(wall1=wall1, wall2=wall2, span=span, counts=counts1,
+                counts_ranks=[r['counts'] for r in recs], peak1=peak1,
+                peak_ranks=[r['peak_gb'] for r in recs], max_sigma=worst,
+                files_per_rank=[len(fitted[r]) for r in range(FLEET_RANKS)])
+
+
+# ------------------------------------------------------------------
+# fiber microbatching: a large group whole and in tiles
+
+MB_NFIBERS = 2000
+MB_TILE = 500
+
+
+def run_microbatch(tm, bank_d):
+    """_run_group_fit on MB_NFIBERS fibers (make_exposure seed 7) whole
+    and with config fit_microbatch=MB_TILE: wall, phases and peak
+    device memory of each (and of the CCF start alone, which is not
+    tiled); every fiber equal within SAME_SIGMA of the whole fit's
+    errors, and RV recovery."""
+    import torch
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.fit.batch import BatchArm
+    from rvspecfit_torch.survey import desi
+    arms_data, truth = simulation.make_exposure(
+        MB_NFIBERS, npix_arm=NPIX_ARM, snr=50.0, seed=7)
+    arms = [BatchArm(n, lam, fl, iv) for n, (lam, fl, iv)
+            in arms_data.items()]
+    banks = {a.name: bank_d for a in arms}
+    templates = {a.name: tm for a in arms}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    desi.ccf_starts(arms, tm.parnames, CONFIG, banks, tm.geom.h.device)
+    torch.cuda.synchronize()
+    ccf_peak = torch.cuda.max_memory_allocated() / 1e9
+    runs = {}
+    for tile in (None, MB_TILE):
+        cfg = dict(CONFIG) if tile is None else dict(CONFIG,
+                                                     fit_microbatch=tile)
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = desi._run_group_fit(arms, templates, cfg, OPTIONS, banks=banks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = kernel_counts()
+        check_launches(f'microbatch {tile}', counts)
+        check_outputs(out, MB_NFIBERS, NPIX_ARM)
+        dv = out['ref']['best_vel'] - truth['vel']
+        ok = np.abs(dv) < np.maximum(10.0, 5 * out['ref']['vel_err'])
+        check(ok.sum() >= 0.98 * MB_NFIBERS,
+              f'microbatch {tile}: RV recovery {ok.sum()}/{MB_NFIBERS}')
+        runs[tile] = dict(out=out, wall=wall, peak=peak, counts=counts,
+                          recovered=int(ok.sum()))
+        log(f'group fit of {MB_NFIBERS} fibers, '
+            + ('whole' if tile is None else f'fit_microbatch={tile}')
+            + f': {wall:.3f} s (' + ' '.join(
+                f'{k}={out["phases"][k]:.3f}s' for k in PHASES)
+            + f'); peak device memory {peak:.2f} GB; RV recovery '
+            f'{int(ok.sum())}/{MB_NFIBERS}; launches {counts["float64"]}')
+    def values(out):
+        return np.column_stack([out['ref']['best_vel'], out['params']])
+    w = runs[None]['out']
+    d = sigma_spread(values(runs[MB_TILE]['out']), values(w),
+                     np.column_stack([w['ref']['vel_err'], w['errs']]))
+    check((d <= SAME_SIGMA).all(), f'microbatch: tiles differ from the '
+          f'whole fit by up to {np.nanmax(d):.3g} sigma')
+    log(f'microbatch: the CCF start alone peaks at {ccf_peak:.2f} GB; tiles '
+        f'of {MB_TILE} against the whole group, largest difference '
+        f'{float(d.max()):.3g} sigma (limit {SAME_SIGMA})')
+    return dict(ccf_peak=ccf_peak, max_sigma=float(d.max()),
+                **{('whole' if k is None else f'tile{k}'): dict(
+                    wall=v['wall'], peak_gb=v['peak'], phases=v['out'][
+                        'phases'], recovered=v['recovered'])
+                   for k, v in runs.items()})
+
+
+# ------------------------------------------------------------------
+# fast_interp and prewarm, small
+
+FAST_RTOL = 1e-9
+PREWARM_NFIBERS = 64
+
+
+def run_fast_interp(tm, tm_cpu):
+    """One vel_fit.process with options fast_interp (the nearest-pixel
+    gather: no kernel A) on the card, and its chi-square at the card's
+    optimum on the card and on the CPU, both float64 (rtol FAST_RTOL)."""
+    from rvspecfit_torch.fit import vel_fit
+    from rvspecfit_torch.fit.likelihood import FusedChisq
+    objs, truth = single_objects()
+    sds = objs[0]
+    options = dict(OPTIONS, fast_interp=True)
+    t0 = time.perf_counter()
+    res = vel_fit.process(sds, START, config=CONFIG, options=options,
+                          templates={sd.name: tm for sd in sds})
+    wall = time.perf_counter() - t0
+    params = [res['param'][p] for p in tm.parnames]
+    chi = {key: FusedChisq(sds, {sd.name: m for sd in sds}, CONFIG,
+                           options=options).chisq_one(res['vel'], params)
+           for key, m in (('cuda', tm), ('cpu', tm_cpu))}
+    rel = abs(chi['cuda'] / chi['cpu'] - 1)
+    log(f'fast_interp process on the card: {wall:.3f} s, vel '
+        f'{res["vel"]:.3f} +- {res["vel_err"]:.3f} (truth '
+        f'{truth["vel"][0]:.3f}); chi-square there card {chi["cuda"]:.10g}, '
+        f'CPU {chi["cpu"]:.10g}, rel diff {rel:.3g} (limit {FAST_RTOL})')
+    check(rel <= FAST_RTOL, 'fast_interp chi-square: card against CPU')
+    check(abs(res['vel'] - truth['vel'][0]) < max(10.0, 5 * res['vel_err']),
+          'fast_interp process: RV')
+    return dict(seconds=wall, rel=rel)
+
+
+def run_prewarm(tm, bank_d):
+    """pipeline/prewarm's core: a PREWARM_NFIBERS-fiber synthetic coadd
+    of the 3-arm layout through the driver with in-memory models."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.pipeline import prewarm
+    waves = {n.lower(): np.linspace(l0, l1, NPIX_ARM)
+             for n, (l0, l1) in simulation.THREE_ARM_LAYOUT.items()}
+    reset_counts()
+    seconds = prewarm.prewarm(waves, PREWARM_NFIBERS, CONFIG, options=OPTIONS,
+                              templates=per_setup(tm),
+                              banks=per_setup(bank_d))
+    counts = kernel_counts()
+    check_launches('prewarm', counts)
+    log(f'prewarm core: one {PREWARM_NFIBERS}-fiber synthetic coadd through '
+        f'the driver in {seconds:.3f} s; launches {counts["float64"]}')
+    return dict(seconds=seconds, counts=counts)
+
+
 def launches_of(counts, name):
     """A kernels-line entry's launches in one form's counts (kernel A's:
     both modes)."""
@@ -2261,6 +2620,15 @@ def main():
     with tempfile.TemporaryDirectory() as workdir:
         libb = run_library_builder(workdir, device)
     log(f'phase library builder: {time.perf_counter() - t_phase:.1f} s')
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        fleet = run_fleet(workdir, tm, bank_d)
+    log(f'phase fleet: {time.perf_counter() - t_phase:.1f} s')
+    t_phase = time.perf_counter()
+    mbatch = run_microbatch(tm, bank_d)
+    log(f'phase microbatch: {time.perf_counter() - t_phase:.1f} s')
+    fast = run_fast_interp(tm, tm_cpu)
+    warm = run_prewarm(tm, bank_d)
     log('card float64 vs CPU float64 (ROADMAP C.1, C.2): ' + json.dumps(dict(
         group_fit_8=stats8, coadd8=c8, coadd64res=c64,
         single_object=single['stats'], weave8=wv['stats'])))
@@ -2282,6 +2650,11 @@ def main():
                   max_dv_sigma_64=pull['max_dv_sigma_64']),
         library_builder={k: v for k, v in libb.items()
                          if k not in ('counts', 'kernel_b')})))
+    log('fleet, microbatch, fast_interp and prewarm: ' + json.dumps(dict(
+        fleet={k: v for k, v in fleet.items()
+               if k not in ('counts', 'counts_ranks')},
+        microbatch=mbatch, fast_interp=fast,
+        prewarm_seconds=warm['seconds'])))
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -2310,6 +2683,13 @@ def main():
                                                      base)
             k['launches_library_builder'] = launches_of(
                 libb['counts'][form], base)
+            k['launches_fleet_run1'] = launches_of(fleet['counts'][form],
+                                                   base)
+            k['launches_fleet_per_file'] = k['launches_fleet_run1'] \
+                / FLEET_FILES
+            k['launches_fleet_ranks'] = [launches_of(c[form], base)
+                                         for c in fleet['counts_ranks']]
+            k['launches_prewarm'] = launches_of(warm['counts'][form], base)
             if base == 'ccf_chisq':
                 shape = 'T{}_F{}'.format(*libb['bank_shape'])
                 k.update({f'{key}_{shape}': libb['kernel_b'][key] for key in (
@@ -2328,6 +2708,8 @@ def main():
 
 if __name__ == '__main__':
     try:
+        if sys.argv[1:2] == ['--fleet-rank']:
+            sys.exit(fleet_rank(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as exc:
         print(f'chip_smoke: FAILED: {exc}', file=sys.stderr)

@@ -32,14 +32,21 @@ torch.set_float32_matmul_precision('highest')
 
 
 def default_device():
-    """The device of a call that names none: the current CUDA card.
+    """The device of a call that names none: the current CUDA card, or
+    in a multi-process run (``LOCAL_RANK`` set, or a world opened by
+    parallel/distributed) card ``rank % device_count()``, so that the
+    ranks of one host share its cards out.
 
     Raises RuntimeError when torch sees no CUDA device; a caller that
     wants the CPU asks for it with ``device='cpu'``."""
     if not torch.cuda.is_available():
         raise RuntimeError('no CUDA device is available; pass '
                            "device='cpu' to run on the CPU")
-    return torch.device('cuda')
+    from rvspecfit_torch.parallel.distributed import local_rank
+    rank = local_rank()
+    if rank is None:
+        return torch.device('cuda')
+    return torch.device('cuda', rank % torch.cuda.device_count())
 
 
 def resolve_device(device):

@@ -15,14 +15,23 @@ objective gives every fiber's gradient, and one backward of each
 gradient column (summed over fibers) gives every fiber's Hessian row
 (:func:`grad_hessian`).
 
+Fiber microbatching (``microbatch``): every stage runs on tiles of at
+most that many fibers, which bounds the device memory of a large group
+(in float64 ~17 GB per 1000 fibers whole on an H100, PERF.md); every
+stage is elementwise over fibers, so a tiled fit is the whole one.
+
+The polish reads ``RVST_POLISH_STEPS`` (its Newton steps, default 2)
+and ``RVST_POLISH_FREEZE_H=1`` (the Hessian of the first step reused
+by the later ones), as the reference does.
+
 Not ported yet: the deferred tail (run_tail_async), the compile
-warm-up (warm), the mesh, and the polish's environment knobs
-(RVST_POLISH_STEPS, RVST_POLISH_FREEZE_H).
+warm-up (warm) and the mesh.
 """
 from __future__ import annotations
 
 import logging
 import math
+import os
 import time
 
 import numpy as np
@@ -81,12 +90,16 @@ class BatchedFitter:
     """Fit a batch of fibers sharing arm wavelength grids."""
 
     def __init__(self, arms, templates, config, options=None,
-                 use_vsini=False):
+                 use_vsini=False, microbatch=None):
         """arms : list of BatchArm; templates : setup -> TemplateModel
         (all on one device); config : min_vel, max_vel, vel_step0,
         min_vel_step (and max_vsini with ``use_vsini``); options :
-        npoly (default 5), rbf_continuum (default True)."""
+        npoly (default 5), rbf_continuum (default True); microbatch :
+        fit the fibers in tiles of at most this many (None: whole)."""
         options = options or {}
+        if microbatch is not None and int(microbatch) < 1:
+            raise ValueError(f'microbatch must be >= 1, not {microbatch}')
+        self.microbatch = None if microbatch is None else int(microbatch)
         self.npoly = options.get('npoly') or 5
         self.rbf = options.get('rbf_continuum', True)
         self.config = config
@@ -133,8 +146,32 @@ class BatchedFitter:
                            device=self.device) if vsinis is None \
             else self._tensor(vsinis)
 
-    def _arms_at(self, idx):
-        return [a.take(idx) for a in self.arms]
+    def _arms_at(self, idx, arms=None):
+        return [a.take(idx) for a in (self.arms if arms is None else arms)]
+
+    def _tiles(self, idx):
+        """``idx`` (a long tensor of fibers) in tiles of at most
+        ``microbatch`` fibers."""
+        if self.microbatch is None:
+            return [idx]
+        return list(torch.split(idx, self.microbatch))
+
+    def _run_mb(self, fn, *per_fiber):
+        """fn(arms, *args) on every fiber: one call without
+        ``microbatch``, else one per tile of consecutive fibers with the
+        tile's arms and rows of ``per_fiber`` (tensors with a leading
+        fiber axis), the outputs (tensors, or lists, tuples and dicts of
+        them) concatenated along that axis."""
+        b = self.nfibers
+        if self.microbatch is None or self.microbatch >= b:
+            return fn(self.arms, *per_fiber)
+        parts = []
+        for lo in range(0, b, self.microbatch):
+            hi = min(lo + self.microbatch, b)
+            idx = torch.arange(lo, hi, device=self.device)
+            parts.append(fn(self._arms_at(idx),
+                            *[a[lo:hi] for a in per_fiber]))
+        return _concat_tiles(parts)
 
     # -------------------------------------------------------------
     def chisq(self, vels, params, vsinis=None):
@@ -143,25 +180,29 @@ class BatchedFitter:
         vels = self._tensor(vels)
         vs = torch.zeros_like(vels) if vsinis is None \
             else self._tensor(vsinis)
-        return chisq_trials_core(self.arms, self.templates, vels,
-                                 self._tensor(params), vs,
-                                 badchi=self.badchi,
-                                 use_vsini=self.use_vsini,
-                                 half_widths=self.half_widths)
+        return self._run_mb(
+            lambda arms, v, p, w: chisq_trials_core(
+                arms, self.templates, v, p, w, badchi=self.badchi,
+                use_vsini=self.use_vsini, half_widths=self.half_widths),
+            vels, self._tensor(params), vs)
 
-    def _scan(self, arms, vels, params, vsinis):
+    def _scan(self, arms, vels, params, vsinis, fast_interp=False):
         return scan_core(arms, self.templates, vels, params, vsinis,
                          badchi=self.badchi, use_vsini=self.use_vsini,
-                         half_widths=self.half_widths)
+                         half_widths=self.half_widths,
+                         fast_interp=fast_interp)
 
-    def scan_velocities(self, vel_grid, params0, vsini0=None):
+    def scan_velocities(self, vel_grid, params0, vsini0=None,
+                        fast_interp=False):
         """Velocity scan on a shared grid (V,) at per-fiber parameters
-        (B, ndim).  Returns host (B,) best_vel, vel_err, best_chi,
-        skewness, kurtosis."""
+        (B, ndim); ``fast_interp`` evaluates the templates at their
+        nearest pixel (likelihood.doppler_eval).  Returns host (B,)
+        best_vel, vel_err, best_chi, skewness, kurtosis."""
         vels = self._tensor(np.tile(np.asarray(vel_grid, np.float64),
                                     (self.nfibers, 1)))
-        chi = self._scan(self.arms, vels, self._tensor(params0),
-                         self._vsinis(vsini0))
+        chi = self._run_mb(
+            lambda arms, v, p, w: self._scan(arms, v, p, w, fast_interp),
+            vels, self._tensor(params0), self._vsinis(vsini0))
         st = scan_stats(vels, torch.ones_like(vels, dtype=torch.bool),
                         chi)[0].double().cpu().numpy()
         return dict(best_vel=st[:, 0], vel_err=st[:, 1], best_chi=st[:, 2],
@@ -169,13 +210,17 @@ class BatchedFitter:
 
     # -------------------------------------------------------------
     def _objective(self, mapper, priors, idx):
-        """fun(x (b, K, nvec)) -> (b, K) for the fibers ``idx``: -2logL
-        plus priors and the vsini penalty; 1e30 outside the velocity
-        bounds or at non-finite parameters."""
+        """fun(x (b, K, nvec)) -> (b, K) for the fibers ``idx``
+        (:meth:`_objective_arms`)."""
+        return self._objective_arms(mapper, priors, self._arms_at(idx))
+
+    def _objective_arms(self, mapper, priors, arms):
+        """fun(x (b, K, nvec)) -> (b, K) for the fibers of ``arms``:
+        -2logL plus priors and the vsini penalty; 1e30 outside the
+        velocity bounds or at non-finite parameters."""
         min_vel = float(self.config['min_vel'])
         max_vel = float(self.config['max_vel'])
         rows_p = prior_rows(mapper.specParams, priors)
-        arms = self._arms_at(idx)
 
         def fun(x):
             b, k, nvec = x.shape
@@ -203,8 +248,9 @@ class BatchedFitter:
         """Batched Nelder-Mead over fibers, with straggler compaction.
 
         Rounds of ``nm_chunk`` iterations run on the fibers that have
-        not converged, gathered into one tile: once most fibers have
-        converged a round costs only the stragglers.  (The reference's
+        not converged, gathered into one tile (or tiles of at most
+        ``microbatch``): once most fibers have converged a round costs
+        only the stragglers.  (The reference's
         ladder of padded tile widths exists to bound XLA's compiled
         shapes; an eager tile is exactly the unconverged set.)  Each
         restart rebuilds a fresh simplex (seed SIMPLEX_SEED + restart)
@@ -217,7 +263,9 @@ class BatchedFitter:
         per-fiber velocities ``best_vel0``.  xatol defaults to 8% of
         the mapper's per-dimension scales (the refinement owns the
         velocity endgame).  Returns host x (B, nvec), fun (B,),
-        converged (B,), obj_evals.
+        converged (B,), obj_evals (the fiber-trials dispatched: nvec +
+        1 per simplex set up and 2 per fiber and iteration of its tile;
+        the rare shrink steps' evaluations are not counted).
         """
         if x0 is None:
             x0 = np.tile(mapper.start_vector(0.0), (self.nfibers, 1))
@@ -241,9 +289,10 @@ class BatchedFitter:
 
         def init(idx):
             nonlocal evals
-            fvals[idx], done[idx] = nm.nm_init(objective(idx),
-                                               simplex[idx], fatol, xatol)
-            evals += idx.numel() * (nvec + 1)
+            for t in self._tiles(idx):
+                fvals[t], done[t] = nm.nm_init(objective(t), simplex[t],
+                                               fatol, xatol)
+                evals += t.numel() * (nvec + 1)
 
         init(torch.arange(b, device=self.device))
         for restart in range(maxrestart):
@@ -263,12 +312,12 @@ class BatchedFitter:
                     break
                 logging.info('NM restart %d nit %d: %d/%d unconverged',
                              restart, nit, undone.numel(), b)
-                s, f, d, it = nm.nm_chunk(objective(undone),
-                                          simplex[undone],
-                                          fvals[undone], done[undone],
-                                          fatol, xatol, nm_chunk)
-                simplex[undone], fvals[undone], done[undone] = s, f, d
-                evals += undone.numel() * it * 2
+                for t in self._tiles(undone):
+                    s, f, d, it = nm.nm_chunk(objective(t), simplex[t],
+                                              fvals[t], done[t], fatol,
+                                              xatol, nm_chunk)
+                    simplex[t], fvals[t], done[t] = s, f, d
+                    evals += t.numel() * it * 2
                 nit += nm_chunk
         rows = torch.arange(b, device=self.device)
         ib = torch.argmin(fvals, dim=1)
@@ -277,57 +326,79 @@ class BatchedFitter:
                     converged=done.cpu().numpy(), obj_evals=evals)
 
     # -------------------------------------------------------------
-    def _chisq_at(self, vel, params, vsinis):
+    def _chisq_at(self, vel, params, vsinis, arms=None):
         """(B,) -2logL of one trial per fiber: vel (B,), params (B,
-        ndim), vsinis (B,); differentiable in params and vsinis."""
-        return chisq_trials_core(self.arms, self.templates, vel[:, None],
+        ndim), vsinis (B,); differentiable in params and vsinis.
+        ``arms`` default to every fiber's."""
+        return chisq_trials_core(self.arms if arms is None else arms,
+                                 self.templates, vel[:, None],
                                  params[:, None, :], vsinis[:, None],
                                  badchi=self.badchi,
                                  use_vsini=self.use_vsini,
                                  half_widths=self.half_widths)[:, 0]
 
-    def run_polish(self, mapper, x, priors=None, steps=2, fun0=None):
+    def run_polish(self, mapper, x, priors=None, steps=None, fun0=None):
         """Batched gradient polish, the ``second_minimizer`` stage.
 
-        ``steps`` damped-Newton iterations over the non-velocity
-        coordinates [vsini?, free params] (the refinement re-measures
-        the velocity right after): each solves (H + ridge) dx = -grad,
-        ridge 1e-6 max(|diag H|, 1e-12), with exact AD derivatives of
-        -2logL plus priors and the vsini penalty; a non-finite dx is 0.
-        The ladder [1, 0.25, 0.05] and the current point are evaluated
-        in one objective call, and a fiber moves only when a trial is
-        strictly better than its current value.
+        ``steps`` damped-Newton iterations (default
+        ``RVST_POLISH_STEPS``, else 2) over the non-velocity coordinates
+        [vsini?, free params] (the refinement re-measures the velocity
+        right after): each solves (H + ridge) dx = -grad, ridge 1e-6
+        max(|diag H|, 1e-12), with exact AD derivatives of -2logL plus
+        priors and the vsini penalty; a non-finite dx is 0.  With
+        ``RVST_POLISH_FREEZE_H=1`` the first step's Hessian serves every
+        step (the gradient is recomputed).  The ladder [1, 0.25, 0.05]
+        and the current point are evaluated in one objective call, and a
+        fiber moves only when a trial is strictly better than its
+        current value.
 
         x : (B, nvec) NM optima; fun0 : optional (B,) NM best values.
         Returns host x (B, nvec), fun (B,), moved (B,).
         """
+        if steps is None:
+            steps = int(os.environ.get('RVST_POLISH_STEPS', 2))
+        freeze_h = os.environ.get('RVST_POLISH_FREEZE_H') == '1'
         x = np.asarray(x, np.float64)
         b = x.shape[0]
-        xc = self._tensor(x)
         fc = self._tensor(np.full(b, np.inf) if fun0 is None else fun0)
-        objective = self._objective(mapper, priors,
-                                    torch.arange(b, device=self.device))
+        xf, ff = self._run_mb(
+            lambda arms, xt, ft: self._polish_tile(
+                arms, mapper, priors, xt, ft, steps, freeze_h),
+            self._tensor(x), fc)
+        xf = xf.double().cpu().numpy()
+        return dict(x=xf, fun=ff.double().cpu().numpy(),
+                    moved=np.any(xf != x, axis=1))
+
+    def _polish_tile(self, arms, mapper, priors, xc, fc, steps, freeze_h):
+        """run_polish's steps on the fibers of ``arms``: xc (b, nvec),
+        fc (b,) -> (x, fun) tensors."""
+        b = xc.shape[0]
+        objective = self._objective_arms(mapper, priors, arms)
         rows_p = prior_rows(mapper.specParams, priors)
         ladder = self._tensor([1.0, 0.25, 0.05])
 
         def scalar_obj(vel, rest):
             _, params, vsini, penalty = mapper.unpack(
                 torch.cat([vel[:, None], rest], dim=1))
-            chi = self._chisq_at(vel, params, vsini)
+            chi = self._chisq_at(vel, params, vsini, arms=arms)
             for i, mu, sig in rows_p:
                 chi = chi + ((params[:, i] - mu) / sig)**2
             return chi + penalty
 
+        h = None
         for _ in range(steps):
             vel = xc[:, 0]
-            g, h = grad_hessian(lambda rest: scalar_obj(vel, rest),
-                                xc[:, 1:])
+            f = lambda rest: scalar_obj(vel, rest)   # noqa: E731
+            if h is None or not freeze_h:
+                g, h = grad_hessian(f, xc[:, 1:])
+            else:
+                g = _gradient(f, xc[:, 1:])
             dh = torch.diagonal(h, dim1=-2, dim2=-1).abs()
             ridge = 1e-6 * torch.clamp(dh, min=1e-12)
             dx = -torch.linalg.solve_ex(h + torch.diag_embed(ridge),
                                         g[..., None])[0][..., 0]
             dx = torch.where(torch.isfinite(dx), dx, 0.0)
-            cand = xc[:, None, :].repeat(1, 4, 1)           # (B, 4, nvec)
+            cand = xc[:, None, :].repeat(1, 4, 1)           # (b, 4, nvec)
             cand[:, :3, 1:] += ladder[None, :, None] * dx[:, None, :]
             fcand = objective(cand)
             fcand = torch.where(torch.isfinite(fcand), fcand, torch.inf)
@@ -340,29 +411,38 @@ class BatchedFitter:
             better = fbest < fc
             xc = torch.where(better[:, None], xbest, xc)
             fc = torch.where(better, fbest, fc)
-        xf = xc.double().cpu().numpy()
-        return dict(x=xf, fun=fc.double().cpu().numpy(),
-                    moved=np.any(xf != x, axis=1))
+        return xc, fc
 
     # -------------------------------------------------------------
     def refine_velocities(self, best_vel, params, vsinis=None, maxiter=10):
         """Iterative velocity refinement: one full-range pass
         (min_vel..max_vel at vel_step0, to catch every CCF peak), then
         128-point window passes on the fibers whose step does not yet
-        resolve their uncertainty, until all are done or ``maxiter``
-        passes ran.  Returns host (B,) best_vel, vel_err, best_chi,
-        skewness, kurtosis, iterations."""
+        resolve their uncertainty, until all of a tile are done or
+        ``maxiter`` passes ran.  Returns host (B,) best_vel, vel_err,
+        best_chi, skewness, kurtosis, iterations (the passes of each
+        fiber's tile)."""
+        out = self._run_mb(
+            lambda arms, v, p, w: self._refine_tile(arms, v, p, w,
+                                                    maxiter),
+            self._tensor(best_vel), self._tensor(params),
+            self._vsinis(vsinis)).double().cpu().numpy()
+        return dict(best_vel=out[:, 0], vel_err=out[:, 1],
+                    best_chi=out[:, 2], skewness=out[:, 3],
+                    kurtosis=out[:, 4], iterations=out[:, 5])
+
+    def _refine_tile(self, arms, best_vel, params_t, vs_t, maxiter):
+        """refine_velocities on the fibers of ``arms``: (b, 6) tensor of
+        the scan statistics and the number of passes."""
         cfg = self.config
         crit_ratio, goal_width, nv_win = 5.0, 10.0, 128
         min_vel0, max_vel0 = float(cfg['min_vel']), float(cfg['max_vel'])
         min_vel_step = float(cfg['min_vel_step'])
         vel_step0 = float(cfg['vel_step0'])
         nv = int(math.ceil((max_vel0 - min_vel0) / vel_step0)) + 1
-        b = self.nfibers
-        params_t = self._tensor(params)
-        vs_t = self._vsinis(vsinis)
-        best = torch.clamp(self._tensor(best_vel), min_vel0, max_vel0)
-        full = lambda x: torch.full((b,), x, dtype=self.dtype,
+        b = best_vel.shape[0]
+        best = torch.clamp(best_vel, min_vel0, max_vel0)
+        full = lambda x: torch.full((b,), x, dtype=self.dtype,  # noqa: E731
                                     device=self.device)
         lo, hi, step = full(min_vel0), full(max_vel0), full(vel_step0)
         done = torch.zeros(b, dtype=torch.bool, device=self.device)
@@ -376,7 +456,7 @@ class BatchedFitter:
             mask = grid < hi[idx][:, None]
             mask[:, 0] = True
             grid = torch.where(mask, grid, grid[:, :1])
-            chi = self._scan(self._arms_at(idx), grid, params_t[idx],
+            chi = self._scan(self._arms_at(idx, arms), grid, params_t[idx],
                              vs_t[idx])
             new = scan_stats(grid, mask, chi)[0]
             stats[idx] = new
@@ -397,10 +477,7 @@ class BatchedFitter:
         while it < maxiter and not bool(done.all()):
             one_pass(torch.nonzero(~done)[:, 0], nv_win)
             it += 1
-        out = stats.double().cpu().numpy()
-        return dict(best_vel=out[:, 0], vel_err=out[:, 1],
-                    best_chi=out[:, 2], skewness=out[:, 3],
-                    kurtosis=out[:, 4], iterations=np.full(b, float(it)))
+        return torch.cat([stats, full(float(it))[:, None]], dim=1)
 
     # -------------------------------------------------------------
     def best_models(self, best_vel, params, vsinis=None):
@@ -411,10 +488,12 @@ class BatchedFitter:
         cont_models (continuum-only fit), and masked true chisq,
         cont_chisq, npix, red_chisq — computed from the arms this
         fitter was built with."""
-        mods = models_core(self.arms, self.templates,
-                           self._tensor(best_vel), self._tensor(params),
-                           self._vsinis(vsinis), use_vsini=self.use_vsini,
-                           half_widths=self.half_widths)
+        mods = self._run_mb(
+            lambda arms, v, p, w: models_core(
+                arms, self.templates, v, p, w, use_vsini=self.use_vsini,
+                half_widths=self.half_widths),
+            self._tensor(best_vel), self._tensor(params),
+            self._vsinis(vsinis))
         flat = [[x.double().cpu().numpy() for x in m] for m in mods]
         return self._models_finalize(flat, self.batch_arms)
 
@@ -424,12 +503,13 @@ class BatchedFitter:
         """(B, ndim, ndim) exact AD Hessians of 0.5 (-2logL + priors)
         with respect to the parameters at velocities ``best_vel``
         (likelihood.hessian_core)."""
-        return hessian_core(self.arms, self.templates,
-                            self._tensor(best_vel), self._tensor(params),
-                            self._vsinis(vsinis),
-                            prior_rows(parnames, priors),
-                            badchi=self.badchi, use_vsini=self.use_vsini,
-                            half_widths=self.half_widths)
+        rows_p = prior_rows(parnames, priors)
+        return self._run_mb(
+            lambda arms, v, p, w: hessian_core(
+                arms, self.templates, v, p, w, rows_p, badchi=self.badchi,
+                use_vsini=self.use_vsini, half_widths=self.half_widths),
+            self._tensor(best_vel), self._tensor(params),
+            self._vsinis(vsinis))
 
     def hessian_errors(self, best_vel, params, vsinis=None, priors=None,
                        parnames=None):
@@ -509,3 +589,22 @@ class BatchedFitter:
             ret['red_chisq'][a.name] = ret['chisq'][a.name] / np.maximum(
                 ret['npix'][a.name], 1)
         return ret
+
+
+def _gradient(f, x):
+    """Per-fiber gradient (B, n) at x (B, n) of f: (B, n) -> (B,) whose
+    fibers are independent (one backward of f.sum())."""
+    x = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        return torch.autograd.grad(f(x).sum(), x)[0]
+
+
+def _concat_tiles(parts):
+    """Per-tile outputs (tensors, or lists, tuples and dicts of them)
+    concatenated along the leading fiber axis."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, dim=0)
+    if isinstance(first, dict):
+        return {k: _concat_tiles([p[k] for p in parts]) for k in first}
+    return type(first)(_concat_tiles(list(z)) for z in zip(*parts))

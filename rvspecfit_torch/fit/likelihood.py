@@ -22,6 +22,12 @@ T trials go through :func:`chisq_trials_core` as one fiber with K = T
 (kernel A per-row) and P parameter vectors at V velocities through
 :func:`scan_core` as P fibers (kernel A shared, one template stage
 per vector).
+
+``fast_interp`` (an option of :class:`FusedChisq` and a keyword of the
+cores) evaluates each template at its nearest pixel, one gather of its
+knot values (ops/spline.nearest_eval_index), in place of the cubic
+spline: the spline construction is skipped and kernel A is not called
+(the reference has no Pallas kernel for it either).
 """
 from __future__ import annotations
 
@@ -62,11 +68,29 @@ def doppler_u(arm, geom, vels):
     return arm.idx0 + shift * arm.lam_over_step
 
 
-def template_stage(tm, params, vsinis, use_vsini, half_width):
+def doppler_eval(arm, geom, coeffs, vels, rows_per_coeff=1,
+                 fast_interp=False):
+    """The templates at the arm's pixels Doppler-shifted by ``vels``
+    (R,): kernel A on spline coefficients (R / rows_per_coeff, 4, n-1),
+    or with ``fast_interp`` the nearest knot of raw values
+    (R / rows_per_coeff, n).  Returns (R, npix)."""
+    u = doppler_u(arm, geom, vels)
+    if not fast_interp:
+        return spline_eval_index(geom, coeffs, u,
+                                 rows_per_coeff=rows_per_coeff)
+    p = coeffs.shape[0]
+    val = spline_mod.nearest_eval_index(geom, coeffs, u.reshape(p, -1))[0]
+    return val.reshape(u.shape)
+
+
+def template_stage(tm, params, vsinis, use_vsini, half_width,
+                   fast_interp=False):
     """Interpolate + broaden + spline-construct templates for T trials.
 
     params (T, ndim), vsinis (T,) -> (coeffs (T, 4, n-1), outside (T,),
-    crap (T,), finite (T,)).
+    crap (T,), finite (T,)); with ``fast_interp`` the spline
+    construction is skipped and the first item is the broadened knot
+    values (T, n).
     """
     spec_t, outside = tm.eval_batch(params)
     isfin = torch.isfinite(spec_t)
@@ -81,11 +105,14 @@ def template_stage(tm, params, vsinis, use_vsini, half_width):
         kern = vsini_mod.rotation_kernel(vsinis.to(spec_safe.dtype),
                                          tm.log_step, half_width)
         spec_safe = vsini_mod.convolve_kernel_same(spec_safe, kern)
+    if fast_interp:
+        return spec_safe, outside, crap, finite_t
     coeffs = spline_mod.spline_coeffs(tm.geom, spec_safe)
     return coeffs, outside, crap, finite_t
 
 
-def template_stages(templates, params, vsinis, use_vsini, half_widths):
+def template_stages(templates, params, vsinis, use_vsini, half_widths,
+                    fast_interp=False):
     """template_stage per setup, computed once per distinct
     TemplateModel (several arms often share one template library)."""
     cache, out = {}, {}
@@ -93,7 +120,7 @@ def template_stages(templates, params, vsinis, use_vsini, half_widths):
         key = (id(tm), half_widths.get(s))
         if key not in cache:
             cache[key] = template_stage(tm, params, vsinis, use_vsini,
-                                        half_widths.get(s))
+                                        half_widths.get(s), fast_interp)
         out[s] = cache[key]
     return out
 
@@ -116,23 +143,25 @@ def _arm_contribution(arm, val, outside, crap, finite_t, badchi,
 
 
 def chisq_trials_core(arms, templates, vels, params, vsinis, *, badchi,
-                      use_vsini, half_widths, outside_penalty=True):
+                      use_vsini, half_widths, outside_penalty=True,
+                      fast_interp=False):
     """-2logL of K trial points for each of B fibers.
 
     arms : list of ArmState with fiber axis B; templates : setup ->
     TemplateModel; vels, vsinis : (B, K); params : (B, K, ndim).
     Returns (B, K).  Every trial has its own template (kernel A,
-    per-row mode).
+    per-row mode; or the nearest-pixel gather with ``fast_interp``).
     """
     b, k = vels.shape
     stage = template_stages(templates, params.reshape(b * k, -1),
-                            vsinis.reshape(-1), use_vsini, half_widths)
+                            vsinis.reshape(-1), use_vsini, half_widths,
+                            fast_interp)
     total = torch.zeros_like(vels)
     for arm in arms:
         coeffs, outside, crap, finite_t = stage[arm.setup]
         geom = templates[arm.setup].geom
-        val = spline_eval_index(geom, coeffs,
-                                doppler_u(arm, geom, vels.reshape(-1)))
+        val = doppler_eval(arm, geom, coeffs, vels.reshape(-1),
+                           fast_interp=fast_interp)
         total = total + _arm_contribution(
             arm, val.view(b, k, -1), outside.view(b, k),
             crap.view(b, k), finite_t.view(b, k), badchi, outside_penalty)
@@ -140,23 +169,23 @@ def chisq_trials_core(arms, templates, vels, params, vsinis, *, badchi,
 
 
 def scan_core(arms, templates, vels, params, vsinis, *, badchi, use_vsini,
-              half_widths, outside_penalty=True):
+              half_widths, outside_penalty=True, fast_interp=False):
     """-2logL over V velocities at one parameter point per fiber.
 
     vels : (B, V); params : (B, ndim); vsinis : (B,) -> (B, V).  The
     template stage runs once per fiber and its coefficient row serves
-    all V velocities (kernel A, shared mode).
+    all V velocities (kernel A, shared mode; or the nearest-pixel
+    gather with ``fast_interp``).
     """
     b, v = vels.shape
     stage = template_stages(templates, params, vsinis, use_vsini,
-                            half_widths)
+                            half_widths, fast_interp)
     total = torch.zeros_like(vels)
     for arm in arms:
         coeffs, outside, crap, finite_t = stage[arm.setup]
         geom = templates[arm.setup].geom
-        val = spline_eval_index(geom, coeffs,
-                                doppler_u(arm, geom, vels.reshape(-1)),
-                                rows_per_coeff=v)
+        val = doppler_eval(arm, geom, coeffs, vels.reshape(-1),
+                           rows_per_coeff=v, fast_interp=fast_interp)
         total = total + _arm_contribution(
             arm, val.view(b, v, -1), outside[:, None], crap[:, None],
             finite_t[:, None], badchi, outside_penalty)
@@ -195,19 +224,19 @@ def hessian_core(arms, templates, vels, params, vsinis, prior_rows,
 
 
 def models_core(arms, templates, vels, params, vsinis, *, use_vsini,
-                half_widths):
+                half_widths, fast_interp=False):
     """Best-fit models at one point per fiber: vels, vsinis (B,), params
     (B, ndim).  Per arm (model, raw model, continuum-only model), each a
     (B, npix) tensor: raw is the template after the resolution matrix,
     model it times its continuum fit, and the continuum-only model the
     fit of the continuum basis times a flat template."""
     stage = template_stages(templates, params, vsinis, use_vsini,
-                            half_widths)
+                            half_widths, fast_interp)
     out = []
     for arm in arms:
         geom = templates[arm.setup].geom
-        val = spline_eval_index(geom, stage[arm.setup][0],
-                                doppler_u(arm, geom, vels))
+        val = doppler_eval(arm, geom, stage[arm.setup][0], vels,
+                           fast_interp=fast_interp)
         ctempl = torch.ones_like(val)
         if arm.band is not None:
             val = arm.band.matvec(val)
@@ -234,7 +263,8 @@ class FusedChisq:
     or {name: float} added to the errors in quadrature; use_vsini :
     whether trials carry a vsini to broaden with; outside_penalty :
     include the outside-grid penalty.  The option ``fast_interp``
-    (nearest-pixel evaluation) is not ported.
+    evaluates each template at its nearest pixel (no spline, no kernel
+    A) in every call: trials, scans, Hessians and models.
     """
 
     def __init__(self, specdata, templates, config, options=None,
@@ -243,10 +273,7 @@ class FusedChisq:
         if isinstance(specdata, SpecData):
             specdata = [specdata]
         options = options or {}
-        if options.get('fast_interp'):
-            raise NotImplementedError(
-                'fast_interp (nearest-pixel template evaluation) is not '
-                'ported (ROADMAP A)')
+        self.fast_interp = bool(options.get('fast_interp', False))
         self.npoly = options.get('npoly') or 5
         self.rbf = options.get('rbf_continuum', True)
         self.config = config
@@ -290,7 +317,8 @@ class FusedChisq:
     def _core_args(self):
         return dict(badchi=self.badchi, use_vsini=self.use_vsini,
                     half_widths=self.half_widths,
-                    outside_penalty=self.outside_penalty)
+                    outside_penalty=self.outside_penalty,
+                    fast_interp=self.fast_interp)
 
     def _chisq_trials(self, vels, params, vsinis):
         """Tensors vels (T,), params (T, ndim), vsinis (T,) -> (T,)
@@ -360,7 +388,8 @@ class FusedChisq:
             self.arms, self.templates, self.tensor([vel]),
             self.tensor(params[None]),
             self.tensor([0.0 if vsini is None else vsini]),
-            use_vsini=self.use_vsini, half_widths=self.half_widths)
+            use_vsini=self.use_vsini, half_widths=self.half_widths,
+            fast_interp=self.fast_interp)
         chisq = self.chisq_one(vel, params, vsini)
         host = lambda t: t[0].detach().double().cpu().numpy()
         ret = dict(chisq=chisq, logl=-0.5 * chisq,

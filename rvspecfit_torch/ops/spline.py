@@ -230,6 +230,30 @@ def fractional_index(geom: SplineGeometry, x):
     return (x - geom.x0) / geom.step
 
 
+def fractional_index_device(geom: SplineGeometry, x):
+    """Fractional knot indices of the query tensor ``x`` in its own
+    precision (enough for nearest-pixel gathers; spline evaluation uses
+    the host float64 :func:`fractional_index`)."""
+    if geom.log_step:
+        return (torch.log(x) - np.log(geom.x0)) / geom.step
+    return (x - geom.x0) / geom.step
+
+
+def nearest_eval_index(geom: SplineGeometry, values, u):
+    """Nearest-knot evaluation at fractional indices ``u``: the
+    ``fast_interp`` mode (reference: py/rvspecfit/spec_fit.py:913-918),
+    one gather of the template's own pixel values instead of the cubic
+    spline.
+
+    values : (R, n) knot values; u : (R, m) fractional indices, each row
+    read from its row of ``values``.  Returns (vals (R, m), inrange):
+    the index is ``round(u)`` (halves to even) clipped to [0, n-1], and
+    ``inrange`` is 0 <= u < n-1."""
+    idx = torch.clamp(torch.round(u), 0, geom.n - 1).long()
+    inrange = (u >= 0) & (u < geom.n - 1)
+    return torch.gather(values, -1, idx), inrange
+
+
 def doppler_index_shift(geom: SplineGeometry, vels):
     """Per-trial fractional-index shift of the Doppler factor.
 

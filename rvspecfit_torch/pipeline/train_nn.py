@@ -108,7 +108,7 @@ def train_interpolator(vecs_mapped, log_specs, width=256, nlayers=3,
     """
     if mesh is not None:
         raise NotImplementedError('sharded training over a mesh is not '
-                                  'ported (ROADMAP A7)')
+                                  'ported (ROADMAP A4)')
     device = resolve_device(device)
     dtype = dtype or dtype_for(device)
     vecs_mapped = np.asarray(vecs_mapped, np.float64)

@@ -17,7 +17,13 @@ group of ``--coalesce`` consecutive files:
     A and its adjoint);
  5. RVS_WARN bits, RVTAB + RVMOD written atomically, status lines,
     skipexisting, per-file crash isolation (a failed group fit is
-    retried file by file).
+    retried file by file), optional per-fiber plots (``--doplot``).
+
+Many processes fit one list of files (:func:`fleet`): static
+``--rank/--world`` sharding, a lock-file queue on a shared filesystem
+(``--queue_file``) or a queue claimed through the world's key-value
+store (``--dynamic_queue``, parallel/distributed).  A queue item is
+claimed only when the process is ready to fit it.
 
 Differences from the reference, by design:
 - the stages run one after another: no lookahead reads, no prep or
@@ -26,8 +32,9 @@ Differences from the reference, by design:
 - a template-loading failure raises, and so does a CCF failure: under
   crash isolation that file gets a FAILURE status line (the reference
   starts every fiber at default parameters);
-- not ported: the lock-file and dynamic queues, rank/world sharding,
-  and plots.
+- ``config['fit_microbatch']`` unset fits a group whole (the reference
+  rounds it up to a tile width of 64/128/256/500 fibers, which exists
+  to share compiled XLA programs).
 
 ``--param_init bruteforce`` replaces the CCF by the brute-force start
 of the first fiber (fit/vel_fit.firstguess), which seeds every fiber
@@ -36,6 +43,8 @@ of the group, as in the reference.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
 import functools
 import hashlib
 import importlib.metadata
@@ -56,6 +65,7 @@ from rvspecfit_torch.fit import vel_fit
 from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
 from rvspecfit_torch.fit.spec_data import SpecData
 from rvspecfit_torch.io import fitsio
+from rvspecfit_torch.parallel import distributed
 from rvspecfit_torch.pipeline import library
 
 TABLE_PREFIX = 'rvtab'
@@ -721,7 +731,10 @@ def _run_group_fit(arms, templates, config, options, banks=None,
     """Fit a stacked fiber batch: list of BatchArm, setup ->
     TemplateModel (all on one device), config (min_vel, max_vel,
     vel_step0, min_vel_step, max_vsini, min_vsini, second_minimizer,
-    and template_lib where ``banks`` is None), fitter options.
+    optional fit_microbatch, and template_lib where ``banks`` is None),
+    fitter options.  ``config['fit_microbatch']`` fits the fibers in
+    tiles of at most that many (BatchedFitter's ``microbatch``), which
+    bounds device memory; unset, the group is fitted whole.
 
     The reference's synchronous branch (``RVST_DEFER_TAIL=0``): CCF
     starts -> Nelder-Mead -> gradient polish -> velocity refinement ->
@@ -757,7 +770,8 @@ def _run_group_fit(arms, templates, config, options, banks=None,
     # the brute-force start) carried vsini
     fit_vsini = bool(has_vs.any())
     bf = BatchedFitter(arms, templates, config, options=options,
-                       use_vsini=fit_vsini)
+                       use_vsini=fit_vsini,
+                       microbatch=config.get('fit_microbatch'))
     paramDict0 = dict(zip(parnames, start_params.mean(axis=0)))
     if fit_vsini:
         paramDict0['vsini'] = 0.01
@@ -828,10 +842,32 @@ def bruteforce_starts(arms, parnames, templates, config, options):
     return start_params, np.zeros(nf), start_vsini, has_vs
 
 
+def make_plot(lam_list, flux_list, model_list, title, fig_fname):
+    """Diagnostic plot of the data and best-fit models of each arm
+    (reference: desi_fit.py:159-222).  matplotlib is imported here, so
+    only a run that plots needs it."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    plt.figure(figsize=(10, 4), dpi=100)
+    for lam, fl, mo in zip(lam_list, flux_list, model_list):
+        plt.plot(lam, fl, 'k-', lw=0.5)
+        plt.plot(lam, mo, 'r-', lw=0.8)
+    plt.title(title, fontsize=8)
+    plt.xlabel('Wavelength [A]')
+    plt.tight_layout()
+    try:
+        plt.savefig(fig_fname)
+    finally:
+        plt.close()
+
+
 def _finish_one(prep, fit, lo, tab_ofname, mod_ofname, config, arms,
-                cmdline=None, templates=None):
+                cmdline=None, templates=None, fig_prefix=None):
     """Assemble one file's rows from its slice [lo, lo+nsel) of a
-    (possibly multi-file) group fit and write RVTAB/RVMOD."""
+    (possibly multi-file) group fit and write RVTAB/RVMOD; with
+    ``fig_prefix``, one plot per fiber, ``{fig_prefix}_{TARGETID}.png``
+    (a plot that fails is logged, as in the reference)."""
     nf = prep['nsel']
     sl = slice(lo, lo + nf)
     ref = {k: np.asarray(v)[sl] for k, v in fit['ref'].items()}
@@ -877,6 +913,21 @@ def _finish_one(prep, fit, lo, tab_ofname, mod_ofname, config, arms,
     for k, v in prep['rr_info'].items():
         res[k] = np.asarray(v)[idx]
 
+    if fig_prefix:
+        for k in range(nf):
+            title = ('logg=%.1f teff=%.0f feh=%.1f alpha=%.1f '
+                     'V=%.1f+/-%.1f' % (
+                         res['LOGG'][k], res['TEFF'][k], res['FEH'][k],
+                         res['ALPHAFE'][k], res['VRAD'][k],
+                         res['VRAD_ERR'][k]))
+            try:
+                make_plot([a.lam for a in arms],
+                          [a.flux[lo + k] for a in arms],
+                          [mods['models'][a.name][k] for a in arms],
+                          title, f'{fig_prefix}_{res["TARGETID"][k]}.png')
+            except Exception as exc:
+                logging.warning('plotting failed: %s', exc)
+
     _write_outputs(tab_ofname, mod_ofname, res, mods, arms,
                    prep['waves'], fibermap, idx, setups, config,
                    prep['fname'], scores=prep['scores'],
@@ -907,8 +958,9 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
               zbest_path=None, zbest_select=False, objtype_mask=None,
               objtypes=None, target_tables=None, templates=None,
               banks=None, device=None, fitarm=None, cmdline=None,
-              ccf_init=True):
-    """Fit every selected fiber of one DESI file; write RVTAB/RVMOD.
+              ccf_init=True, fig_prefix=None):
+    """Fit every selected fiber of one DESI file; write RVTAB/RVMOD
+    (and, with ``fig_prefix``, a plot per fiber: :func:`_finish_one`).
 
     ``templates`` ({setup: TemplateModel}) and ``banks`` ({setup:
     (tfft, t2fft, info)}) may come from memory; None loads them from
@@ -934,7 +986,8 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
     fit = _run_group_fit(prep['arms'], templates, config, options,
                          banks=banks, ccf_init=ccf_init)
     _finish_one(prep, fit, 0, tab_ofname, mod_ofname, config,
-                prep['arms'], cmdline=cmdline, templates=templates)
+                prep['arms'], cmdline=cmdline, templates=templates,
+                fig_prefix=fig_prefix)
     logging.info('%s: fitted %d fibers in %.1f s', fname, prep['nsel'],
                  time.time() - t0)
     return prep['nsel']
@@ -989,7 +1042,7 @@ def _concat_arms(arm_lists):
 def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
                     templates=None, banks=None, device=None, cmdline=None,
                     throw_exceptions=False, zbest_paths=None,
-                    ccf_init=True, **select_kw):
+                    ccf_init=True, fig_prefixes=None, **select_kw):
     """Fit several DESI files as one batch (``--coalesce``).
 
     The fibers of compatible files (same arm names, wavelength grids
@@ -1003,8 +1056,10 @@ def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
     Per-file crash isolation: a file that fails to read or prepare
     gets a crash log and a None count without sinking its group; if a
     group fit fails, each member is retried alone.  ``select_kw`` are
-    :func:`_prepare_one`'s selection arguments.  Returns per-file
-    fitted-object counts (None = failure), aligned with ``fnames``.
+    :func:`_prepare_one`'s selection arguments; ``fig_prefixes``
+    optional per-file plot prefixes (:func:`_finish_one`).  Returns
+    per-file fitted-object counts (None = failure), aligned with
+    ``fnames``.
     """
     gprep = prepare_desi_group(fnames, config, zbest_paths=zbest_paths,
                                throw_exceptions=throw_exceptions,
@@ -1013,7 +1068,7 @@ def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
                           options, templates=templates, banks=banks,
                           device=device, cmdline=cmdline,
                           throw_exceptions=throw_exceptions,
-                          ccf_init=ccf_init)
+                          ccf_init=ccf_init, fig_prefixes=fig_prefixes)
 
 
 def prepare_desi_group(fnames, config, zbest_paths=None,
@@ -1045,17 +1100,20 @@ def prepare_desi_group(fnames, config, zbest_paths=None,
 
 def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
                    templates=None, banks=None, device=None, cmdline=None,
-                   throw_exceptions=False, ccf_init=True):
+                   throw_exceptions=False, ccf_init=True,
+                   fig_prefixes=None):
     """Fit and write stage of a group prepared by
     :func:`prepare_desi_group` (see :func:`proc_desi_group` for the
     semantics and the return value)."""
     preps = gprep['preps']
     counts = [None] * len(preps)
+    fig_prefixes = fig_prefixes or [None] * len(preps)
 
     def finish(i, fit, lo, arms):
         try:
             _finish_one(preps[i], fit, lo, tab_ofnames[i], mod_ofnames[i],
-                        config, arms, cmdline=cmdline, templates=templates)
+                        config, arms, cmdline=cmdline, templates=templates,
+                        fig_prefix=fig_prefixes[i])
             counts[i] = preps[i]['nsel']
         except Exception:
             _log_crash(preps[i]['fname'], 'write', throw_exceptions)
@@ -1271,17 +1329,36 @@ def proc_desi_wrapper(*args, **kwargs):
         return None
 
 
-def output_paths(fname, output_dir, output_tab_prefix=TABLE_PREFIX,
-                 output_mod_prefix=MODEL_PREFIX):
-    """(RVTAB path, RVMOD path) of an input file: ``coadd-``/``spectra-``
-    and ``.fits`` are taken off its name."""
+def _base_name(fname):
+    """A file's name without ``coadd-``/``spectra-`` and ``.fits``."""
     base = os.path.basename(fname)
     for pref in ('coadd-', 'spectra-'):
         if base.startswith(pref):
             base = base[len(pref):]
-    base = base.replace('.fits', '')
+    return base.replace('.fits', '')
+
+
+def output_paths(fname, output_dir, output_tab_prefix=TABLE_PREFIX,
+                 output_mod_prefix=MODEL_PREFIX):
+    """(RVTAB path, RVMOD path) of an input file: ``coadd-``/``spectra-``
+    and ``.fits`` are taken off its name."""
+    base = _base_name(fname)
     return (os.path.join(output_dir, f'{output_tab_prefix}-{base}.fits'),
             os.path.join(output_dir, f'{output_mod_prefix}-{base}.fits'))
+
+
+def static_file_list(files):
+    """The list of a statically known input (a list or tuple, a
+    FileQueue over a list or a file read once, a ShardedFileQueue), or
+    None for a queue (a lock-file FileQueue, a CoordinatedFileQueue, any
+    other iterable), whose items are claimed as they are fitted."""
+    if isinstance(files, (list, tuple)):
+        return list(files)
+    if isinstance(files, utils.FileQueue) and not files.queue:
+        return list(files)
+    if isinstance(files, utils.ShardedFileQueue):
+        return list(files.files)
+    return None
 
 
 def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
@@ -1289,11 +1366,20 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
               skipexisting=False, status_fname=None, coalesce=1,
               templates=None, banks=None, device=None,
               throw_exceptions=False, cmdline=None, zbest_select=False,
-              ccf_init=True, **select_kw):
-    """Process a sequence of files, one after another (reference:
+              ccf_init=True, doplot=False, figure_dir=None,
+              figure_prefix='fig', **select_kw):
+    """Process a sequence of files, one group after another (reference:
     desi_fit.py:1392-1551, without its reader and writer threads).
     ``ccf_init=False`` starts every group from the brute-force first
     guess instead of the CCF (``--param_init bruteforce``).
+
+    ``files``: a list, or one of utils.FileQueue,
+    utils.ShardedFileQueue or parallel/distributed.CoordinatedFileQueue
+    (:func:`static_file_list`).  Only a static list is read up front; a
+    queue's items are claimed one at a time, each when the previous one
+    is fitted and written, and a queue runs at coalesce 1 (an early
+    claim would take work from the other processes and widen the window
+    of files lost to a crash).
 
     ``coalesce``: fit up to this many consecutive compatible files as
     one batch (:func:`proc_desi_group`); 1 fits file by file through
@@ -1302,16 +1388,24 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
     line per file (:func:`update_process_status_file`); the seconds of
     a coalesced group are shared equally by its files.
     ``zbest_select`` selects star-like fibers with the ``redrock-``
-    file beside each ``coadd-`` file.  ``templates``/``banks``: as in
-    :func:`proc_desi`; the templates are loaded once, before the first
-    file, and a loading failure raises.  ``select_kw``:
-    :func:`_prepare_one`'s selection arguments.
+    file beside each ``coadd-`` file.  ``doplot`` writes a plot per
+    fiber into ``figure_dir`` (default: ``output_dir``), named
+    ``{figure_prefix}-{file}_{TARGETID}.png``.  ``templates``/``banks``:
+    as in :func:`proc_desi`; the templates are loaded once, before the
+    first file that is fitted, and a loading failure raises.
+    ``select_kw``: :func:`_prepare_one`'s selection arguments.
     """
     os.makedirs(output_dir, exist_ok=True)
     if status_fname:
         update_process_status_file(status_fname, None, None, 0, 0,
                                    start=True)
     options = options or {}
+    flist = static_file_list(files)
+    coalesce = max(1, int(coalesce or 1))
+    if coalesce > 1 and flist is None:
+        logging.info('--coalesce needs a statically-known file list; '
+                     'queue inputs are fitted one file at a time')
+        coalesce = 1
 
     def status(f, nobj, seconds, code=None):
         if status_fname:
@@ -1321,22 +1415,6 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                                           PROC_STATUS_FAILURE),
                 nobj or 0, seconds)
 
-    work = []
-    for f in files:
-        t0 = time.time()
-        tab, mod = output_paths(f, output_dir, output_tab_prefix,
-                                output_mod_prefix)
-        if skipexisting and os.path.exists(tab) and os.path.exists(mod):
-            logging.info('skipping existing %s', f)
-            status(f, 0, time.time() - t0, PROC_STATUS_EXISTING)
-            continue
-        work.append((f, tab, mod))
-    if not work:
-        return
-    if templates is None:
-        templates = _load_templates(
-            config, select_kw.get('setups', ('b', 'r', 'z')), device)
-
     def zbest_path(f):
         if not zbest_select:
             return None
@@ -1344,10 +1422,38 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                             .replace('coadd-', 'redrock-'))
         return cand if os.path.exists(cand) else None
 
-    coalesce = max(1, int(coalesce or 1))
-    for i in range(0, len(work), coalesce):
-        grp = work[i:i + coalesce]
+    def fig_prefix(f):
+        if not doplot:
+            return None
+        fdir = figure_dir or output_dir
+        os.makedirs(fdir, exist_ok=True)
+        return os.path.join(fdir, f'{figure_prefix}-{_base_name(f)}')
+
+    def groups():
+        """Groups of up to ``coalesce`` files to fit; a queue's item is
+        claimed when the loop asks for the next group."""
+        grp = []
+        for f in (files if flist is None else flist):
+            t0 = time.time()
+            tab, mod = output_paths(f, output_dir, output_tab_prefix,
+                                    output_mod_prefix)
+            if skipexisting and os.path.exists(tab) \
+                    and os.path.exists(mod):
+                logging.info('skipping existing %s', f)
+                status(f, 0, time.time() - t0, PROC_STATUS_EXISTING)
+                continue
+            grp.append((f, tab, mod))
+            if len(grp) == coalesce:
+                yield grp
+                grp = []
+        if grp:
+            yield grp
+
+    for grp in groups():
         t0 = time.time()
+        if templates is None:
+            templates = _load_templates(
+                config, select_kw.get('setups', ('b', 'r', 'z')), device)
         if coalesce == 1:
             f, tab, mod = grp[0]
             counts = [proc_desi_wrapper(
@@ -1355,7 +1461,7 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                 banks=banks, cmdline=cmdline,
                 zbest_path=zbest_path(f), zbest_select=zbest_select,
                 throw_exceptions=throw_exceptions, ccf_init=ccf_init,
-                **select_kw)]
+                fig_prefix=fig_prefix(f), **select_kw)]
         else:
             counts = proc_desi_group(
                 [g[0] for g in grp], [g[1] for g in grp],
@@ -1363,16 +1469,77 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                 banks=banks, cmdline=cmdline,
                 throw_exceptions=throw_exceptions,
                 zbest_paths=[zbest_path(g[0]) for g in grp],
-                zbest_select=zbest_select, ccf_init=ccf_init, **select_kw)
+                zbest_select=zbest_select, ccf_init=ccf_init,
+                fig_prefixes=[fig_prefix(g[0]) for g in grp], **select_kw)
         dt = (time.time() - t0) / len(grp)
         for (f, _, _), nobj in zip(grp, counts):
             status(f, nobj, dt)
 
 
+Fleet = collections.namedtuple('Fleet', 'files rank world')
+
+
+def per_rank(fname, rank):
+    """``fname`` with ``%d`` replaced by ``rank`` (a per-rank log or
+    status file), unchanged without a rank or a ``%``."""
+    if fname is not None and rank is not None and '%' in fname:
+        return fname % rank
+    return fname
+
+
+@contextlib.contextmanager
+def fleet(input_files=(), input_file_from=None, queue_file=False,
+          dynamic_queue=False, rank=None, world=None, coordinator=None,
+          done_barrier='rvstorch_desi_fit_done'):
+    """The input files and world of one process of a run: yields
+    Fleet(files, rank, world) for :func:`proc_many`.
+
+    With ``coordinator`` (``host:port``), or ``MASTER_ADDR`` set as
+    ``torchrun`` sets it, the process joins a multi-process world
+    (parallel/distributed.init_distributed): ``rank`` and ``world``
+    default to the world's, and on leaving, normally or by an
+    exception, the process waits at the barrier ``done_barrier`` and
+    closes the world.  The files, as the reference selects them:
+    ``input_files`` as a list; else the lines of ``input_file_from``,
+    claimed through the world's store with ``dynamic_queue``
+    (CoordinatedFileQueue, which needs a world), sharded
+    ``files[rank::world]`` where a rank or world is known
+    (ShardedFileQueue), or read as a lock-file queue with
+    ``queue_file`` (FileQueue, on a shared filesystem) or as a list.
+    """
+    in_world = bool(coordinator or os.environ.get('MASTER_ADDR'))
+    if in_world:
+        pid, nproc = distributed.init_distributed(coordinator, world, rank)
+        rank = pid if rank is None else rank
+        world = nproc if world is None else world
+    try:
+        if input_files:
+            files = utils.FileQueue(file_list=input_files)
+        elif input_file_from is None:
+            raise ValueError('provide input files or input_file_from')
+        elif dynamic_queue or world is not None or rank is not None:
+            with open(input_file_from) as fp:
+                lst = [ln.strip() for ln in fp if ln.strip()]
+            if dynamic_queue:
+                files = distributed.CoordinatedFileQueue(lst)
+            else:
+                files = utils.ShardedFileQueue(lst, rank=rank, world=world)
+        else:
+            files = utils.FileQueue(file_from=input_file_from,
+                                    queue=queue_file)
+        yield Fleet(files, rank, world)
+    finally:
+        if in_world:
+            distributed.barrier(done_barrier)
+            distributed.shutdown()
+
+
 def main(args=None):
     """``rvstorch_desi_fit``: fit DESI coadd/spectra files and write
     RVTAB/RVMOD files.  Runs on the CUDA card unless ``--device cpu``
-    is given, and raises without a card."""
+    is given, and raises without a card; one process of a
+    multi-process run (:func:`fleet`) takes card ``rank %
+    device_count()``."""
     if args is None:
         args = sys.argv[1:]
     cmdline = ' '.join(['rvstorch_desi_fit'] + list(args))
@@ -1380,6 +1547,15 @@ def main(args=None):
     parser.add_argument('input_files', nargs='*', default=[])
     parser.add_argument('--input_file_from', type=str, default=None,
                         help='text file with one input file per line')
+    parser.add_argument('--queue_file', action='store_true',
+                        default=False,
+                        help='use --input_file_from as a work queue '
+                        'shared by processes on a shared filesystem')
+    parser.add_argument('--dynamic_queue', action='store_true',
+                        default=False,
+                        help='claim --input_file_from items dynamically '
+                        "across the world through its store (no shared "
+                        'filesystem needed); needs --coordinator')
     parser.add_argument('--output_dir', type=str, required=True)
     parser.add_argument('--config', type=str, default=None)
     parser.add_argument('--templ_lib', type=str, default=None)
@@ -1397,6 +1573,14 @@ def main(args=None):
                         default=False,
                         help='select STAR-like objects using the '
                         'redrock file next to the coadd')
+    parser.add_argument('--doplot', action='store_true', default=False,
+                        help='write a plot of each fiber\'s fit '
+                        '(needs matplotlib)')
+    parser.add_argument('--figure_dir', type=str, default=None,
+                        help='directory for the plots (default: '
+                        'output_dir)')
+    parser.add_argument('--figure_prefix', type=str, default='fig',
+                        help='filename prefix for the plots')
     parser.add_argument('--output_tab_prefix', type=str,
                         default=TABLE_PREFIX,
                         help='prefix of the output table files')
@@ -1413,6 +1597,9 @@ def main(args=None):
     parser.add_argument('--objtypes', type=str, default=None,
                         help='comma-separated regexes matched against '
                         "target bit names, e.g. 'MWS_.*,STD_.*'")
+    parser.add_argument('--overwrite', type=str, default=None,
+                        help='(kept for reference CLI compatibility; '
+                        'meaningless now)')
     parser.add_argument('--version', action='store_true', default=False,
                         help='print the software version and exit')
     parser.add_argument('--param_init', type=str, default='CCF',
@@ -1430,75 +1617,96 @@ def main(args=None):
                         'fibers are fitted as one device batch')
     parser.add_argument('--coalesce', type=int, default=2,
                         help='fit up to N consecutive compatible files '
-                        'as one batch; 1 fits file by file')
+                        'as one batch (static file lists only; queue '
+                        'inputs run at 1); 1 fits file by file')
     parser.add_argument('--skipexisting', action='store_true',
                         default=False)
     parser.add_argument('--throw_exceptions', action='store_true',
                         default=False)
-    parser.add_argument('--process_status_file', type=str, default=None)
-    parser.add_argument('--log', type=str, default=None)
+    parser.add_argument('--process_status_file', type=str, default=None,
+                        help='per-file processing log; %%d expands to '
+                        'the rank')
+    parser.add_argument('--log', type=str, default=None,
+                        help='log file; %%d expands to the rank')
     parser.add_argument('--log_level', type=str, default='INFO')
+    parser.add_argument('--rank', type=int, default=None,
+                        help='this process\'s rank (default: the '
+                        "world's, or RANK)")
+    parser.add_argument('--world', type=int, default=None,
+                        help='number of processes (default: the '
+                        "world's, or WORLD_SIZE)")
+    parser.add_argument('--coordinator', type=str, default=None,
+                        help='host:port of the world\'s store, which '
+                        'rank 0 hosts; enables the multi-process world '
+                        '(default: MASTER_ADDR:MASTER_PORT where '
+                        'MASTER_ADDR is set)')
     parser.add_argument('--device', type=str, default=None,
                         help="torch device, e.g. 'cpu' (default: the "
-                        'CUDA card; raises without one)')
+                        'CUDA card, rank %% device_count() in a world; '
+                        'raises without one)')
     args = parser.parse_args(args)
 
     if args.version:
         print(__version__)
         return
+    if args.overwrite is not None:
+        logging.warning('overwrite keyword is meaningless now')
     if args.param_init not in ('CCF', 'bruteforce'):
         parser.error('Unknown param_init value; only known ones are '
                      'CCF and bruteforce')
-    device = resolve_device(args.device)
-    logging.basicConfig(filename=args.log,
-                        level=getattr(logging, args.log_level))
-
-    override = {'ccf_continuum_normalize': args.ccf_continuum_normalize}
-    if args.templ_lib:
-        override['template_lib'] = args.templ_lib
-    config = utils.read_config(args.config, override)
-
-    fit_targetid = None
-    if args.targetid is not None:
-        fit_targetid = np.array([args.targetid])
-    elif args.targetid_file_from:
-        fit_targetid = np.loadtxt(args.targetid_file_from,
-                                  dtype=np.int64, ndmin=1)
-    expid_range = None
-    if args.minexpid is not None or args.maxexpid is not None:
-        expid_range = (args.minexpid if args.minexpid is not None
-                       else -10**18,
-                       args.maxexpid if args.maxexpid is not None
-                       else 10**18)
-
-    if args.input_files:
-        files = utils.FileQueue(file_list=args.input_files)
-    elif args.input_file_from:
-        files = utils.FileQueue(file_from=args.input_file_from)
-    else:
+    if not args.input_files and not args.input_file_from:
         parser.error('provide input files or --input_file_from')
 
-    proc_many(files, args.output_dir,
-              output_tab_prefix=args.output_tab_prefix,
-              output_mod_prefix=args.output_mod_prefix,
-              config=config, options={'npoly': args.npoly},
-              skipexisting=args.skipexisting,
-              status_fname=args.process_status_file,
-              coalesce=args.coalesce, device=device,
-              throw_exceptions=args.throw_exceptions, cmdline=cmdline,
-              zbest_select=args.zbest_select,
-              ccf_init=args.param_init == 'CCF',
-              setups=tuple(args.setups.split(',')),
-              minsn=args.minsn, fit_targetid=fit_targetid,
-              expid_range=expid_range,
-              objtype_mask=args.objtype_mask,
-              objtypes=(args.objtypes.split(',')
-                        if args.objtypes else None),
-              target_tables=(load_targetmask_yaml(args.targetmask_yaml)
-                             if args.targetmask_yaml else None),
-              use_resolution_matrix=args.resolution_matrix,
-              fitarm=(tuple(args.fitarm.split(','))
-                      if args.fitarm else None))
+    with fleet(args.input_files, args.input_file_from,
+               queue_file=args.queue_file,
+               dynamic_queue=args.dynamic_queue, rank=args.rank,
+               world=args.world, coordinator=args.coordinator) as fl:
+        device = resolve_device(args.device)
+        logging.basicConfig(filename=per_rank(args.log, fl.rank),
+                            level=getattr(logging, args.log_level))
+
+        override = {'ccf_continuum_normalize': args.ccf_continuum_normalize}
+        if args.templ_lib:
+            override['template_lib'] = args.templ_lib
+        config = utils.read_config(args.config, override)
+
+        fit_targetid = None
+        if args.targetid is not None:
+            fit_targetid = np.array([args.targetid])
+        elif args.targetid_file_from:
+            fit_targetid = np.loadtxt(args.targetid_file_from,
+                                      dtype=np.int64, ndmin=1)
+        expid_range = None
+        if args.minexpid is not None or args.maxexpid is not None:
+            expid_range = (args.minexpid if args.minexpid is not None
+                           else -10**18,
+                           args.maxexpid if args.maxexpid is not None
+                           else 10**18)
+
+        proc_many(fl.files, args.output_dir,
+                  output_tab_prefix=args.output_tab_prefix,
+                  output_mod_prefix=args.output_mod_prefix,
+                  config=config, options={'npoly': args.npoly},
+                  skipexisting=args.skipexisting,
+                  status_fname=per_rank(args.process_status_file,
+                                        fl.rank),
+                  coalesce=args.coalesce, device=device,
+                  throw_exceptions=args.throw_exceptions, cmdline=cmdline,
+                  zbest_select=args.zbest_select,
+                  ccf_init=args.param_init == 'CCF',
+                  doplot=args.doplot, figure_dir=args.figure_dir,
+                  figure_prefix=args.figure_prefix,
+                  setups=tuple(args.setups.split(',')),
+                  minsn=args.minsn, fit_targetid=fit_targetid,
+                  expid_range=expid_range,
+                  objtype_mask=args.objtype_mask,
+                  objtypes=(args.objtypes.split(',')
+                            if args.objtypes else None),
+                  target_tables=(load_targetmask_yaml(args.targetmask_yaml)
+                                 if args.targetmask_yaml else None),
+                  use_resolution_matrix=args.resolution_matrix,
+                  fitarm=(tuple(args.fitarm.split(','))
+                          if args.fitarm else None))
 
 
 if __name__ == '__main__':

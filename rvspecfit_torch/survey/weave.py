@@ -15,11 +15,15 @@ red(+blue) file pair:
  5. write one ``WEAVE_RV`` table per pair, with status lines and
     ``overwrite=False`` skipping done pairs.
 
+Many processes share the work by striping the fibers of each pair:
+``--nthreads``/``--threadid``, or with ``--coordinator`` the world's
+size and rank (parallel/distributed).  ``--doplot`` writes a plot per
+fiber.
+
 Differences from the reference, by design: the pairs are read one
 after another (no lookahead thread), a CCF failure raises (the
-reference starts every fiber at default parameters), and the mesh,
-distributed runs (``--coordinator``) and plots (``--doplot``) are not
-ported: their options are refused.
+reference starts every fiber at default parameters), and the mesh is
+not ported.
 """
 from __future__ import annotations
 
@@ -37,8 +41,10 @@ from rvspecfit_torch.device import resolve_device
 from rvspecfit_torch.fit import vel_fit
 from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
 from rvspecfit_torch.io import fitsio
+from rvspecfit_torch.parallel import distributed
 from rvspecfit_torch.pipeline import library
-from rvspecfit_torch.survey.desi import (ccf_starts, masked_median,
+from rvspecfit_torch.survey.desi import (ccf_starts, make_plot,
+                                         masked_median,
                                          update_process_status_file)
 
 TELLURIC_BANDS = [(6850, 7000), (8130, 8350), (8940, 9240),
@@ -96,9 +102,11 @@ def _read_pair(fnames):
 
 def proc_weave(fnames, config, threadid=0, nthreads=1,
                programs=DEFAULT_PROGRAMS, options=None, templates=None,
-               banks=None, device=None):
+               banks=None, device=None, fig_prefix=None):
     """Fit one WEAVE red(+blue) file pair; returns a dict of columns
-    (None when no fibers are selected).
+    (None when no fibers are selected).  With ``fig_prefix``, a plot
+    per fiber, ``{fig_prefix}_{target id}.png`` (a plot that fails is
+    logged, as in the reference).
 
     ``templates`` ({weave_b/weave_r: TemplateModel}) and ``banks``
     ({setup: (tfft, t2fft, info)}) may come from memory; None loads
@@ -181,6 +189,18 @@ def proc_weave(fnames, config, threadid=0, nthreads=1,
         out['chisq_%s' % s] = mods['chisq'][a.name]
         out['chisq_c_%s' % s] = mods['cont_chisq'][a.name]
         out['sn_%s' % s] = sns[s]
+    if fig_prefix is not None:
+        for k in range(len(xids)):
+            title = ('teff=%.0f logg=%.1f V=%.1f+/-%.1f' % (
+                out['teff'][k], out['logg'][k], out['vrad'][k],
+                out['vrad_err'][k]))
+            try:
+                make_plot([a.lam for a in arms], [a.flux[k] for a in arms],
+                          [mods['models'][a.name][k] for a in arms], title,
+                          '%s_%s.png' % (fig_prefix,
+                                         str(out['target_id'][k]).strip()))
+            except Exception as exc:
+                logging.warning('plotting failed: %s', exc)
     return out
 
 
@@ -194,13 +214,13 @@ def output_path(grp, oprefix, threadid=0, output_tab_prefix='outtab'):
 def proc_many(file_groups, oprefix, config, threadid=0, nthreads=1,
               options=None, overwrite=True, status_fname=None,
               output_tab_prefix='outtab', templates=None, banks=None,
-              device=None, throw_exceptions=False):
+              device=None, throw_exceptions=False, fig_prefix=None):
     """Fit file groups one after another and write one WEAVE_RV table
     per group (:func:`output_path`).  ``overwrite=False`` skips groups
     whose table exists (status SKIPPED); ``status_fname`` gets one
     line per group: SUCCESS, EMPTY, FAILED or SKIPPED.  A failed group
     is logged and the next one fitted, unless ``throw_exceptions``.
-    ``templates``/``banks``: as in :func:`proc_weave`."""
+    ``templates``/``banks``/``fig_prefix``: as in :func:`proc_weave`."""
     os.makedirs(oprefix, exist_ok=True)
     if status_fname:
         update_process_status_file(status_fname, None, None, 0, 0,
@@ -222,7 +242,7 @@ def proc_many(file_groups, oprefix, config, threadid=0, nthreads=1,
             out = proc_weave(grp, config, threadid=threadid,
                              nthreads=nthreads, options=options,
                              templates=templates, banks=banks,
-                             device=device)
+                             device=device, fig_prefix=fig_prefix)
         except Exception:
             logging.exception('failed processing %s', grp)
             status(ofname, 'FAILED', 0, t0)
@@ -242,7 +262,10 @@ def proc_many(file_groups, oprefix, config, threadid=0, nthreads=1,
 def main(args=None):
     """``rvstorch_weave_fit``: fit WEAVE file pairs and write WEAVE_RV
     tables.  Runs on the CUDA card unless ``--device cpu`` is given,
-    and raises without a card."""
+    and raises without a card.  With ``--coordinator`` (or
+    ``MASTER_ADDR`` set) the process joins a multi-process world whose
+    rank and size stripe the fibers (unless ``--threadid``/``--nthreads``
+    are given), and waits for every rank before it exits."""
     if args is None:
         args = sys.argv[1:]
     parser = argparse.ArgumentParser(description='Fit WEAVE spectra')
@@ -260,6 +283,13 @@ def main(args=None):
     parser.add_argument('--output_tab_prefix', type=str,
                         default='outtab',
                         help='prefix of output table files')
+    parser.add_argument('--doplot', action='store_true', default=False,
+                        help='write a plot of each fiber\'s fit '
+                        '(needs matplotlib)')
+    parser.add_argument('--figure_dir', type=str, default='./',
+                        help='directory for the plots')
+    parser.add_argument('--figure_prefix', type=str, default='fig',
+                        help='filename prefix for the plots')
     parser.add_argument('--config', type=str, default=None)
     parser.add_argument('--templ_lib', type=str, default=None)
     parser.add_argument('--nthreads', type=int, default=1)
@@ -274,47 +304,60 @@ def main(args=None):
                         'restart; %%d expands to the thread id')
     parser.add_argument('--log', type=str, default=None)
     parser.add_argument('--log_level', type=str, default='WARNING')
+    parser.add_argument('--coordinator', type=str, default=None,
+                        help='host:port of the world\'s store, which '
+                        'rank 0 hosts; enables the multi-process world '
+                        '(threadid/nthreads default to its rank/size)')
     parser.add_argument('--device', type=str, default=None,
                         help="torch device, e.g. 'cpu' (default: the "
-                        'CUDA card; raises without one)')
-    for opt in ('--doplot', '--coordinator', '--figure_dir',
-                '--figure_prefix'):
-        parser.add_argument(opt, nargs='?', const=True, default=None,
-                            help='not ported (plots, distributed runs)')
+                        'CUDA card, rank %% device_count() in a world; '
+                        'raises without one)')
     args = parser.parse_args(args)
-    for opt in ('doplot', 'coordinator', 'figure_dir', 'figure_prefix'):
-        if getattr(args, opt) is not None:
-            parser.error(f'--{opt} is not ported (ROADMAP A)')
-    device = resolve_device(args.device)
 
-    log_fname = args.log
-    if log_fname is not None and '%d' in log_fname:
-        log_fname = log_fname % args.threadid
-    logging.basicConfig(
-        filename=log_fname,
-        level=getattr(logging, args.log_level.upper(), logging.WARNING))
+    use_world = bool(args.coordinator or os.environ.get('MASTER_ADDR'))
+    if use_world:
+        pid, nproc = distributed.init_distributed(args.coordinator)
+        if args.nthreads == 1 and args.threadid == 0:
+            args.threadid, args.nthreads = pid, nproc
+    try:
+        device = resolve_device(args.device)
+        log_fname = args.log
+        if log_fname is not None and '%d' in log_fname:
+            log_fname = log_fname % args.threadid
+        logging.basicConfig(
+            filename=log_fname,
+            level=getattr(logging, args.log_level.upper(), logging.WARNING))
 
-    files = list(args.input_files)
-    if args.input_file_mask is not None:
-        files.extend(sorted(glob.glob(args.input_file_mask)))
-    if args.input_file is not None:
-        with open(args.input_file) as fp:
-            files.extend(ln.strip() for ln in fp if ln.strip())
-    if not files:
-        parser.error('no input files: pass groups, --input_file_mask '
-                     'or --input_file')
-    status_fname = args.process_status_file
-    if status_fname is not None and '%d' in status_fname:
-        status_fname = status_fname % args.threadid
-    override = {}
-    if args.templ_lib:
-        override['template_lib'] = args.templ_lib
-    config = utils.read_config(args.config, override)
-    proc_many(files, args.output_dir or args.oprefix or 'outputs/', config,
-              threadid=args.threadid, nthreads=args.nthreads,
-              options={'npoly': args.npoly}, overwrite=args.overwrite,
-              status_fname=status_fname,
-              output_tab_prefix=args.output_tab_prefix, device=device)
+        files = list(args.input_files)
+        if args.input_file_mask is not None:
+            files.extend(sorted(glob.glob(args.input_file_mask)))
+        if args.input_file is not None:
+            with open(args.input_file) as fp:
+                files.extend(ln.strip() for ln in fp if ln.strip())
+        if not files:
+            parser.error('no input files: pass groups, --input_file_mask '
+                         'or --input_file')
+        status_fname = args.process_status_file
+        if status_fname is not None and '%d' in status_fname:
+            status_fname = status_fname % args.threadid
+        override = {}
+        if args.templ_lib:
+            override['template_lib'] = args.templ_lib
+        config = utils.read_config(args.config, override)
+        fig_prefix = None
+        if args.doplot:
+            os.makedirs(args.figure_dir, exist_ok=True)
+            fig_prefix = os.path.join(args.figure_dir, args.figure_prefix)
+        proc_many(files, args.output_dir or args.oprefix or 'outputs/',
+                  config, threadid=args.threadid, nthreads=args.nthreads,
+                  options={'npoly': args.npoly}, overwrite=args.overwrite,
+                  status_fname=status_fname,
+                  output_tab_prefix=args.output_tab_prefix, device=device,
+                  fig_prefix=fig_prefix)
+    finally:
+        if use_world:
+            distributed.barrier('rvstorch_weave_fit_done')
+            distributed.shutdown()
 
 
 if __name__ == '__main__':

@@ -6,10 +6,8 @@ median reported uncertainty, the RV scatter, and the pull standard
 deviation std((v_fit - v_true)/sigma_v), which is ~1 when the errors
 are calibrated.  The whole trial set is one fiber batch through
 fit/batch.BatchedFitter (velocity scan -> Nelder-Mead -> gradient
-polish -> velocity refinement), on one device (None: the CUDA card).
-
-Not ported: the reference's ``microbatch`` (the port's BatchedFitter
-fits the whole batch at once).
+polish -> velocity refinement), on one device (None: the CUDA card),
+whole or in tiles of ``microbatch`` trials.
 """
 from __future__ import annotations
 
@@ -36,7 +34,8 @@ DEFAULT_CONFIG = dict(min_vel=-1000, max_vel=1000, vel_step0=5,
 def run_accuracy(ntrials=1000, snr=300.0, npix=400, resol=1000.0,
                  seed=1, templates=None, config=None,
                  fit_start=(6000.0, 3.0, -1.0, 0.5), npoly=10,
-                 nm_chunk=64, fatol=None, maxiter=None, device=None):
+                 nm_chunk=64, fatol=None, maxiter=None, device=None,
+                 microbatch=None):
     """Fit ``ntrials`` random synthetic spectra; return (pull
     statistics, per-trial dict: v0, vfit, verr, params).
 
@@ -47,7 +46,8 @@ def run_accuracy(ntrials=1000, snr=300.0, npix=400, resol=1000.0,
     ``maxiter`` override them; rounds of ``nm_chunk`` iterations),
     with ``config['second_minimizer']`` the gradient polish, then the
     velocity refinement.  The trials' truths and spectra are drawn from
-    ``RandomState(seed)`` in the reference's order."""
+    ``RandomState(seed)`` in the reference's order.  ``microbatch``
+    fits the trials in tiles of at most that many (BatchedFitter)."""
     config = dict(DEFAULT_CONFIG if config is None else config)
     if templates is None:
         templates = {'acc': simulation.build_template_model(
@@ -73,7 +73,8 @@ def run_accuracy(ntrials=1000, snr=300.0, npix=400, resol=1000.0,
         ivar[i] = 1.0 / esp**2
 
     bf = BatchedFitter([BatchArm('acc', lam, flux, ivar)], templates,
-                       config, options={'npoly': npoly})
+                       config, options={'npoly': npoly},
+                       microbatch=microbatch)
     scan = bf.scan_velocities(
         np.arange(config['min_vel'], config['max_vel'],
                   config['vel_step0']),
@@ -134,6 +135,9 @@ def main(args=None):
                         help='Nelder-Mead iterations per round')
     parser.add_argument('--fatol', type=float, default=None)
     parser.add_argument('--maxiter', type=int, default=None)
+    parser.add_argument('--microbatch', type=int, default=None,
+                        help='fit the trials in tiles of at most this '
+                        'many (default: all at once)')
     parser.add_argument('--cpu', action='store_true', default=False,
                         help='Fit on the CPU instead of the CUDA card')
     parser.add_argument('--output', type=str, default=None,
@@ -146,7 +150,8 @@ def main(args=None):
     stats, _ = run_accuracy(ntrials=args.ntrials, snr=args.snr,
                             npix=args.npix, seed=args.seed,
                             nm_chunk=args.nm_chunk, fatol=args.fatol,
-                            maxiter=args.maxiter, device=device)
+                            maxiter=args.maxiter, device=device,
+                            microbatch=args.microbatch)
     print(json.dumps(stats))
     if args.output:
         import torch

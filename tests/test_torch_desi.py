@@ -652,15 +652,57 @@ def test_main_needs_the_card_unless_told_cpu(monkeypatch, tmp_path):
     assert not os.path.exists(tmp_path / 'rvtab-x.fits')
 
 
+def _record_main(main, mod, dist, argv, monkeypatch):
+    """Run a driver's ``main`` with its proc_many and world stubbed:
+    what it passed on ({'exit': True} when it exited through the
+    parser)."""
+    calls = {}
+    monkeypatch.setattr(mod, 'proc_many', lambda files, outdir, **kw:
+                        calls.update(files=files, kw=kw))
+    monkeypatch.setattr(dist, 'init_distributed',
+                        lambda coord=None, n=None, p=None:
+                        calls.update(init=(coord, n, p)) or (1, 3))
+    monkeypatch.setattr(dist, 'barrier', lambda name=None, timeout_ms=None:
+                        calls.update(barrier=name))
+    monkeypatch.setattr(dist, 'shutdown', lambda *a: calls.update(shut=1))
+    try:
+        main(argv)
+    except SystemExit:
+        calls['exit'] = True
+    return calls
+
+
 @pytest.mark.parametrize('option', [['--queue_file'], ['--dynamic_queue'],
                                     ['--rank', '0'], ['--world', '2'],
                                     ['--coordinator', 'h:1'], ['--doplot'],
                                     ['--figure_dir', 'f'],
                                     ['--param_init', 'random']])
-def test_left_out_options_are_refused(option, tmp_path):
-    with pytest.raises(SystemExit):
-        desi.main(['x.fits', '--output_dir', str(tmp_path),
-                   '--device', 'cpu'] + option)
+def test_left_out_options_are_refused(option, tmp_path, monkeypatch):
+    """Of these options only an unknown ``--param_init`` is still
+    refused: the queue, world and plot options are ported, and with a
+    file on the command line each one reaches proc_many as in the
+    reference's ``main`` (the same queue class; the world opened and,
+    after the run, the barrier passed and the world closed)."""
+    from rvspecfit_tpu.parallel import distributed as rdist
+    from rvspecfit_torch.parallel import distributed as pdist
+    argv = ['x.fits', '--output_dir', str(tmp_path)] + option
+    want = _record_main(rdesi.main, rdesi, rdist, argv, monkeypatch)
+    got = _record_main(desi.main, desi, pdist, argv + ['--device', 'cpu'],
+                       monkeypatch)
+    assert got.get('exit') == want.get('exit')
+    assert bool(got.get('exit')) == (option[0] == '--param_init')
+    if got.get('exit'):
+        return
+    assert type(got['files']).__name__ == type(want['files']).__name__
+    assert list(got['files']) == list(want['files']) == ['x.fits']
+    assert ('init' in got) == ('init' in want) == \
+        (option[0] == '--coordinator')
+    if 'init' in got:
+        assert got['init'] == want['init'] == ('h:1', None, None)
+        assert got['barrier'] == 'rvstorch_desi_fit_done'
+        assert got['shut'] == want['shut'] == 1
+    assert got['kw']['doplot'] == want['kw']['doplot_figs']
+    assert got['kw']['figure_dir'] == want['kw']['figure_dir']
 
 
 def test_bruteforce_start_is_the_reference_firstguess(coadds,
@@ -749,6 +791,219 @@ def test_load_template_models_carries_provenance(desi_library):
     got = tms['desi_b'].extra
     assert got == {k: want[k] for k in ('revision', 'creation_soft_version')}
     assert tms['desi_b'].geom.h.device.type == 'cpu'
+
+
+# ------------------------------------------------------------------
+# fleets: file queues, ranks and worlds; plots; --overwrite
+
+def test_queue_file_with_crash_isolation(coadds, desi_library, tmp_path,
+                                         monkeypatch):
+    """``--queue_file``: the lock-file queue is popped empty; a corrupt
+    file gets a crash log and a FAILURE line and the next one is fitted
+    (the reference's test_desi_queue_mode_and_crash_isolation)."""
+    bad = str(tmp_path / 'coadd-broken.fits')
+    with open(bad, 'w') as fp:
+        fp.write('this is not a FITS file')
+    qfile = tmp_path / 'queue.txt'
+    qfile.write_text(f'{bad}\n{coadds["a"][0]}\n')
+    status = str(tmp_path / 'status.txt')
+    monkeypatch.chdir(tmp_path)                 # crash logs land here
+    _main([], tmp_path / 'out', desi_library, '--input_file_from',
+          str(qfile), '--queue_file', '--targetid', str(TID0 + 1),
+          '--process_status_file', status)
+    stat = {ln[0]: ln[1:3] for ln in _status(status)}
+    assert stat == {bad: ['FAILURE', '0'], coadds['a'][0]: ['SUCCESS', '1']}
+    assert qfile.read_text() == ''
+    assert any(p.name.startswith('crash_') for p in tmp_path.iterdir())
+    rv = fitsio.read(str(tmp_path / 'out' / 'rvtab-a.fits'))['RVTAB'].data
+    assert list(rv['TARGETID']) == [TID0 + 1]
+
+
+def test_status_file_takes_the_rank(coadds, desi_library, tmp_path):
+    """``%d`` in --process_status_file (and --log) becomes the rank
+    (the reference's test_desi_status_file_rank_substitution)."""
+    status = str(tmp_path / 'status_%d.txt')
+    _main([coadds['a'][0]], tmp_path / 'out', desi_library,
+          '--process_status_file', status, '--rank', '3', '--world', '4',
+          '--minsn', '1e9', '--throw_exceptions')
+    assert [ln[:3] for ln in _status(str(tmp_path / 'status_3.txt'))] == \
+        [[coadds['a'][0], 'SUCCESS', '0']]
+    assert desi.per_rank('log_%d.txt', 2) == 'log_2.txt'
+    assert desi.per_rank('log.txt', 2) == 'log.txt'
+    assert desi.per_rank('log_%d.txt', None) == 'log_%d.txt'
+
+
+@pytest.mark.parametrize('rank,world', [('0', '2'), ('1', '2'), ('2', '3')])
+def test_rank_and_world_shard_the_list_as_the_reference(rank, world,
+                                                        tmp_path,
+                                                        monkeypatch):
+    from rvspecfit_tpu.parallel import distributed as rdist
+    from rvspecfit_torch.parallel import distributed as pdist
+    lst = tmp_path / 'files.txt'
+    lst.write_text(''.join(f'coadd-{i}.fits\n' for i in range(7)))
+    argv = ['--input_file_from', str(lst), '--output_dir', str(tmp_path),
+            '--rank', rank, '--world', world]
+    want = _record_main(rdesi.main, rdesi, rdist, argv, monkeypatch)
+    got = _record_main(desi.main, desi, pdist, argv + ['--device', 'cpu'],
+                       monkeypatch)
+    assert type(got['files']).__name__ == 'ShardedFileQueue'
+    assert list(got['files']) == list(want['files']) == \
+        [f'coadd-{i}.fits' for i in range(7)][int(rank)::int(world)]
+    assert 'init' not in got
+
+
+def test_coordinator_wiring_with_the_world_mocked(tmp_path, monkeypatch):
+    """``--coordinator`` with ``--dynamic_queue``: the world's rank and
+    size become the run's, the list goes into a CoordinatedFileQueue,
+    the status file gets the rank, and the barrier and the shutdown run
+    after the run, also when it fails; a dynamic queue without a world
+    raises."""
+    from rvspecfit_torch.parallel import distributed as pdist
+    lst = tmp_path / 'files.txt'
+    lst.write_text('coadd-0.fits\ncoadd-1.fits\n')
+
+    class Queue(list):
+        pass
+    monkeypatch.setattr(pdist, 'CoordinatedFileQueue', Queue)
+    argv = ['--input_file_from', str(lst), '--output_dir', str(tmp_path),
+            '--coordinator', 'localhost:1234', '--dynamic_queue',
+            '--process_status_file', str(tmp_path / 'status_%d.txt'),
+            '--device', 'cpu']
+    calls = _record_main(desi.main, desi, pdist, argv, monkeypatch)
+    assert calls['init'] == ('localhost:1234', None, None)
+    assert isinstance(calls['files'], Queue)
+    assert list(calls['files']) == ['coadd-0.fits', 'coadd-1.fits']
+    assert calls['kw']['status_fname'] == str(tmp_path / 'status_1.txt')
+    assert calls['barrier'] == 'rvstorch_desi_fit_done' and calls['shut']
+
+    def failing(files, outdir, **kw):
+        raise RuntimeError('fit failed')
+    monkeypatch.setattr(desi, 'proc_many', failing)
+    calls.clear()
+    with pytest.raises(RuntimeError, match='fit failed'):
+        desi.main(argv)
+    assert calls['barrier'] == 'rvstorch_desi_fit_done' and calls['shut']
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match='multi-process world'):
+        desi.main(argv[:4] + ['--dynamic_queue', '--device', 'cpu'])
+
+
+def test_proc_many_claims_no_queue_item_before_the_previous_is_fitted(
+        tmp_path, monkeypatch, caplog):
+    """A queue's items are claimed one at a time, each after the
+    previous file is fitted and written, at coalesce 1 with a log line
+    (an early claim would take work from the other ranks); a static
+    list is read up front and fitted in groups."""
+    events = []
+
+    def queue():
+        for f in ('coadd-a.fits', 'coadd-b.fits', 'coadd-c.fits'):
+            events.append(('claim', f))
+            yield f
+
+    def fit_one(f, tab, mod, *args, **kw):
+        events.append(('fit', f))
+        return 1
+
+    def fit_group(fnames, *args, **kw):
+        events.append(('fit', tuple(fnames)))
+        return [1] * len(fnames)
+    monkeypatch.setattr(desi, 'proc_desi_wrapper', fit_one)
+    monkeypatch.setattr(desi, 'proc_desi_group', fit_group)
+    kw = dict(config={}, templates={'desi_b': None}, coalesce=2)
+    with caplog.at_level('INFO'):
+        desi.proc_many(queue(), str(tmp_path), **kw)
+    assert events == [(k, f) for f in ('coadd-a.fits', 'coadd-b.fits',
+                                       'coadd-c.fits')
+                      for k in ('claim', 'fit')]
+    assert 'queue inputs are fitted one file at a time' in caplog.text
+
+    # the lock-file queue: the second line is still in the file while
+    # the first file is fitted
+    qfile = tmp_path / 'queue.txt'
+    qfile.write_text('coadd-a.fits\ncoadd-b.fits\n')
+    seen = []
+    monkeypatch.setattr(desi, 'proc_desi_wrapper', lambda f, *a, **k:
+                        seen.append((f, qfile.read_text())) or 1)
+    desi.proc_many(utils.FileQueue(file_from=str(qfile), queue=True),
+                   str(tmp_path), **kw)
+    assert seen == [('coadd-a.fits', 'coadd-b.fits\n'),
+                    ('coadd-b.fits', '')]
+
+    events.clear()
+    desi.proc_many(list(queue()), str(tmp_path), **kw)
+    assert events == [('claim', 'coadd-a.fits'), ('claim', 'coadd-b.fits'),
+                      ('claim', 'coadd-c.fits'),
+                      ('fit', ('coadd-a.fits', 'coadd-b.fits')),
+                      ('fit', ('coadd-c.fits',))]
+
+
+def test_overwrite_warns_as_the_reference(coadds, desi_library, tmp_path,
+                                          caplog):
+    _main([coadds['a'][0]], tmp_path / 'out', desi_library, '--minsn',
+          '1e9', '--overwrite', 'yes', '--throw_exceptions')
+    assert 'overwrite keyword is meaningless now' in caplog.text
+    assert os.path.exists(tmp_path / 'out' / 'rvtab-a.fits')
+
+
+def test_doplot_writes_figures(coadds, desi_library, tmp_path):
+    """``--doplot``: one PNG per fitted fiber in --figure_dir, named
+    {figure_prefix}-{file}_{TARGETID}.png, as the reference names them;
+    without --figure_dir they go to the output directory."""
+    _main([coadds['a'][0]], tmp_path / 'out', desi_library, '--doplot',
+          '--figure_dir', str(tmp_path / 'figs'), '--figure_prefix', 'p',
+          '--targetid', str(TID0 + 2), '--throw_exceptions')
+    fig = tmp_path / 'figs' / f'p-a_{TID0 + 2}.png'
+    assert fig.read_bytes()[:8] == b'\x89PNG\r\n\x1a\n'
+    _main([coadds['a'][0]], tmp_path / 'out2', desi_library, '--doplot',
+          '--targetid', str(TID0 + 2), '--coalesce', '2',
+          '--throw_exceptions')
+    assert os.path.exists(tmp_path / 'out2' / f'fig-a_{TID0 + 2}.png')
+
+
+_RANK = r"""
+import sys
+sys.modules['jax'] = None
+sys.modules['rvspecfit_tpu'] = None
+from rvspecfit_torch.survey import desi
+desi.main(sys.argv[1:])
+"""
+
+
+def test_two_process_fleet_on_the_cpu(coadds, desi_library, tmp_path):
+    """Two ``rvstorch_desi_fit --device cpu`` processes (jax and the JAX
+    package blocked) over a world on this host claim two files through
+    --dynamic_queue: each file is fitted once, per-rank status files,
+    RV recovery."""
+    import shutil
+    import subprocess
+    import sys
+    from test_torch_distributed import _free_port
+    files = [coadds['a'][0], str(tmp_path / 'coadd-a2.fits')]
+    shutil.copy(files[0], files[1])
+    lst = tmp_path / 'files.txt'
+    lst.write_text(''.join(f + '\n' for f in files))
+    port = _free_port()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', _RANK, '--input_file_from', str(lst),
+         '--output_dir', str(tmp_path / 'out'), '--templ_lib',
+         desi_library, '--device', 'cpu', '--dynamic_queue',
+         '--coordinator', f'127.0.0.1:{port}', '--rank', str(rank),
+         '--world', '2', '--process_status_file',
+         str(tmp_path / 'status_%d.txt'), '--throw_exceptions'],
+        cwd=repo) for rank in range(2)]
+    assert [p.wait(timeout=300) for p in procs] == [0, 0]
+    lines = sum((_status(str(tmp_path / f'status_{r}.txt'))
+                 for r in range(2)), [])
+    assert sorted(ln[0] for ln in lines) == sorted(files)
+    assert all(ln[1:3] == ['SUCCESS', str(NFIB - 1)] for ln in lines)
+    truth = coadds['a'][1]
+    for base in ('a', 'a2'):
+        rv = fitsio.read(str(tmp_path / 'out' / f'rvtab-{base}.fits'))[
+            'RVTAB'].data
+        dv = rv['VRAD'] - truth['vel'][:NFIB - 1]
+        assert (np.abs(dv) < np.maximum(10, 5 * rv['VRAD_ERR'])).all()
 
 
 # ------------------------------------------------------------------

@@ -42,9 +42,13 @@ def test_every_module_imports_without_jax():
             'rvspecfit_torch.pipeline.make_interpol',
             'rvspecfit_torch.pipeline.regularize_grid',
             'rvspecfit_torch.pipeline.make_nd',
-            'rvspecfit_torch.pipeline.make_ccf'} <= set(mods)
-    # h5py and yaml are missing on the card's machine too; the trainer
-    # takes optax's place and computes its PCA without sklearn
+            'rvspecfit_torch.pipeline.make_ccf',
+            'rvspecfit_torch.parallel.distributed',
+            'rvspecfit_torch.perf',
+            'rvspecfit_torch.pipeline.prewarm'} <= set(mods)
+    # h5py, yaml and matplotlib are missing on the card's machine too;
+    # the trainer takes optax's place and computes its PCA without
+    # sklearn
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['optax'] = None\n"
@@ -52,6 +56,7 @@ def test_every_module_imports_without_jax():
             "sys.modules['rvspecfit_tpu'] = None\n"
             "sys.modules['h5py'] = None\n"
             "sys.modules['yaml'] = None\n"
+            "sys.modules['matplotlib'] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import torch\n"

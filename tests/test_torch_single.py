@@ -149,9 +149,12 @@ def test_spec_data_identity_and_resolution_rules(models):
     rm = resolution.gaussian_resolution_matrix(b.lam, width=0.5)
     with pytest.raises(ValueError, match='cannot be combined'):
         ArmState.build(b, tm.geom, resol_matrix=rm, device='cpu')
-    with pytest.raises(NotImplementedError, match='fast_interp'):
-        likelihood.FusedChisq([a], {'arm0': tm}, CONFIG,
-                              options={'fast_interp': True})
+    # fast_interp is ported (tests/test_torch_fast_interp.py): the
+    # nearest-pixel likelihood builds and evaluates
+    fast = likelihood.FusedChisq([a], {'arm0': tm}, CONFIG,
+                                 options={'fast_interp': True})
+    assert fast.fast_interp and np.isfinite(
+        fast.chisq_one(120.0, [6500.0, 2.5, -0.8, 0.4]))
 
 
 FUSED_CASES = {

@@ -155,7 +155,7 @@ def test_no_card_and_mesh_raise(monkeypatch):
     """No fallback: without device='cpu' the trainer needs the card; the
     reference's SPMD mesh is not ported."""
     x, specs = _training_set()
-    with pytest.raises(NotImplementedError, match='ROADMAP A7'):
+    with pytest.raises(NotImplementedError, match='ROADMAP A4'):
         train_nn.train_interpolator(x, specs, mesh=object(), device='cpu')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):

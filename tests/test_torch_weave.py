@@ -196,15 +196,88 @@ def test_proc_weave_stripes_fibers_and_raises_on_ccf_failure(
 
 def test_main_needs_the_card_and_refuses_left_out_options(monkeypatch,
                                                           tmp_path):
+    """Without a card main raises, also with the plot options and in a
+    world (whose barrier and shutdown still run); the options that
+    used to be refused are ported and reach proc_many; no input files
+    exit through the parser."""
+    from rvspecfit_torch.parallel import distributed
+    calls = {}
+    monkeypatch.setattr(distributed, 'init_distributed',
+                        lambda coord=None, n=None, p=None: (0, 2))
+    monkeypatch.setattr(distributed, 'barrier',
+                        lambda name=None, timeout_ms=None:
+                        calls.setdefault('barrier', name))
+    monkeypatch.setattr(distributed, 'shutdown',
+                        lambda *a: calls.setdefault('shutdown', True))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         weave.main(['a.fits,b.fits', '--output_dir', str(tmp_path)])
     for opt in (['--doplot'], ['--coordinator', 'h:1'],
                 ['--figure_dir', 'f']):
-        with pytest.raises(SystemExit):
-            weave.main(['a.fits,b.fits', '--device', 'cpu'] + opt)
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            weave.main(['a.fits,b.fits', '--output_dir', str(tmp_path)]
+                       + opt)
+    assert calls == {'barrier': 'rvstorch_weave_fit_done',
+                     'shutdown': True}
+    monkeypatch.setattr(weave, 'proc_many', lambda files, outdir, config,
+                        **kw: calls.update(proc=kw))
+    weave.main(['a.fits,b.fits', '--device', 'cpu', '--doplot',
+                '--figure_dir', str(tmp_path / 'f')])
+    assert calls['proc']['fig_prefix'] == str(tmp_path / 'f' / 'fig')
     with pytest.raises(SystemExit):
         weave.main(['--device', 'cpu'])
+
+
+def test_weave_coordinator_wiring(monkeypatch, tmp_path):
+    """--coordinator maps the world's rank and size onto threadid and
+    nthreads unless they are given, and the world's barrier and
+    shutdown run afterwards (the reference's
+    tests/test_cli.py::test_weave_coordinator_wiring)."""
+    from rvspecfit_torch.parallel import distributed
+    calls = {}
+    monkeypatch.setattr(distributed, 'init_distributed',
+                        lambda coord=None, n=None, p=None:
+                        calls.setdefault('init', coord) and None
+                        or (1, 3))
+    monkeypatch.setattr(distributed, 'barrier',
+                        lambda name=None, timeout_ms=None:
+                        calls.setdefault('barrier', name))
+    monkeypatch.setattr(distributed, 'shutdown',
+                        lambda *a: calls.setdefault('shutdown', True))
+    monkeypatch.setattr(weave, 'proc_many',
+                        lambda files, outdir, config, **kw:
+                        calls.setdefault('proc', kw))
+    flist = tmp_path / 'in.txt'
+    flist.write_text('a.fits,b.fits\n')
+    weave.main(['--input_file', str(flist), '--output_dir', str(tmp_path),
+                '--coordinator', 'localhost:1234', '--device', 'cpu'])
+    assert calls['init'] == 'localhost:1234'
+    assert calls['proc']['threadid'] == 1
+    assert calls['proc']['nthreads'] == 3
+    assert calls['barrier'] == 'rvstorch_weave_fit_done'
+    assert calls['shutdown'] is True
+
+    # explicit threadid/nthreads win over the world indices
+    calls.clear()
+    weave.main(['--input_file', str(flist), '--output_dir', str(tmp_path),
+                '--coordinator', 'localhost:1234', '--device', 'cpu',
+                '--threadid', '2', '--nthreads', '5'])
+    assert calls['proc']['threadid'] == 2
+    assert calls['proc']['nthreads'] == 5
+
+
+def test_proc_weave_writes_a_plot_per_fiber(weave_models, tmp_path):
+    """``fig_prefix``: one PNG per fitted fiber, named after its target
+    id as the reference names it."""
+    cfg, templates, banks = weave_models
+    grp, _ = write_pair(tmp_path, seed=8, nfib=2)
+    out = weave.proc_weave(grp, cfg, options={'npoly': 5},
+                           templates=templates, banks=banks, device='cpu',
+                           fig_prefix=str(tmp_path / 'fig'))
+    assert len(out['vrad']) == 2
+    for i in range(2):
+        png = tmp_path / f'fig_star_{i}.png'
+        assert png.read_bytes()[:4] == b'\x89PNG'
 
 
 @pytest.mark.slow
