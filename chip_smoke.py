@@ -100,7 +100,7 @@ and the CUDA toolkit):
    with the card-built bank: RV recovery, every kernel launched, and 8
    fibers against the CPU float64 run (velocities and parameters
    within sigma/2); each stage's seconds.
-13. The fleet: 8 coadds of 500 fibers (seeds 100-107) through
+13. The fleet: 6 coadds of 500 fibers (seeds 100-105) through
    survey/desi.proc_many at coalesce 1, run 1 in this process over the
    static list, run 2 by two rank processes of this script on the one
    card (``chip_smoke.py --fleet-rank RANK HOST:PORT DIR``), which join
@@ -120,6 +120,24 @@ and the CUDA toolkit):
    templates) on the card, its chi-square at the optimum on the card
    against the CPU (rtol 1e-9).
 16. pipeline/prewarm's core on a 64-fiber synthetic coadd.
+17. The drivers' overlaps: 6 coadds of 500 fibers (seeds 100-105)
+   through survey/desi.proc_many at coalesce 2 with the switches
+   RVST_PIPELINE_PREP, RVST_DEFER_TAIL and RVST_ASYNC_WRITE at 0, then
+   at their defaults (every earlier driver phase runs at the defaults
+   too).  Checks every file written once, the status lines in input
+   order, RV recovery per file and every fiber of the overlapped run
+   within sigma/100 of the serial run; prints the steady s/file from
+   the status stamps, the cold group, the peak device memory, the
+   launches of each run and the card's busy share of each (the union of
+   its kernel and copy intervals over the wall, torch.profiler, on a
+   second run over the first 4 files).  Then survey/weave.proc_many
+   over two 500-fiber pairs without and with the next pair's prefetch:
+   tables equal.
+18. The mesh: _run_group_fit on the 500-fiber exposure with its fitter
+   sharded over ('cuda:0', 'cuda:0') (parallel/mesh, two shards and
+   host threads on the one card) against unsharded: every fiber within
+   sigma/100, every kernel launched; auto_shard does nothing on one
+   card.
 
 Every path's kernel launches are counted from 0 just before it runs.
 Prints, last, the card, a JSON line of the kernels (each in its
@@ -570,10 +588,12 @@ def check_adjoint(tm, arms, truth, device):
 
 def run_group_fit(tm, arms, banks):
     """The port's main path: survey/desi._run_group_fit on the exposure
-    (all arms share the template model and the bank)."""
+    (all arms share the template model and the bank), its tail on this
+    thread (defer=False), so that the call's wall and launches are the
+    whole fit's."""
     from rvspecfit_torch.survey import desi
     return desi._run_group_fit(arms, {a.name: tm for a in arms}, CONFIG,
-                               OPTIONS, banks=banks)
+                               OPTIONS, banks=banks, defer=False)
 
 
 def check_outputs(out, nfib, npix):
@@ -868,8 +888,13 @@ def per_setup(x):
 @contextlib.contextmanager
 def group_fits(records):
     """Append to ``records``, for each group fit the driver runs, its
-    fibers, phases, wall time, kernel launches, arms, result and peak
-    device memory."""
+    fibers, the seconds it held the driver's thread (with the deferred
+    tail, up to the tail's dispatch), the kernel launches and the peak
+    device memory in that time (other threads' work, the previous
+    group's tail and the next group's CCF, blurs both), its arms and its
+    result (read only after the driver is done, so that reading it
+    does not collect a deferred tail early; its phases are measured on
+    the threads that ran them)."""
     from rvspecfit_torch.survey import desi
     real = desi._run_group_fit
 
@@ -882,7 +907,7 @@ def group_fits(records):
         wall = time.perf_counter() - t0
         after = kernel_counts()
         records.append(dict(
-            nfibers=arms[0].nfibers, phases=out['phases'], wall=wall,
+            nfibers=arms[0].nfibers, wall=wall,
             launches=diff_counts(after, before), arms=arms, out=out,
             peak_gb=torch.cuda.max_memory_allocated() / 1e9))
         return out
@@ -963,7 +988,7 @@ def run_driver(workdir, files, truths, tm, bank_d, tag):
           f'group fits: {[r["nfibers"] for r in records]}')
     for g, r in enumerate(records):
         log(f'  group {g} ({r["nfibers"]} fibers): ' + ' '.join(
-            f'{k}={r["phases"][k]:.3f}s' for k in PHASES)
+            f'{k}={r["out"]["phases"][k]:.3f}s' for k in PHASES)
             + f' fit={r["wall"]:.3f}s; peak device memory '
             f'{r["peak_gb"]:.2f} GB; launches {r["launches"]}')
 
@@ -1563,8 +1588,9 @@ TRAIN_GRID = (24, 13, 10, 8)
 TRAIN = dict(width=256, nlayers=2, npc=64, batch_size=100, lr0=1e-3,
              min_lr=1e-8, plateau_patience=20, pca_init=False, seed=22)
 # the cut: a fixed number of epochs (the CLI trains up to 600), so that
-# the phase takes at most ~150 s
-TRAIN_EPOCHS = 100
+# the phase takes ~50 s and the whole script stays near 700 s (the loss
+# falls below 0.3 of the first epoch's by epoch 10)
+TRAIN_EPOCHS = 30
 # the loss criterion of tests/test_train_nn.py
 TRAIN_DROP = 0.3
 # card vs CPU: 2 epochs on a 2000-template subset from one init_state
@@ -2049,7 +2075,8 @@ def run_library_builder(workdir, device):
 # ------------------------------------------------------------------
 # the fleet: the DESI driver as processes claiming files from one queue
 
-FLEET_FILES = 8
+# 6 files (8 until the overlap phase came): 3 a rank
+FLEET_FILES = 6
 FLEET_RANKS = 2
 FLEET_SEED0 = 100
 # a rank's run, its model build included, and the barrier's timeout (s)
@@ -2163,7 +2190,7 @@ def table_values(tab):
 
 def run_fleet(workdir, tm, bank_d):
     """The slice's path at full width: FLEET_FILES coadds of NFIBERS
-    fibers (seeds 100-107), run 1 in this process over the static list
+    fibers (seeds 100-105), run 1 in this process over the static list
     at coalesce 1, run 2 by FLEET_RANKS rank processes on the one card
     claiming the same files through --dynamic_queue (fleet_rank).
     Checks that each rank exited 0, that every file was fitted exactly
@@ -2300,7 +2327,8 @@ def run_microbatch(tm, bank_d):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = desi._run_group_fit(arms, templates, cfg, OPTIONS, banks=banks)
+        out = desi._run_group_fit(arms, templates, cfg, OPTIONS, banks=banks,
+                                  defer=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -2389,6 +2417,327 @@ def run_prewarm(tm, bank_d):
     return dict(seconds=seconds, counts=counts)
 
 
+# ------------------------------------------------------------------
+# phase 17: the drivers' overlaps; phase 18: the fitter on a mesh
+
+OVERLAP_FILES = 6
+OVERLAP_SEED0 = 100
+# the runs under the profiler (the busy share) take the first files only
+OVERLAP_PROFILED_FILES = 4
+OVERLAP_SWITCHES = ('RVST_PIPELINE_PREP', 'RVST_DEFER_TAIL',
+                    'RVST_ASYNC_WRITE')
+# (run, overlaps on): serial and overlapped, then again in reverse order
+OVERLAP_ORDER = (('serial', False), ('overlap', True), ('overlap2', True),
+                 ('serial2', False))
+OVERLAP_WEAVE_SEEDS = (42, 43)
+MESH = ('cuda:0', 'cuda:0')
+
+
+@contextlib.contextmanager
+def overlap_switches(on):
+    """The three overlap switches at their defaults (``on``) or at 0."""
+    saved = {k: os.environ.get(k) for k in OVERLAP_SWITCHES}
+    for k in OVERLAP_SWITCHES:
+        if on:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = '0'
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def union_ms(spans):
+    """Milliseconds covered by the union of (start_ns, end_ns) spans."""
+    total, cur_lo, cur_hi = 0, None, None
+    for lo, hi in sorted(spans):
+        if cur_hi is None or lo > cur_hi:
+            if cur_hi is not None:
+                total += cur_hi - cur_lo
+            cur_lo, cur_hi = lo, hi
+        else:
+            cur_hi = max(cur_hi, hi)
+    if cur_hi is not None:
+        total += cur_hi - cur_lo
+    return total / 1e6
+
+
+def device_busy(fn):
+    """fn() under torch.profiler's CUDA activity: fn's value and the
+    card's busy time as the union of the intervals of its kernels,
+    copies and sets over every stream (work of two streams at once
+    counts once, so the share cannot pass 100%), beside their sum, the
+    wall and the number of intervals."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == cuda and not e.is_user_annotation()]
+    busy = union_ms(spans)
+    return value, dict(busy_ms=busy, sum_ms=sum(hi - lo for lo, hi in spans)
+                       / 1e6, wall_ms=wall_ms, busy_share=busy / wall_ms,
+                       intervals=len(spans))
+
+
+@contextlib.contextmanager
+def gc_time(into):
+    """Add to ``into['gc_s']`` the seconds the interpreter spends in
+    garbage collections inside the block and to ``into['gc_full']``
+    the number of its full (generation 2) collections."""
+    import gc
+    into.update(gc_s=0.0, gc_full=0)
+    started = []
+
+    def callback(phase, info):
+        if phase == 'start':
+            started.append(time.perf_counter())
+        elif started:
+            into['gc_s'] += time.perf_counter() - started.pop()
+            into['gc_full'] += info['generation'] == 2
+    gc.callbacks.append(callback)
+    try:
+        yield into
+    finally:
+        gc.callbacks.remove(callback)
+
+
+def overlap_run(files, outdir, status, tm, bank_d, records=None):
+    """survey/desi.proc_many over ``files`` at COALESCE, crash isolation
+    off, launches counted from 0: its wall, launches, peak device
+    memory, status lines and stamps, the seconds spent in garbage
+    collections and the threads alive at its start.  ``records``: a
+    list to which group_fits appends each group fit's record."""
+    import threading
+    import torch
+    from rvspecfit_torch.survey import desi
+    torch.cuda.empty_cache()
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gcs = dict(threads=threading.active_count())
+    t_start = time.time()
+    t0 = time.perf_counter()
+    with gc_time(gcs), (contextlib.nullcontext() if records is None
+                        else group_fits(records)):
+        desi.proc_many(files, outdir, config=CONFIG, options=OPTIONS,
+                       status_fname=status, coalesce=COALESCE,
+                       templates=per_setup(tm), banks=per_setup(bank_d),
+                       throw_exceptions=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = read_status(status)
+    check([ln[0] for ln in lines] == files
+          and all(ln[1:3] == ['SUCCESS', str(NFIBERS)] and len(ln) == 5
+                  for ln in lines), f'overlap status lines: {lines}')
+    stamps = [float(ln[4]) for ln in lines]
+    check(stamps == sorted(stamps), f'status stamps go back: {stamps}')
+    written = sorted(os.listdir(outdir))
+    check(written == sorted(os.path.basename(p) for f in files
+                            for p in desi.output_paths(f, outdir)),
+          f'outputs written: {written}')
+    cold = stamps[COALESCE - 1] - t_start
+    steady = (stamps[-1] - stamps[COALESCE - 1]) / (len(files) - COALESCE)
+    return dict(wall=wall, counts=kernel_counts(), cold=cold, steady=steady,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                per_file=[float(ln[3]) for ln in lines], **gcs)
+
+
+def run_overlaps(workdir, tm, bank_d, models, bks):
+    """Phase 17: OVERLAP_FILES coadds of NFIBERS fibers (seeds 100-105)
+    through survey/desi.proc_many at COALESCE, four times in the order
+    serial, overlapped, overlapped, serial (serial: the three overlap
+    switches at 0; overlapped: at their defaults; the lookahead reader
+    is on in all), so that a drift of the host over the phase shows
+    apart from the switches.  Checks every file written once, the status
+    lines in input order with stamps that do not go back, RV recovery
+    per file and every fiber of each overlapped run within SAME_SIGMA of
+    the first serial run; prints per run the steady s/file from the
+    status stamps, the cold group, the peak device memory, the launches,
+    the seconds spent in garbage collections and the threads alive at
+    its start; the launches of each group fit of the first serial run
+    (no tail or CCF of another group overlaps it there); then, after
+    the four, the busy share of each kind (the union of the card's
+    intervals over the wall) from one more run of each over the first
+    OVERLAP_PROFILED_FILES files under the profiler.  Then
+    survey/weave.proc_many over two WEAVE_NFIB-fiber pairs without and
+    with the prefetch: equal tables."""
+    from rvspecfit_torch.io import fitsio
+    from rvspecfit_torch.survey import weave
+    odir = os.path.join(workdir, 'overlap')
+    os.makedirs(odir)
+    files, truths = driver_inputs(odir, nfiles=OVERLAP_FILES,
+                                  seed0=OVERLAP_SEED0)
+    runs, groups = {}, []
+    for key, on in OVERLAP_ORDER:
+        with overlap_switches(on):
+            r = overlap_run(files, os.path.join(odir, f'out-{key}'),
+                            os.path.join(odir, f'status-{key}.txt'), tm,
+                            bank_d, records=groups if key == 'serial'
+                            else None)
+            check_launches(f'overlap phase ({key})', r['counts'])
+        runs[key] = r
+        log(f'overlap phase, {key} (switches '
+            f'{"at their defaults" if on else "at 0"}): {len(files)} files '
+            f'in {r["wall"]:.3f} s; steady {r["steady"]:.3f} s/file from the '
+            f'status stamps, cold group {r["cold"]:.3f} s; per-file seconds '
+            f'{r["per_file"]}; peak device memory {r["peak_gb"]:.2f} GB; '
+            f'launches {r["counts"]["float64"]}; garbage collection '
+            f'{r["gc_s"]:.3f} s ({r["gc_full"]} full); {r["threads"]} '
+            f'threads alive at the start')
+    # the profiled runs come last: a run after a profiler session was
+    # seen to be slower than one before it
+    for key, on in OVERLAP_ORDER[:2]:
+        with overlap_switches(on):
+            _, busy = device_busy(lambda: overlap_run(
+                files[:OVERLAP_PROFILED_FILES],
+                os.path.join(odir, f'prof-{key}'),
+                os.path.join(odir, f'prof-status-{key}.txt'), tm, bank_d))
+        runs[key]['busy'] = busy
+        log(f'overlap phase, {key}, under the profiler over '
+            f'{OVERLAP_PROFILED_FILES} files: card busy '
+            f'{busy["busy_ms"]:.1f} ms (union) of {busy["wall_ms"]:.1f} ms '
+            f'= {busy["busy_share"]:.4f}, intervals summed '
+            f'{busy["sum_ms"]:.1f} ms, {busy["intervals"]} intervals')
+    per_group = [g['launches'] for g in groups]
+    for g in groups:
+        g['arms'] = g['out'] = None
+    log(f'overlap phase, serial: launches per group fit {per_group}')
+    worst, recovered = 0.0, []
+    tabs = {k: fleet_tables(files, os.path.join(odir, f'out-{k}'))
+            for k in runs}
+    for i, (f, truth) in enumerate(zip(files, truths)):
+        ts = tabs['serial'][i]
+        for k in runs:
+            to = tabs[k][i]
+            check(np.array_equal(ts['TARGETID'], to['TARGETID']),
+                  f'{f}: run {k} fitted other targets')
+            d = sigma_spread(table_values(to)[0], *table_values(ts))
+            check((d <= SAME_SIGMA).all(), f'{f}: run {k} differs from the '
+                  f'first serial one by up to {np.nanmax(d):.3g} sigma')
+            worst = max(worst, float(d.max()))
+        to = tabs['overlap'][i]
+        ok = np.abs(to['VRAD'] - truth['vel']) < np.maximum(
+            10.0, 5 * to['VRAD_ERR'])
+        recovered.append(int(ok.sum()))
+        check(ok.sum() >= 0.98 * NFIBERS,
+              f'{f} (overlapped): RV recovery {ok.sum()}/{NFIBERS}')
+    s, o = runs['serial'], runs['overlap']
+    order = ', '.join(f'{k} {runs[k]["steady"]:.3f}' for k, _ in
+                      OVERLAP_ORDER)
+    log(f'overlap phase: every file written once, status lines in input '
+        f'order; RV recovery per file (overlapped, of {NFIBERS}) '
+        f'{recovered}; every run against the first serial one, largest '
+        f'difference over all fibers {worst:.3g} sigma (limit '
+        f'{SAME_SIGMA}); steady s/file in run order: {order}; busy share '
+        f'{s["busy"]["busy_share"]:.4f} -> {o["busy"]["busy_share"]:.4f}, '
+        f'peak {s["peak_gb"]:.2f} -> {o["peak_gb"]:.2f} GB')
+
+    groups = [write_weave_pair(odir, WEAVE_NFIB, seed)[0]
+              for seed in OVERLAP_WEAVE_SEEDS]
+    wv = {}
+    for prefetch in (False, True):
+        outdir = os.path.join(odir, f'weave-{prefetch}')
+        reset_counts()
+        t0 = time.perf_counter()
+        weave.proc_many(groups, outdir, CONFIG, options=WEAVE_OPTIONS,
+                        throw_exceptions=True, prefetch=prefetch,
+                        templates={f'weave_{s}': models['cuda']
+                                   for s in WEAVE_LAYOUT},
+                        banks={f'weave_{s}': bks['cuda']
+                               for s in WEAVE_LAYOUT})
+        wv[prefetch] = dict(wall=time.perf_counter() - t0,
+                            counts=kernel_counts(), tabs=[
+                                fitsio.read(weave.output_path(g, outdir))[
+                                    'WEAVE_RV'].data for g in groups])
+        check_launches(f'WEAVE prefetch={prefetch}', wv[prefetch]['counts'])
+    for got, want in zip(wv[True]['tabs'], wv[False]['tabs']):
+        check(list(got) == list(want) and all(
+            np.array_equal(got[k], want[k]) for k in want),
+            'WEAVE with the prefetch differs from WEAVE without it')
+    log(f'overlap phase, WEAVE: {len(groups)} pairs of {WEAVE_NFIB} fibers '
+        f'without / with the prefetch {wv[False]["wall"]:.3f} / '
+        f'{wv[True]["wall"]:.3f} s, tables equal')
+    return dict(max_sigma=worst, recovered=recovered,
+                weave_s={str(k): v['wall'] for k, v in wv.items()},
+                counts=o['counts'], counts_serial=s['counts'],
+                per_group=per_group,
+                **{k: {key: v[key] for key in (
+                    'wall', 'steady', 'cold', 'peak_gb', 'busy', 'gc_s',
+                    'gc_full', 'threads') if key in v}
+                   for k, v in runs.items()})
+
+
+def run_mesh(tm, arms, truth, banks):
+    """Phase 18: survey/desi._run_group_fit on the NFIBERS-fiber
+    exposure unsharded, then with its fitter sharded over MESH (the one
+    card named twice: two shards, two host threads) through
+    parallel/mesh.auto_shard, each with the tail deferred as the
+    drivers defer it by default (the tail runs on a worker thread over
+    a snapshot of the fitter, after _run_group_fit has dropped the
+    fitter) and collected at once.
+    Checks that auto_shard does nothing on the one card, every kernel
+    launched in the sharded run, and every fiber within SAME_SIGMA of
+    the unsharded fit; prints both walls and phases."""
+    import torch
+    from rvspecfit_torch.fit.batch import BatchedFitter
+    from rvspecfit_torch.parallel import mesh as pmesh
+    from rvspecfit_torch.survey import desi
+    one = BatchedFitter(arms, {a.name: tm for a in arms}, CONFIG, OPTIONS)
+    check(torch.cuda.device_count() > 1 or pmesh.auto_shard(one) is None,
+          'auto_shard sharded the fitter on a one-card host')
+    del one
+    real = pmesh.auto_shard
+    sharded = lambda bf: real(bf, devices=list(MESH))  # noqa: E731
+    runs = {}
+    for key in ('unsharded', 'sharded'):
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (mock.patch.object(desi.pmesh, 'auto_shard', sharded)
+              if key == 'sharded' else contextlib.nullcontext()):
+            out = desi._run_group_fit(arms, {a.name: tm for a in arms},
+                                      CONFIG, OPTIONS, banks=banks,
+                                      defer=True).materialize()
+        torch.cuda.synchronize()
+        runs[key] = dict(out=out, wall=time.perf_counter() - t0,
+                         counts=kernel_counts())
+        check_launches(f'mesh phase ({key})', runs[key]['counts'])
+        check_outputs(out, NFIBERS, NPIX_ARM)
+        log(f'mesh phase, {key}: {runs[key]["wall"]:.3f} s (' + ' '.join(
+            f'{k}={out["phases"][k]:.3f}s' for k in PHASES)
+            + f'); launches {runs[key]["counts"]["float64"]}')
+
+    def values(out):
+        return np.column_stack([out['ref']['best_vel'], out['params']])
+    w, g = runs['unsharded']['out'], runs['sharded']['out']
+    d = sigma_spread(values(g), values(w),
+                     np.column_stack([w['ref']['vel_err'], w['errs']]))
+    check((d <= SAME_SIGMA).all(), f'mesh: the sharded fit differs from the '
+          f'unsharded one by up to {np.nanmax(d):.3g} sigma')
+    ok = np.abs(g['ref']['best_vel'] - truth['vel']) < np.maximum(
+        10.0, 5 * g['ref']['vel_err'])
+    check(ok.sum() >= 0.98 * NFIBERS, f'mesh: RV recovery {ok.sum()}')
+    log(f'mesh phase: sharded over {MESH} against unsharded, largest '
+        f'difference {float(d.max()):.3g} sigma (limit {SAME_SIGMA}); RV '
+        f'recovery {int(ok.sum())}/{NFIBERS}')
+    return dict(max_sigma=float(d.max()), counts=runs['sharded']['counts'],
+                **{k: dict(wall=v['wall'], phases=v['out']['phases'])
+                   for k, v in runs.items()})
+
+
 def launches_of(counts, name):
     """A kernels-line entry's launches in one form's counts (kernel A's:
     both modes)."""
@@ -2402,7 +2751,9 @@ def kernel_entries(form, a, a_grp, b, b_grp, b1, adj, adj_grp, counts,
     """The kernels line's entries of one form: kernel A (shared mode's
     numbers as its main ones, the per-row mode's beside them), kernel B
     (continuum) and the adjoint, each with its launches in the driver's
-    run of that form and per path."""
+    run of that form (overlaps on: totals per run only) and per path;
+    ``per_group``: the launches of each group fit of phase 17's serial
+    run (None: none in this form)."""
     group_n = COALESCE * NFIBERS
     suffix = '' if form == 'float64' else '_f32'
     calls = single.get('calls', [])
@@ -2411,11 +2762,12 @@ def kernel_entries(form, a, a_grp, b, b_grp, b1, adj, adj_grp, counts,
         return [c[key][form][name] for c in calls]
 
     def launches(name):
-        return dict(launches_per_driver_group=[g[form][name]
-                                               for g in per_group],
-                    launches_single_object_phase=single['counts'][form][
+        return dict(launches_single_object_phase=single['counts'][form][
                         name],
-                    launches_weave_file=weave_counts[form][name])
+                    launches_weave_file=weave_counts[form][name],
+                    **({} if per_group is None else dict(
+                        launches_per_serial_driver_group=[
+                            g[form][name] for g in per_group])))
     shared, row = a['shared'], a['per-row']
     g_shared, g_row = a_grp['shared'], a_grp['per-row']
     cont = b['continuum']
@@ -2579,8 +2931,6 @@ def main():
         res_a_grp = check_kernel_a(tm, grp['arms'], drv['truth'], device)
         res_adj_grp = check_adjoint(tm, grp['arms'], drv['truth'], device)
         res_b_grp = check_kernel_b(grp['arms'], both_b, device)
-        per_group = {form: [r['launches'] for r in d['records']]
-                     for form, d in (('float64', drv), ('float32', drv32))}
         drv['records'] = drv32['records'] = grp = None
         cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
                                                snr=50.0, seed=7)
@@ -2629,6 +2979,13 @@ def main():
     log(f'phase microbatch: {time.perf_counter() - t_phase:.1f} s')
     fast = run_fast_interp(tm, tm_cpu)
     warm = run_prewarm(tm, bank_d)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        overlap = run_overlaps(workdir, tm, bank_d, models, bks)
+    log(f'phase overlaps: {time.perf_counter() - t_phase:.1f} s')
+    t_phase = time.perf_counter()
+    mesh = run_mesh(tm, arms, truth, banks)
+    log(f'phase mesh: {time.perf_counter() - t_phase:.1f} s')
     log('card float64 vs CPU float64 (ROADMAP C.1, C.2): ' + json.dumps(dict(
         group_fit_8=stats8, coadd8=c8, coadd64res=c64,
         single_object=single['stats'], weave8=wv['stats'])))
@@ -2655,6 +3012,10 @@ def main():
                if k not in ('counts', 'counts_ranks')},
         microbatch=mbatch, fast_interp=fast,
         prewarm_seconds=warm['seconds'])))
+    log('overlaps and mesh: ' + json.dumps(dict(
+        overlaps={k: v for k, v in overlap.items()
+                  if k not in ('counts', 'counts_serial', 'per_group')},
+        mesh={k: v for k, v in mesh.items() if k != 'counts'})))
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -2666,7 +3027,8 @@ def main():
         kernels += kernel_entries(
             form, res_a[form], res_a_grp[form], res_b[form],
             res_b_grp[form], res_b1[form], res_adj[form],
-            res_adj_grp[form], drv_form['counts'][form], per_group[form],
+            res_adj_grp[form], drv_form['counts'][form],
+            overlap['per_group'] if form == 'float64' else None,
             single_form, {f: wv[f]['counts'][f] for f in FORMS})
     for k in kernels:
         base, form = k['name'].removesuffix('_f32'), k['form']
@@ -2690,6 +3052,11 @@ def main():
             k['launches_fleet_ranks'] = [launches_of(c[form], base)
                                          for c in fleet['counts_ranks']]
             k['launches_prewarm'] = launches_of(warm['counts'][form], base)
+            k['launches_overlap_serial'] = launches_of(
+                overlap['counts_serial'][form], base)
+            k['launches_overlap'] = launches_of(overlap['counts'][form],
+                                                base)
+            k['launches_mesh'] = launches_of(mesh['counts'][form], base)
             if base == 'ccf_chisq':
                 shape = 'T{}_F{}'.format(*libb['bank_shape'])
                 k.update({f'{key}_{shape}': libb['kernel_b'][key] for key in (

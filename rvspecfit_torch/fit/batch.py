@@ -22,13 +22,26 @@ stage is elementwise over fibers, so a tiled fit is the whole one.
 
 The polish reads ``RVST_POLISH_STEPS`` (its Newton steps, default 2)
 and ``RVST_POLISH_FREEZE_H=1`` (the Hessian of the first step reused
-by the later ones), as the reference does.
+by the later ones), Nelder-Mead ``RVST_NM_XATOL_FRAC`` (its tolerance
+as a fraction of the mapper's scales, default 0.08) and
+``RVST_NM_SIMPLEX_SCALE`` (the first simplex's size in those scales,
+default 1), as the reference does.
 
-Not ported yet: the deferred tail (run_tail_async), the compile
-warm-up (warm) and the mesh.
+:meth:`BatchedFitter.run_tail_async` runs the post-NM chain on a
+worker thread and a CUDA stream of its own (device.Background), on a
+snapshot of the fitter's arms, and returns ``collect``.  A fitter laid
+over several devices by parallel/mesh.shard_fitter runs each stage
+shard by shard, one host thread per shard, and concatenates the
+results in fiber order.
+
+Not ported: the reference's ``warm`` (it overlaps remote XLA compiles)
+and ``update_arms`` (it reuses a fitter's compiled programs for the
+next file; a fitter here serves one group, which is also what keeps a
+deferred tail's arms its own).
 """
 from __future__ import annotations
 
+import copy
 import logging
 import math
 import os
@@ -37,6 +50,7 @@ import time
 import numpy as np
 import torch
 
+from rvspecfit_torch.device import Background, map_tensors
 from rvspecfit_torch.fit import neldermead as nm
 from rvspecfit_torch.fit.find_best import scan_stats
 from rvspecfit_torch.fit.likelihood import (chisq_trials_core,
@@ -131,6 +145,9 @@ class BatchedFitter:
                 rbf=self.rbf, band=band, device=self.device,
                 dtype=self.dtype))
         self.badchi = float(10 * sum(len(a.lam) for a in arms))
+        # parallel/mesh.shard_fitter's per-shard fitters and their
+        # threads (None: the fitter runs on its one device)
+        self.shards = self.shard_pools = None
         self.half_widths = {}
         if self.use_vsini:
             for s, tm in self.templates.items():
@@ -177,6 +194,9 @@ class BatchedFitter:
     def chisq(self, vels, params, vsinis=None):
         """(B, K) velocities x (B, K, ndim) params -> (B, K) -2logL
         tensor."""
+        if self.shards:
+            return self._on_shards('chisq', dict(vels=vels, params=params,
+                                                 vsinis=vsinis))
         vels = self._tensor(vels)
         vs = torch.zeros_like(vels) if vsinis is None \
             else self._tensor(vsinis)
@@ -198,6 +218,10 @@ class BatchedFitter:
         (B, ndim); ``fast_interp`` evaluates the templates at their
         nearest pixel (likelihood.doppler_eval).  Returns host (B,)
         best_vel, vel_err, best_chi, skewness, kurtosis."""
+        if self.shards:
+            return self._on_shards('scan_velocities', dict(
+                params0=params0, vsini0=vsini0), vel_grid=vel_grid,
+                fast_interp=fast_interp)
         vels = self._tensor(np.tile(np.asarray(vel_grid, np.float64),
                                     (self.nfibers, 1)))
         chi = self._run_mb(
@@ -207,6 +231,22 @@ class BatchedFitter:
                         chi)[0].double().cpu().numpy()
         return dict(best_vel=st[:, 0], vel_err=st[:, 1], best_chi=st[:, 2],
                     skewness=st[:, 3], kurtosis=st[:, 4])
+
+    def scan_chisq(self, vel_grids, params0, vsini0=None, vchunk=128):
+        """(B, V) per-fiber velocity grids x (B, ndim) params -> host
+        (B, V) -2logL, the template stage once per fiber and the
+        velocities in chunks of ``vchunk`` (bounding the device
+        intermediates)."""
+        if self.shards:
+            return self._on_shards('scan_chisq', dict(
+                vel_grids=vel_grids, params0=params0, vsini0=vsini0),
+                vchunk=vchunk)
+        vel_grids = np.asarray(vel_grids, np.float64)
+        params, vs = self._tensor(params0), self._vsinis(vsini0)
+        return np.concatenate([self._run_mb(
+            self._scan, self._tensor(vel_grids[:, i:i + vchunk]), params,
+            vs).double().cpu().numpy()
+            for i in range(0, vel_grids.shape[1], vchunk)], axis=1)
 
     # -------------------------------------------------------------
     def _objective(self, mapper, priors, idx):
@@ -260,13 +300,21 @@ class BatchedFitter:
         (neldermead.in_working_dtype).
 
         Starts: ``x0`` (B, nvec), or the mapper's start vector with
-        per-fiber velocities ``best_vel0``.  xatol defaults to 8% of
-        the mapper's per-dimension scales (the refinement owns the
-        velocity endgame).  Returns host x (B, nvec), fun (B,),
+        per-fiber velocities ``best_vel0``.  xatol defaults to
+        ``RVST_NM_XATOL_FRAC`` (8%) of the mapper's per-dimension
+        scales (the refinement owns the velocity endgame); the first
+        simplex spans ``RVST_NM_SIMPLEX_SCALE`` (1) times those scales,
+        a restart's the scales.  Returns host x (B, nvec), fun (B,),
         converged (B,), obj_evals (the fiber-trials dispatched: nvec +
         1 per simplex set up and 2 per fiber and iteration of its tile;
         the rare shrink steps' evaluations are not counted).
         """
+        if self.shards:
+            return self._on_shards(
+                'run_neldermead', dict(best_vel0=best_vel0, x0=x0),
+                mapper=mapper, priors=priors, maxrestart=maxrestart,
+                fatol=fatol, xatol=xatol, maxiter=maxiter,
+                nm_chunk=nm_chunk)
         if x0 is None:
             x0 = np.tile(mapper.start_vector(0.0), (self.nfibers, 1))
             x0[:, 0] = np.asarray(best_vel0)
@@ -276,8 +324,13 @@ class BatchedFitter:
         f64 = lambda a: torch.as_tensor(np.array(a, np.float64),
                                         dtype=torch.float64,
                                         device=self.device)
-        xatol = f64(scales * 0.08 if xatol is None else xatol)
-        simplex = f64(nm.build_simplex(x0, scales, SIMPLEX_SEED))
+        if xatol is None:
+            xatol = scales * float(os.environ.get('RVST_NM_XATOL_FRAC',
+                                                  '0.08'))
+        xatol = f64(xatol)
+        sim_scale = float(os.environ.get('RVST_NM_SIMPLEX_SCALE', '1.0'))
+        simplex = f64(nm.build_simplex(x0, scales * sim_scale,
+                                       SIMPLEX_SEED))
         fvals = torch.zeros((b, nvec + 1), dtype=torch.float64,
                             device=self.device)
         done = torch.zeros(b, dtype=torch.bool, device=self.device)
@@ -358,6 +411,10 @@ class BatchedFitter:
         if steps is None:
             steps = int(os.environ.get('RVST_POLISH_STEPS', 2))
         freeze_h = os.environ.get('RVST_POLISH_FREEZE_H') == '1'
+        if self.shards:
+            return self._on_shards('run_polish', dict(x=x, fun0=fun0),
+                                   mapper=mapper, priors=priors,
+                                   steps=steps)
         x = np.asarray(x, np.float64)
         b = x.shape[0]
         fc = self._tensor(np.full(b, np.inf) if fun0 is None else fun0)
@@ -422,6 +479,10 @@ class BatchedFitter:
         ``maxiter`` passes ran.  Returns host (B,) best_vel, vel_err,
         best_chi, skewness, kurtosis, iterations (the passes of each
         fiber's tile)."""
+        if self.shards:
+            return self._on_shards('refine_velocities', dict(
+                best_vel=best_vel, params=params, vsinis=vsinis),
+                maxiter=maxiter)
         out = self._run_mb(
             lambda arms, v, p, w: self._refine_tile(arms, v, p, w,
                                                     maxiter),
@@ -488,6 +549,9 @@ class BatchedFitter:
         cont_models (continuum-only fit), and masked true chisq,
         cont_chisq, npix, red_chisq — computed from the arms this
         fitter was built with."""
+        if self.shards:
+            return self._on_shards('best_models', dict(
+                best_vel=best_vel, params=params, vsinis=vsinis))
         mods = self._run_mb(
             lambda arms, v, p, w: models_core(
                 arms, self.templates, v, p, w, use_vsini=self.use_vsini,
@@ -503,6 +567,10 @@ class BatchedFitter:
         """(B, ndim, ndim) exact AD Hessians of 0.5 (-2logL + priors)
         with respect to the parameters at velocities ``best_vel``
         (likelihood.hessian_core)."""
+        if self.shards:
+            return self._on_shards('hessians', dict(
+                best_vel=best_vel, params=params, vsinis=vsinis),
+                priors=priors, parnames=parnames)
         rows_p = prior_rows(parnames, priors)
         return self._run_mb(
             lambda arms, v, p, w: hessian_core(
@@ -568,6 +636,61 @@ class BatchedFitter:
                     phases=dict(zip(('polish', 'refine', 'hessian',
                                      'models'), np.diff(t))))
 
+    def run_tail_async(self, mapper, x, fun=None, parnames=None,
+                       priors=None, polish=True):
+        """:meth:`run_tail` on a worker thread, on a CUDA stream of its
+        own that starts after the calling thread's work so far
+        (device.Background); returns ``collect()``, which joins it and
+        returns run_tail's dict (its ``phases`` measured on the worker),
+        or raises its error, on every call.
+
+        The tail owns a snapshot of the fitter (:meth:`_snapshot`): the
+        host arms' arrays and the device tensors as they are at the
+        call, so that nothing done afterwards to this fitter, its
+        arrays or its tensors reaches the tail (the reference's tail
+        reads the arms at collect time, from a fitter that its driver
+        has already given the next file's arms)."""
+        snap = self._snapshot()
+        x = np.array(x, np.float64)
+        fun = None if fun is None else np.array(fun, np.float64)
+        job = Background(lambda: snap.run_tail(
+            mapper, x, fun=fun, parnames=parnames, priors=priors,
+            polish=polish), self.device, name='rvst-tail')
+        return job.result
+
+    def _snapshot(self):
+        """A copy of this fitter that shares no data with it: the host
+        BatchArms' arrays copied, the device tensors cloned (on the
+        calling thread's current stream, before any later write to
+        them), and its shards snapshotted too (on the same shard
+        threads, parallel/mesh.ShardPools, which live as long as any
+        fitter that holds them)."""
+        snap = copy.copy(self)
+        snap.batch_arms = [_copy_batch_arm(a) for a in self.batch_arms]
+        snap.arms = [map_tensors(a, torch.clone) for a in self.arms]
+        snap.templates = dict(self.templates)
+        snap.half_widths = dict(self.half_widths)
+        if self.shards:
+            snap.shards = [sh._snapshot() for sh in self.shards]
+        return snap
+
+    def _on_shards(self, name, per_fiber, **shared):
+        """Method ``name`` of every shard fitter (parallel/mesh) on its
+        own thread, each with its rows of the ``per_fiber`` arguments
+        (host arrays or tensors with a leading fiber axis, or None) and
+        the ``shared`` ones; the results concatenated in fiber order
+        (:func:`_concat_shards`).  A shard's work goes on the calling
+        thread's current stream of the shard's device."""
+        futures = []
+        for sh, pool in zip(self.shards, self.shard_pools):
+            kw = {k: _rows(v, sh.fiber_lo, sh.fiber_lo + sh.nfibers,
+                           sh.device) for k, v in per_fiber.items()}
+            stream = torch.cuda.current_stream(sh.device) \
+                if sh.device.type == 'cuda' else None
+            futures.append(pool.submit(_on_stream, stream,
+                                       getattr(sh, name), **kw, **shared))
+        return _concat_shards([f.result() for f in futures], self.device)
+
     @staticmethod
     def _models_finalize(flat, batch_arms):
         """Per-arm (model, raw, continuum model) host arrays -> result
@@ -597,6 +720,54 @@ def _gradient(f, x):
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
         return torch.autograd.grad(f(x).sum(), x)[0]
+
+
+def _copy_batch_arm(a):
+    """A BatchArm with copies of ``a``'s host arrays."""
+    return BatchArm(a.name, a.lam.copy(), a.flux.copy(), a.ivar.copy(),
+                    badmask=a.badmask.copy(),
+                    resolution=None if a.resolution is None
+                    else np.array(a.resolution), setup=a.setup)
+
+
+def _rows(x, lo, hi, device):
+    """Rows [lo, hi) of a per-fiber argument: None stays None, a tensor
+    moves to ``device``, anything else becomes a host array."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x[lo:hi].to(device)
+    return np.asarray(x)[lo:hi]
+
+
+def _on_stream(stream, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with ``stream`` (None: none) as the current
+    stream."""
+    if stream is None:
+        return fn(*args, **kwargs)
+    with torch.cuda.stream(stream):
+        return fn(*args, **kwargs)
+
+
+def _concat_shards(parts, device):
+    """The shards' results as one: tensors moved to ``device`` and
+    concatenated along the fiber axis, host arrays concatenated, counts
+    (ints) added, and dicts, lists and tuples of them element by
+    element."""
+    first = parts[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat([p.to(device) for p in parts], dim=0)
+    if isinstance(first, np.ndarray):
+        return np.concatenate(parts, axis=0)
+    if isinstance(first, dict):
+        return {k: _concat_shards([p[k] for p in parts], device)
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_concat_shards(list(z), device)
+                           for z in zip(*parts))
+    if isinstance(first, (int, np.integer)):
+        return sum(parts)
+    return first
 
 
 def _concat_tiles(parts):

@@ -17,11 +17,15 @@ kernel B keeps its layouts of them and of the bank while the bank
 lives.  A kernel failure raises: there is no fallback path.  The banks
 come from the caller or, through :func:`get_ccf_info`, from make_ccf's
 files.
+:func:`fit_batch_async` dispatches the batched CCF on the calling
+thread's stream and returns a ``collect`` closure (:func:`fit_batch`
+calls it at once).
 :func:`fit` is the single-object form: the same chi-squares and
 reduction at one fiber row (kernel B at B = 1).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import os
@@ -165,6 +169,12 @@ def prepare_arm_batch(setup, lam, fluxes, especs, badmask, config, bank):
     nvelgrid = 2 * int(maxvel / (config.get('vel_step0') or 2)) + 1
     vel_grid = np.linspace(-maxvel, maxvel, nvelgrid)
     ecos, esin = dft_mats(ccfconf, vel_grid, device, sse.dtype)
+    if device.type == 'cuda' and not torch.cuda.is_current_stream_capturing():
+        # the matrices are shared by every thread's stream: keep their
+        # memory from being reused while this stream may read them
+        stream = torch.cuda.current_stream(device)
+        ecos.record_stream(stream)
+        esin.record_stream(stream)
     return dict(setup=setup, info=info, tfft=tfft, t2fft=t2fft,
                 sfft_conj=sfft_conj, ivfft_conj=ivfft_conj, sse=sse,
                 proc=proc, vel_grid=vel_grid, ecos=ecos, esin=esin,
@@ -199,8 +209,54 @@ def _reduce_arms(prep):
             total_sse,)
 
 
+def fit_batch_async(arm_batches, config, banks=None, device=None):
+    """:func:`fit_batch` without waiting for the card: the host prep
+    and every kernel B launch are enqueued on the calling thread's
+    current stream, and ``collect()`` returns fit_batch's dict.
+
+    ``collect`` waits for an event recorded after the reduction and
+    fetches the results on the same stream, so a thread may dispatch
+    the CCF of the next group on a stream of its own while another
+    fits (survey/desi.proc_many's prep pipeline).  A failure of the
+    host prep or of a launch raises here; ``collect`` raises what the
+    fetch raises.  Nothing is swallowed: there is no fallback start.
+    """
+    if banks is None:
+        banks, _ = _load_banks([a[0] for a in arm_batches], config, device)
+    prep = [prepare_arm_batch(s, lam, fl, er, bm, config, banks[s])
+            for s, lam, fl, er, bm in arm_batches]
+    tid, bvel, bchi, _, sse = _reduce_arms(prep)
+    bchi = bchi + sse
+    info0, vel_grid = prep[0]['info'], prep[0]['vel_grid']
+    stream = event = None
+    if tid.device.type == 'cuda':
+        stream = torch.cuda.current_stream(tid.device)
+        event = torch.cuda.Event()
+        event.record(stream)
+
+    def collect():
+        if event is not None:
+            event.synchronize()
+        with contextlib.nullcontext() if stream is None \
+                else torch.cuda.stream(stream):
+            best_id = tid.cpu().numpy()
+            best_vel = bvel.double().cpu().numpy()
+            best_chi = bchi.double().cpu().numpy()
+        vsinis = np.asarray(info0['vsinis'], np.float64)[best_id]
+        if info0.get('vsini_is_none') is not None:
+            vsinis = np.where(np.asarray(info0['vsini_is_none'],
+                                         bool)[best_id], np.nan, vsinis)
+        return dict(parnames=[str(p) for p in info0['parnames']],
+                    best_params=np.asarray(info0['params'])[best_id],
+                    best_vel=best_vel, best_vsini=vsinis, best_id=best_id,
+                    best_chi=best_chi, vel_grid=vel_grid)
+
+    return collect
+
+
 def fit_batch(arm_batches, config, banks=None, device=None):
-    """Fiber-batched CCF of a stacked exposure.
+    """Fiber-batched CCF of a stacked exposure
+    (``fit_batch_async(...)()``).
 
     arm_batches : list of (setup, lam (npix,), fluxes (B, npix),
         especs (B, npix), badmask (B, npix) bool or None)
@@ -211,23 +267,8 @@ def fit_batch(arm_batches, config, banks=None, device=None):
     best_vsini (B,; NaN where the template had no rotation), best_id
     (B,), best_chi (B,), vel_grid — host arrays.
     """
-    if banks is None:
-        banks, _ = _load_banks([a[0] for a in arm_batches], config, device)
-    prep = [prepare_arm_batch(s, lam, fl, er, bm, config, banks[s])
-            for s, lam, fl, er, bm in arm_batches]
-    tid, bvel, bchi, _, sse = _reduce_arms(prep)
-    info0 = prep[0]['info']
-    best_id = tid.cpu().numpy()
-    vsinis = np.asarray(info0['vsinis'], np.float64)[best_id]
-    if info0.get('vsini_is_none') is not None:
-        vsinis = np.where(np.asarray(info0['vsini_is_none'],
-                                     bool)[best_id], np.nan, vsinis)
-    return dict(parnames=[str(p) for p in info0['parnames']],
-                best_params=np.asarray(info0['params'])[best_id],
-                best_vel=bvel.double().cpu().numpy(),
-                best_vsini=vsinis, best_id=best_id,
-                best_chi=(bchi + sse).double().cpu().numpy(),
-                vel_grid=prep[0]['vel_grid'])
+    return fit_batch_async(arm_batches, config, banks=banks,
+                           device=device)()
 
 
 def fit(specdata, config, banks=None, device=None):

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
 from typing import NamedTuple
 
@@ -36,7 +37,9 @@ import torch
 from rvspecfit_torch.ops import cuda_build
 
 # kernel launches by this process, in either form and in the float32
-# (3xTF32) form alone (chip_smoke.py resets and reads them)
+# (3xTF32) form alone (chip_smoke.py resets and reads them), added under
+# _count_lock (threads launch too)
+_count_lock = threading.Lock()
 launches = 0
 float32_launches = 0
 
@@ -239,7 +242,9 @@ def dft_operand(ecos, esin):
 
 # the float64 kernel's bank operands by id of the bank's tfft: (the
 # t2fft, ecos and esin they were built from, the four inputs' versions
-# and the mode, (tt2, e)); dropped when that tfft is freed
+# and the mode, (tt2, e), and on the card the stream they were built on
+# and an event recorded after the build); dropped when that tfft is
+# freed
 _bank_cache = {}
 
 
@@ -247,17 +252,39 @@ def bank_operands(tfft, t2fft, ecos, esin, continuum=True):
     """(:func:`template_operand`, :func:`dft_operand`) of a bank and its
     DFT matrices: built on the first call and kept while ``tfft``
     lives; built anew for other ``t2fft``, ``ecos`` or ``esin`` tensors,
-    for the other mode and after any of the four was written to."""
+    for the other mode and after any of the four was written to.
+
+    On the card the operands are built on the calling thread's current
+    stream; a later call on another stream (another thread's) waits for
+    the build's event and marks the operands as used by its stream, so
+    that the caching allocator does not hand their memory out while that
+    stream may still read them.  A CUDA graph captures no such wait: its
+    capture starts after the device is synchronized, so operands built
+    before are complete, and operands built during a capture are its
+    own nodes."""
     key = (tfft._version, t2fft._version, ecos._version, esin._version,
            bool(continuum))
     hit = _bank_cache.get(id(tfft))
     if hit is not None and hit[1] == key and all(
             a is b for a, b in zip(hit[0], (t2fft, ecos, esin))):
-        return hit[2]
+        ops, built_on, event = hit[2:]
+        if event is not None and not torch.cuda.is_current_stream_capturing():
+            stream = torch.cuda.current_stream(tfft.device)
+            if stream != built_on:
+                stream.wait_event(event)
+                for t in ops:
+                    t.record_stream(stream)
+        return ops
     if hit is None:
         weakref.finalize(tfft, _bank_cache.pop, id(tfft), None)
     ops = (template_operand(tfft, t2fft, continuum), dft_operand(ecos, esin))
-    _bank_cache[id(tfft)] = ((t2fft, ecos, esin), key, ops)
+    built_on = event = None
+    if tfft.device.type == 'cuda' and \
+            not torch.cuda.is_current_stream_capturing():
+        built_on = torch.cuda.current_stream(tfft.device)
+        event = torch.cuda.Event()
+        event.record(built_on)
+    _bank_cache[id(tfft)] = ((t2fft, ecos, esin), key, ops, built_on, event)
     return ops
 
 
@@ -369,7 +396,8 @@ def ccf_chisq(tfft, t2fft, sfft_conj, ivfft_conj, ecos, esin,
             err = launch_f64(build(torch.float64), cplx + real, continuum,
                              out)
     cuda_build.check_launch(err, 'ccf_chisq')
-    launches += 1
-    if cdt == torch.complex64:
-        float32_launches += 1
+    with _count_lock:
+        launches += 1
+        if cdt == torch.complex64:
+            float32_launches += 1
     return out

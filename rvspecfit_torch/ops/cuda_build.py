@@ -9,12 +9,14 @@ can import every module of the port.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -40,15 +42,30 @@ def nvcc_path():
     return os.path.join(home, 'bin', 'nvcc')
 
 
-@functools.lru_cache(maxsize=None)
+# one lock per source: threads that need one library at once build it
+# once, and different sources still build in parallel
+_locks = collections.defaultdict(threading.Lock)
+_locks_lock = threading.Lock()
+
+
 def load(name):
-    """ctypes handle of ``csrc/<name>.cu``, compiled on first use."""
+    """ctypes handle of ``csrc/<name>.cu``, compiled on first use (by
+    one thread; the others wait for it)."""
+    with _locks_lock:
+        lock = _locks[name]
+    with lock:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name):
     src = CSRC / f'{name}.cu'
     digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     lib = BUILD / f'lib{name}_{digest}.so'
     if not lib.exists():
         BUILD.mkdir(exist_ok=True)
-        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
+        tmp = lib.with_name(f'{lib.name}.{os.getpid()}.'
+                           f'{threading.get_ident()}.tmp')
         t0 = time.perf_counter()
         proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
                                str(src)], capture_output=True, text=True)

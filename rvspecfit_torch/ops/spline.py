@@ -4,7 +4,8 @@ Counterpart of rvspecfit_tpu/ops/spline.py.  The knot geometry
 (spacings, Thomas factors, banded-inverse taps) is precomputed once on
 the host in float64 with numpy; the coefficient solve runs on tensors
 of any leading batch shape.  Evaluation at Doppler-shifted fractional
-indices is kernel A and lives in ops/spline_eval.py.
+indices is kernel A and lives in ops/spline_eval.py; :func:`spline_eval`
+and :func:`spline_fit_eval` evaluate one spline at wavelengths.
 
 Two solves give the same natural spline:
 
@@ -267,3 +268,40 @@ def doppler_index_shift(geom: SplineGeometry, vels):
     if geom.log_step:
         return logdop / geom.step
     return torch.expm1(logdop)
+
+
+def spline_eval(geom: SplineGeometry, coeffs, x):
+    """One spline's values at query points ``x`` (reference:
+    rvspecfit_tpu/ops/spline.py:290).
+
+    coeffs : (4, n-1) planes-first (:func:`spline_coeffs` of one knot
+    vector); x : query points of any shape (a tensor, or host values
+    placed on the coefficients' device).  Returns (values, inrange):
+    outside [x0, x_last) the clamped end interval's cubic, and inrange
+    True where x0 <= x < x_last.  The knot bracketing x is computed from
+    the uniform grid, as the reference does.
+    """
+    x = torch.as_tensor(x, dtype=coeffs.dtype, device=coeffs.device)
+    if geom.log_step:
+        idx_f = (torch.log(x) - np.log(geom.x0)) / geom.step
+    else:
+        idx_f = (x - geom.x0) / geom.step
+    idx = torch.clamp(idx_f.to(torch.int32), 0, geom.n - 2).long()
+    inrange = (x >= geom.x0) & (x < geom.x_last)
+    if geom.log_step:
+        xl = geom.x0 * torch.exp(idx.to(x.dtype) * geom.step)
+        xr = xl * np.exp(geom.step)
+    else:
+        xl = geom.x0 + idx.to(x.dtype) * geom.step
+        xr = xl + geom.step
+    dxl, dxr = x - xl, xr - x
+    cf = coeffs[:, idx]                                   # (4, ...)
+    return (cf[0] * dxl * dxl * dxl + cf[1] * dxr * dxr * dxr
+            + cf[2] * dxl + cf[3] * dxr), inrange
+
+
+def spline_fit_eval(geom: SplineGeometry, ys, x):
+    """The natural spline through knot values ``ys`` (n,) at ``x``:
+    :func:`spline_eval` of :func:`spline_coeffs` (reference:
+    rvspecfit_tpu/ops/spline.py:419)."""
+    return spline_eval(geom, spline_coeffs(geom, ys), x)

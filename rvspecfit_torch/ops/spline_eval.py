@@ -34,6 +34,7 @@ import collections
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -42,7 +43,10 @@ from rvspecfit_torch.ops import cuda_build
 # kernel launches by this process: of the evaluation in per-row mode
 # (rows_per_coeff 1), in shared mode, both together, and of the adjoint,
 # in either form; and of the float32 forms alone, by mode (chip_smoke.py
-# resets and reads them)
+# resets and reads them).  Threads launch too (the deferred tail, the
+# mesh's shards, autograd's device thread): every count is added under
+# _count_lock.
+_count_lock = threading.Lock()
 row_launches = 0
 shared_launches = 0
 launches = 0
@@ -177,13 +181,15 @@ def _launch(geom, coeffs, u, rows_per_coeff):
                              coeffs.shape[-1], rows_per_coeff, log_step, x0,
                              step, em1, cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval')
-    launches += 1
-    if rows_per_coeff == 1:
-        row_launches += 1
-    else:
-        shared_launches += 1
-    if u.dtype == torch.float32:
-        float32_launches['per_row' if rows_per_coeff == 1 else 'shared'] += 1
+    with _count_lock:
+        launches += 1
+        if rows_per_coeff == 1:
+            row_launches += 1
+        else:
+            shared_launches += 1
+        if u.dtype == torch.float32:
+            float32_launches['per_row' if rows_per_coeff == 1
+                             else 'shared'] += 1
     return out
 
 
@@ -208,9 +214,10 @@ def spline_eval_index_vjp(geom, u, g, nm1):
             u.shape[1], nm1, log_step, x0, step, em1,
             cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval_adjoint')
-    adjoint_launches += 1
-    if u.dtype == torch.float32:
-        float32_launches['adjoint'] += 1
+    with _count_lock:
+        adjoint_launches += 1
+        if u.dtype == torch.float32:
+            float32_launches['adjoint'] += 1
     return out
 
 

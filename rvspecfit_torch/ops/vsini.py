@@ -80,3 +80,18 @@ def convolve_kernel_same(spec, kernel):
         out = out + kernel[:, j:j + 1] * padded[:, 2 * hw - j:
                                                 2 * hw - j + n]
     return out
+
+
+def broaden(spec, vsini, log_step, half_width, eps=0.6):
+    """Rotationally broadened log-uniform spectra (reference:
+    rvspecfit_tpu/ops/vsini.py:118): ``spec`` (n,) with a scalar
+    ``vsini``, or (T, n) with a scalar or (T,) vsinis; kernels of
+    ``half_width`` (:func:`kernel_half_width`), 'same'-mode
+    convolution with zero padding."""
+    spec = torch.as_tensor(spec)
+    vs = torch.as_tensor(vsini, dtype=spec.dtype,
+                         device=spec.device).reshape(-1)
+    out = convolve_kernel_same(spec.reshape(-1, spec.shape[-1]),
+                               rotation_kernel(vs, log_step, half_width,
+                                               eps=eps))
+    return out.reshape(spec.shape)

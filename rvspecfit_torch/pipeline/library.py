@@ -21,7 +21,9 @@ for several setups.  Loaded models are kept in one process-wide cache
 the setup, the dtype, the device and what else changes the model built
 (``config['auto_regularize']``, ``RVST_AUTO_REGULARIZE`` and
 ``RVST_AUTO_REGULARIZE_N``): every caller of one key shares one
-model, whose tensors nothing writes to.
+model, whose tensors nothing writes to.  :func:`model_on` gives a model
+on another device (a shard of parallel/mesh) through the same cache,
+keyed by the model and the device.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ import logging
 import os
 
 import numpy as np
+import torch
 
 from rvspecfit_torch import serializer
-from rvspecfit_torch.device import resolve_device
+from rvspecfit_torch.device import map_tensors, resolve_device
 from rvspecfit_torch.interp import nn as nn_mod
 from rvspecfit_torch.interp.api import TemplateModel
 from rvspecfit_torch.interp.grid import GridInterpState
@@ -315,3 +318,24 @@ def load_template_models(config, setups, device=None, dtype=None):
     through :func:`load_template_model`'s cache."""
     return {s: load_template_model(s, config, device=device, dtype=dtype)
             for s in setups}
+
+
+def model_on(tm, device):
+    """TemplateModel ``tm`` on ``device``: ``tm`` itself where it is
+    there already, else a copy with every tensor moved, made once per
+    model and device and kept in the cache (which holds ``tm`` too, so
+    its key stays its own)."""
+    device = torch.device(device)
+    if tm.geom.h.device == device:
+        return tm
+    key = ('model_on', id(tm), str(device))
+    if key not in _cache:
+        _cache[key] = (tm, map_tensors(tm, lambda t: t.to(device)))
+    return _cache[key][1]
+
+
+def get_spec_params(setup, config, device=None):
+    """Ordered parameter names of a setup's library (reference:
+    rvspecfit_tpu/pipeline/library.py:300), through
+    :func:`load_template_model` on ``device`` (None: the CUDA card)."""
+    return load_template_model(setup, config, device=device).parnames

@@ -118,6 +118,37 @@ def preprocess_data(lam, spec0, espec, ccfconf=None, badmask=None,
     return proc[0].double().cpu().numpy(), pivar[0].double().cpu().numpy()
 
 
+def preprocess_model(logl, lammodel, model0, vsini=None, ccfconf=None,
+                     device=None):
+    """One template for the CCF bank (reference:
+    rvspecfit_tpu/pipeline/make_ccf.py:104): rotation-broadened where
+    ``vsini`` is given and not 0, divided by its robust continuum where
+    ``ccfconf['continuum']`` (fitted on ``device``, None: the CUDA
+    card), and resampled linearly in log-lambda onto ``logl`` (1
+    outside the template's range).  :func:`preprocess_model_list` does
+    this for a whole grid."""
+    lammodel = np.asarray(lammodel, np.float64)
+    m = np.asarray(model0, np.float64)
+    if vsini is not None and vsini != 0:
+        lnstep = np.log(lammodel[1] / lammodel[0])
+        hw = vsini_mod.kernel_half_width(float(vsini), lnstep)
+        kern = vsini_mod.rotation_kernel(
+            torch.tensor([float(vsini)], dtype=torch.float64), lnstep,
+            hw)[0].numpy()
+        m = scipy.signal.convolve(m, kern, mode='same')
+    cont = 1.0
+    if ccfconf['continuum']:
+        cont = get_continuum(lammodel, m,
+                             np.maximum(m * 1e-5, 1e-2 * np.median(m)),
+                             ccfconf=ccfconf, device=device)
+        cont = np.maximum(cont, 1e-2 * np.median(cont))
+    loglam = np.log(lammodel)
+    if not (loglam[0] <= logl[0] <= loglam[-1]
+            and loglam[0] <= logl[-1] <= loglam[-1]):
+        logging.warning('CCF wavelength range exceeds template coverage')
+    return np.interp(logl, loglam, m / cont, left=1.0, right=1.0)
+
+
 def to_power_two(i):
     return 2**int(np.ceil(np.log2(i)))
 

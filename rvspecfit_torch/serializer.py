@@ -6,10 +6,12 @@ other writes.  Pickle-free: a ``pickle`` node raises on reading, and
 an object without a node type raises on writing.  ``h5py`` is imported
 inside :func:`load_dict_from_hdf5` and :func:`save_dict_to_hdf5` only,
 so the modules that use this one import on a machine without it
-(reading or writing a library needs it).
+(reading or writing a library needs it).  :func:`verify_data` checks
+that a loaded artifact equals what was saved.
 """
 from __future__ import annotations
 
+import logging
 import os
 
 import numpy as np
@@ -133,3 +135,50 @@ def load_dict_from_hdf5(filename):
         if version != CURRENT_VERSION:
             raise ValueError(f'Incompatible artifact version: {version}')
         return {k: _load_node(h5py, v) for k, v in h5.items()}
+
+
+def verify_data(original, loaded, path='/'):
+    """Whether ``loaded`` equals ``original`` in structure, type and
+    value (reference: rvspecfit_tpu/serializer.py:138): dicts by keys,
+    sequences by length, strings and None exactly, arrays by shape and
+    elements (NaNs equal), scalars by value (numpy scalars against
+    Python ones).  Logs the first path that differs."""
+
+    def fail(why):
+        logging.warning('verify_data mismatch at %s: %s', path, why)
+        return False
+
+    if isinstance(original, dict):
+        if not isinstance(loaded, dict):
+            return fail(f'type {type(loaded).__name__} != dict')
+        if set(original) != set(loaded):
+            return fail(f'keys {sorted(original)} != {sorted(loaded)}')
+        return all(verify_data(original[k], loaded[k], f'{path}/{k}')
+                   for k in original)
+    if original is None:
+        return loaded is None or fail('expected None')
+    if isinstance(original, str):
+        return (isinstance(loaded, str) and original == loaded) \
+            or fail('string mismatch')
+    if isinstance(original, (list, tuple)):
+        if not isinstance(loaded, (list, tuple)):
+            return fail(f'type {type(loaded).__name__} != sequence')
+        if len(original) != len(loaded):
+            return fail(f'length {len(loaded)} != {len(original)}')
+        return all(verify_data(o, v, f'{path}[{i}]')
+                   for i, (o, v) in enumerate(zip(original, loaded)))
+    if isinstance(original, np.ndarray) or hasattr(original, '__array__'):
+        o, v = np.asarray(original), np.asarray(loaded)
+        if o.shape != v.shape:
+            return fail(f'shape {v.shape} != {o.shape}')
+        ok = np.array_equal(o, v, equal_nan=o.dtype.kind in 'fc')
+        return bool(ok) or fail('array values differ')
+    try:
+        if isinstance(original, (bool, np.bool_)):
+            return bool(original) == bool(loaded) or fail('bool mismatch')
+        eq = original == loaded
+        if isinstance(original, float) and np.isnan(original):
+            eq = np.isnan(loaded)
+        return bool(eq) or fail(f'{loaded!r} != {original!r}')
+    except Exception as exc:
+        return fail(f'incomparable: {exc}')

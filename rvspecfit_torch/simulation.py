@@ -52,6 +52,19 @@ def fake_spectrum(lam, teff, logg, feh, alpha, wresol=0.0):
     return np.prod(prof, axis=1) * cont
 
 
+def observed_spectrum(v0, teff, logg, feh, alpha, npix=800, lam0=4600.0,
+                      lam1=5400.0, wresol=2.0, snr=100.0, seed=0):
+    """One noisy observed spectrum with the radial velocity ``v0``
+    injected (reference: rvspecfit_tpu/simulation.py:71): (lam, spec,
+    espec) host arrays."""
+    lam = np.linspace(lam0, lam1, npix)
+    spec0 = fake_spectrum(lam / (1 + v0 / 299792.458), teff, logg, feh,
+                          alpha, wresol=wresol)
+    espec = spec0 / snr
+    rng = np.random.RandomState(seed)
+    return lam, spec0 + rng.normal(size=npix) * espec, espec
+
+
 def make_template_grid(nt=6, nl=6, nf=6, na=4, npix=4096,
                        lam0=4550.0, lam1=5450.0, wresol=2.0):
     """Regular 4-d template grid on a log-uniform wavelength grid.

@@ -1,7 +1,7 @@
 """DESI batch-fitting driver (``rvstorch_desi_fit``).
 
-Counterpart of rvspecfit_tpu/survey/desi.py, run synchronously.  Per
-group of ``--coalesce`` consecutive files:
+Counterpart of rvspecfit_tpu/survey/desi.py.  Per group of
+``--coalesce`` consecutive files:
 
  1. read each coadd/spectra file (io/fitsio), check its extensions;
  2. per-fiber S/N (SCORES, or the median of the data); select fibers
@@ -19,6 +19,28 @@ group of ``--coalesce`` consecutive files:
     skipexisting, per-file crash isolation (a failed group fit is
     retried file by file), optional per-fiber plots (``--doplot``).
 
+:func:`proc_many` overlaps these stages as the reference does, each
+under the reference's switch (on unless set to ``0``):
+- a lookahead reader: while one file or group fits, a daemon thread
+  reads the next one's FITS files (static lists only: a queue's item is
+  never claimed early);
+- ``RVST_PIPELINE_PREP`` (coalesce > 1): the next group's host stage
+  and its CCF (fit/ccf.fit_batch_async, kernel B) run on a background
+  thread and a CUDA stream of their own while this group fits;
+- ``RVST_DEFER_TAIL``: :func:`_run_group_fit` returns after Nelder-Mead
+  a :class:`_LazyFit` over BatchedFitter.run_tail_async, whose tail
+  (polish, refinement, Hessians, models) runs on a worker thread and
+  stream while the next group fits;
+- ``RVST_ASYNC_WRITE``: one writer thread runs each file's or group's
+  finish (collect the tail, rows, RVTAB/RVMOD, plots), at most one
+  outstanding, in submission order; the status lines keep that order
+  and are stamped when a write completes.
+Every worker thread enters the card first (device.enter_device).  A
+tail that fails gives the group's per-file retry, as a failure of the
+group's CCF or Nelder-Mead does.  On a host with several cards the
+fitter is sharded over them (parallel/mesh.auto_shard;
+``RVST_NO_MESH=1`` opts out).
+
 Many processes fit one list of files (:func:`fleet`): static
 ``--rank/--world`` sharding, a lock-file queue on a shared filesystem
 (``--queue_file``) or a queue claimed through the world's key-value
@@ -26,9 +48,11 @@ store (``--dynamic_queue``, parallel/distributed).  A queue item is
 claimed only when the process is ready to fit it.
 
 Differences from the reference, by design:
-- the stages run one after another: no lookahead reads, no prep or
-  CCF of the next group during this group's fit, no deferred tail and
-  no writer thread;
+- a deferred tail owns a snapshot of its group's arms, and a tail that
+  fails is retried file by file (the reference's tail reads the next
+  group's arms, and skips the retry);
+- ``config['pipeline_warm']`` only builds the kernel libraries (the
+  reference's warm-up overlaps remote XLA compiles);
 - a template-loading failure raises, and so does a CCF failure: under
   crash isolation that file gets a FAILURE status line (the reference
   starts every fiber at default parameters);
@@ -44,6 +68,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import collections.abc
+import concurrent.futures
 import contextlib
 import functools
 import hashlib
@@ -52,6 +78,7 @@ import logging
 import os
 import re
 import sys
+import threading
 import time
 import traceback
 import warnings
@@ -59,13 +86,14 @@ import warnings
 import numpy as np
 
 from rvspecfit_torch import __version__, utils
-from rvspecfit_torch.device import resolve_device
+from rvspecfit_torch.device import Background, enter_device, resolve_device
 from rvspecfit_torch.fit import ccf as ccf_mod
 from rvspecfit_torch.fit import vel_fit
 from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
 from rvspecfit_torch.fit.spec_data import SpecData
 from rvspecfit_torch.io import fitsio
 from rvspecfit_torch.parallel import distributed
+from rvspecfit_torch.parallel import mesh as pmesh
 from rvspecfit_torch.pipeline import library
 
 TABLE_PREFIX = 'rvtab'
@@ -675,8 +703,9 @@ def _prepare_one(fname, config, setups=('b', 'r', 'z'), minsn=-1e9,
                  fit_targetid=None, expid_range=None,
                  use_resolution_matrix=False, zbest_path=None,
                  zbest_select=False, objtype_mask=None, objtypes=None,
-                 target_tables=None, fitarm=None):
-    """Host stage of one file: read, validate, select, stack arms.
+                 target_tables=None, fitarm=None, prehdus=None):
+    """Host stage of one file: read (or take ``prehdus``, the file as
+    the lookahead reader read it), validate, select, stack arms.
 
     Returns a dict with what the group fit and the writers need; when
     nothing is selected (``nsel == 0``) it holds only what
@@ -686,7 +715,7 @@ def _prepare_one(fname, config, setups=('b', 'r', 'z'), minsn=-1e9,
         setups = tuple(s for s in setups if s in fitarm)
         if not setups:
             raise RuntimeError('--fitarm excluded every arm')
-    fp = fitsio.read(fname)
+    fp = prehdus if prehdus is not None else fitsio.read(fname)
     if not valid_file(fp, setups):
         raise RuntimeError(f'{fname}: invalid file')
     fibermap = fp['FIBERMAP'].data
@@ -726,39 +755,106 @@ def _ccf_args(arms):
             for a in arms]
 
 
+class _LazyFit(collections.abc.Mapping):
+    """A group fit whose tail (BatchedFitter.run_tail_async) may still
+    be running: the first access to a key (from proc_many's writer
+    thread) collects the tail, once, under a lock, and merges it with
+    ``base``, the CCF and Nelder-Mead results.  An error of the tail is
+    kept and raised again at every access, so that every member file's
+    writer sees it (and the group's per-file retry runs)."""
+
+    def __init__(self, collect, base):
+        self._collect = collect
+        self._base = base
+        self._value = self._exc = None
+        self._lock = threading.Lock()
+
+    def materialize(self):
+        """The fit's dict, as :func:`_run_group_fit` returns it without
+        deferring the tail."""
+        with self._lock:
+            if self._exc is not None:
+                raise self._exc
+            if self._value is None:
+                try:
+                    self._value = _group_result(self._base,
+                                                self._collect())
+                except BaseException as exc:
+                    self._exc = exc
+                    raise
+            return self._value
+
+    def __getitem__(self, key):
+        return self.materialize()[key]
+
+    def __iter__(self):
+        return iter(self.materialize())
+
+    def __len__(self):
+        return len(self.materialize())
+
+
+def _group_result(base, tail):
+    """A group fit's dict from the CCF/NM part ``base`` and the tail's
+    (BatchedFitter.run_tail) results."""
+    phases = dict(base['phases'], **tail['phases'])
+    logging.debug('fit phases: %s', ' '.join(
+        f'{k}={v:.2f}s' for k, v in phases.items()))
+    return dict(base, ref=tail['ref'], params=tail['params'],
+                vsini=tail['vsini'], errs=tail['errs'],
+                bad_hess=tail['bad_hess'], mods=tail['mods'], x=tail['x'],
+                fun=tail['fun'], phases=phases)
+
+
 def _run_group_fit(arms, templates, config, options, banks=None,
-                   ccf_init=True):
+                   ccf_init=True, ccf_collect=None, defer=None):
     """Fit a stacked fiber batch: list of BatchArm, setup ->
     TemplateModel (all on one device), config (min_vel, max_vel,
     vel_step0, min_vel_step, max_vsini, min_vsini, second_minimizer,
-    optional fit_microbatch, and template_lib where ``banks`` is None),
-    fitter options.  ``config['fit_microbatch']`` fits the fibers in
-    tiles of at most that many (BatchedFitter's ``microbatch``), which
-    bounds device memory; unset, the group is fitted whole.
+    optional fit_microbatch and pipeline_warm, and template_lib where
+    ``banks`` is None), fitter options.  ``config['fit_microbatch']``
+    fits the fibers in tiles of at most that many (BatchedFitter's
+    ``microbatch``), which bounds device memory; unset, the group is
+    fitted whole.  On a host with several cards the fitter is sharded
+    over them (parallel/mesh.auto_shard).  ``config['pipeline_warm']``
+    builds the kernel libraries first (pipeline/prewarm.build_kernels).
 
-    The reference's synchronous branch (``RVST_DEFER_TAIL=0``): CCF
-    starts -> Nelder-Mead -> gradient polish -> velocity refinement ->
-    AD Hessian errors -> best-fit models.  A CCF failure raises (the
+    CCF starts -> Nelder-Mead -> gradient polish -> velocity refinement
+    -> AD Hessian errors -> best-fit models.  A CCF failure raises (the
     reference logs it and starts every fiber at the default
     parameters); a fiber whose CCF chi-square is not finite starts at
     DEFAULT_START, as in the reference.  Without ``ccf_init`` the first
     fiber's brute-force start (vel_fit.firstguess) seeds every fiber at
-    velocity 0, and no CCF columns are returned.
+    velocity 0, and no CCF columns are returned.  ``ccf_collect``: the
+    group's CCF already dispatched (fit/ccf.fit_batch_async's collect,
+    proc_many's prep pipeline), whose error raises here as a CCF
+    failure.
+
+    ``defer`` (None: ``RVST_DEFER_TAIL`` is not ``0``): return after
+    Nelder-Mead a :class:`_LazyFit` whose tail runs on a worker thread
+    (BatchedFitter.run_tail_async); else run the tail here.
 
     ``banks`` : optional {setup: (tfft, t2fft, info)} in-memory CCF
     banks; None loads them from the library onto the templates' device.
     Returns per-fiber host arrays: ref, params, vsini, errs, bad_hess,
     mods, converged, ccf_cols, vrad_ccf, parnames, and phases (seconds
-    per stage: ccf, nm, polish, refine, hessian, models).
+    per stage, each measured on the thread that ran it: ccf, nm,
+    polish, refine, hessian, models).
     """
+    if defer is None:
+        defer = os.environ.get('RVST_DEFER_TAIL', '1') != '0'
     nf = arms[0].nfibers
     parnames = templates[arms[0].setup].parnames
     device = next(iter(templates.values())).geom.h.device
+    if config.get('pipeline_warm') and device.type == 'cuda':
+        from rvspecfit_torch.pipeline import prewarm
+        prewarm.build_kernels()
     t = [time.perf_counter()]
 
     if ccf_init:
         start_params, start_vel, start_vsini, has_vs, ccf_cols = \
-            ccf_starts(arms, parnames, config, banks, device)
+            ccf_starts(arms, parnames, config, banks, device,
+                       collect=ccf_collect)
     else:
         start_params, start_vel, start_vsini, has_vs = \
             bruteforce_starts(arms, parnames, templates, config, options)
@@ -772,6 +868,9 @@ def _run_group_fit(arms, templates, config, options, banks=None,
     bf = BatchedFitter(arms, templates, config, options=options,
                        use_vsini=fit_vsini,
                        microbatch=config.get('fit_microbatch'))
+    mesh = pmesh.auto_shard(bf)
+    if mesh is not None:
+        logging.info('fitter sharded over %d devices', len(mesh))
     paramDict0 = dict(zip(parnames, start_params.mean(axis=0)))
     if fit_vsini:
         paramDict0['vsini'] = 0.01
@@ -788,25 +887,23 @@ def _run_group_fit(arms, templates, config, options, banks=None,
     nmres = bf.run_neldermead(mapper, start_vel, x0=x0)
     t.append(time.perf_counter())
 
-    tail = bf.run_tail(mapper, nmres['x'], fun=nmres['fun'],
-                       parnames=parnames,
-                       polish=bool(config.get('second_minimizer')))
-    phases = dict(zip(('ccf', 'nm'), np.diff(t)), **tail['phases'])
-    logging.debug('fit phases: %s', ' '.join(
-        f'{k}={v:.2f}s' for k, v in phases.items()))
-    return dict(ref=tail['ref'], params=tail['params'],
-                vsini=tail['vsini'], errs=tail['errs'],
-                bad_hess=tail['bad_hess'], mods=tail['mods'],
-                converged=nmres['converged'], ccf_cols=ccf_cols,
-                vrad_ccf=vrad_ccf, parnames=parnames, phases=phases,
-                nm=nmres, x=tail['x'], fun=tail['fun'])
+    base = dict(converged=nmres['converged'], ccf_cols=ccf_cols,
+                vrad_ccf=vrad_ccf, parnames=parnames, nm=nmres,
+                phases=dict(zip(('ccf', 'nm'), np.diff(t))))
+    tail_args = (mapper, nmres['x'])
+    tail_kw = dict(fun=nmres['fun'], parnames=parnames,
+                   polish=bool(config.get('second_minimizer')))
+    if defer:
+        return _LazyFit(bf.run_tail_async(*tail_args, **tail_kw), base)
+    return _group_result(base, bf.run_tail(*tail_args, **tail_kw))
 
 
-def ccf_starts(arms, parnames, config, banks, device):
-    """Per-fiber starts from the batched CCF: (params (B, ndim), vel
+def ccf_starts(arms, parnames, config, banks, device, collect=None):
+    """Per-fiber starts from the batched CCF (fit/ccf.fit_batch, or the
+    ``collect`` of one already dispatched): (params (B, ndim), vel
     (B,), vsini (B,), has_vsini (B,), CCF columns)."""
-    cres = ccf_mod.fit_batch(_ccf_args(arms), config, banks=banks,
-                             device=device)
+    cres = collect() if collect is not None else ccf_mod.fit_batch(
+        _ccf_args(arms), config, banks=banks, device=device)
     order = [cres['parnames'].index(p) for p in parnames]
     start_params = np.array(cres['best_params'], np.float64)[:, order]
     start_vel = np.array(cres['best_vel'], np.float64)
@@ -958,7 +1055,8 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
               zbest_path=None, zbest_select=False, objtype_mask=None,
               objtypes=None, target_tables=None, templates=None,
               banks=None, device=None, fitarm=None, cmdline=None,
-              ccf_init=True, fig_prefix=None):
+              ccf_init=True, fig_prefix=None, prehdus=None,
+              defer_finish=False):
     """Fit every selected fiber of one DESI file; write RVTAB/RVMOD
     (and, with ``fig_prefix``, a plot per fiber: :func:`_finish_one`).
 
@@ -966,8 +1064,11 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
     (tfft, t2fft, info)}) may come from memory; None loads them from
     ``config['template_lib']`` onto ``device`` (None: the CUDA card).
     ``ccf_init=False`` starts from the brute-force first guess
-    (:func:`_run_group_fit`).  Returns the number of fitted objects (0
-    when nothing is selected).
+    (:func:`_run_group_fit`).  ``prehdus``: the file as the lookahead
+    reader read it.  Returns the number of fitted objects (0 when
+    nothing is selected); with ``defer_finish``, (that number,
+    ``finish``) without writing: ``finish()`` writes the outputs (and
+    collects a deferred tail), on proc_many's writer thread.
     """
     t0 = time.time()
     prep = _prepare_one(fname, config, setups=setups, minsn=minsn,
@@ -976,20 +1077,27 @@ def proc_desi(fname, tab_ofname, mod_ofname, config, options,
                         use_resolution_matrix=use_resolution_matrix,
                         zbest_path=zbest_path, zbest_select=zbest_select,
                         objtype_mask=objtype_mask, objtypes=objtypes,
-                        target_tables=target_tables, fitarm=fitarm)
+                        target_tables=target_tables, fitarm=fitarm,
+                        prehdus=prehdus)
     if prep['nsel'] == 0:
-        _write_empty_prep(prep, tab_ofname, mod_ofname, config, cmdline,
-                          templates)
-        return 0
-    if templates is None:
-        templates = _load_templates(config, prep['setups'], device)
-    fit = _run_group_fit(prep['arms'], templates, config, options,
-                         banks=banks, ccf_init=ccf_init)
-    _finish_one(prep, fit, 0, tab_ofname, mod_ofname, config,
-                prep['arms'], cmdline=cmdline, templates=templates,
-                fig_prefix=fig_prefix)
-    logging.info('%s: fitted %d fibers in %.1f s', fname, prep['nsel'],
-                 time.time() - t0)
+        def finish():
+            _write_empty_prep(prep, tab_ofname, mod_ofname, config,
+                              cmdline, templates)
+    else:
+        if templates is None:
+            templates = _load_templates(config, prep['setups'], device)
+        fit = _run_group_fit(prep['arms'], templates, config, options,
+                             banks=banks, ccf_init=ccf_init)
+
+        def finish():
+            _finish_one(prep, fit, 0, tab_ofname, mod_ofname, config,
+                        prep['arms'], cmdline=cmdline, templates=templates,
+                        fig_prefix=fig_prefix)
+            logging.info('%s: fitted %d fibers in %.1f s', fname,
+                         prep['nsel'], time.time() - t0)
+    if defer_finish:
+        return prep['nsel'], finish
+    finish()
     return prep['nsel']
 
 
@@ -1055,11 +1163,11 @@ def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
 
     Per-file crash isolation: a file that fails to read or prepare
     gets a crash log and a None count without sinking its group; if a
-    group fit fails, each member is retried alone.  ``select_kw`` are
-    :func:`_prepare_one`'s selection arguments; ``fig_prefixes``
-    optional per-file plot prefixes (:func:`_finish_one`).  Returns
-    per-file fitted-object counts (None = failure), aligned with
-    ``fnames``.
+    group fit fails (its CCF, Nelder-Mead or tail), each member is
+    retried alone.  ``select_kw`` are :func:`_prepare_one`'s selection
+    arguments; ``fig_prefixes`` optional per-file plot prefixes
+    (:func:`_finish_one`).  Returns per-file fitted-object counts (None
+    = failure), aligned with ``fnames``.
     """
     gprep = prepare_desi_group(fnames, config, zbest_paths=zbest_paths,
                                throw_exceptions=throw_exceptions,
@@ -1072,18 +1180,31 @@ def proc_desi_group(fnames, tab_ofnames, mod_ofnames, config, options,
 
 
 def prepare_desi_group(fnames, config, zbest_paths=None,
-                       throw_exceptions=False, **select_kw):
-    """Host stage of a coalesced group: read, select and stack every
-    member file, and partition the live ones into arm-compatible
-    units.  A member that fails to prepare gets a crash log and stays
-    None in ``preps``.  Returns {fnames, preps, units: [{members,
-    arms}]}, consumed by :func:`fit_desi_group`."""
+                       throw_exceptions=False, prehdus_list=None,
+                       dispatch_ccf=False, ccf_init=True, banks=None,
+                       device=None, **select_kw):
+    """Host stage of a coalesced group: read (or take ``prehdus_list``,
+    the lookahead reader's reads), select and stack every member file,
+    and partition the live ones into arm-compatible units.  A member
+    that fails to prepare gets a crash log and stays None in ``preps``.
+
+    With ``dispatch_ccf`` (and ``ccf_init``) each unit's CCF is
+    dispatched here (fit/ccf.fit_batch_async on the calling thread's
+    stream, with ``banks`` or the library's on ``device``): proc_many
+    runs this for the next group on a background thread while a group
+    fits, so kernel B runs in the gaps the fit leaves on the card.  A
+    dispatch that fails becomes a collect that raises it, so the group
+    fit fails as on a synchronous CCF failure.
+
+    Returns {fnames, preps, units: [{members, arms, ccf}]}, consumed by
+    :func:`fit_desi_group`."""
     zbest_paths = zbest_paths or [None] * len(fnames)
+    prehdus_list = prehdus_list or [None] * len(fnames)
     preps = [None] * len(fnames)
     for i, f in enumerate(fnames):
         try:
             preps[i] = _prepare_one(f, config, zbest_path=zbest_paths[i],
-                                    **select_kw)
+                                    prehdus=prehdus_list[i], **select_kw)
         except Exception:
             _log_crash(f, 'prepare', throw_exceptions)
     groups = {}
@@ -1094,22 +1215,41 @@ def prepare_desi_group(fnames, config, zbest_paths=None,
     for members in groups.values():
         arms = _concat_arms([preps[i]['arms'] for i in members]) \
             if len(members) > 1 else preps[members[0]]['arms']
-        units.append(dict(members=members, arms=arms))
+        ccf = None
+        if dispatch_ccf and ccf_init:
+            try:
+                ccf = ccf_mod.fit_batch_async(_ccf_args(arms), config,
+                                              banks=banks, device=device)
+            except Exception as exc:
+                ccf = functools.partial(_reraise, exc)
+        units.append(dict(members=members, arms=arms, ccf=ccf))
     return dict(fnames=list(fnames), preps=preps, units=units)
+
+
+def _reraise(exc):
+    raise exc
 
 
 def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
                    templates=None, banks=None, device=None, cmdline=None,
                    throw_exceptions=False, ccf_init=True,
-                   fig_prefixes=None):
+                   fig_prefixes=None, defer_finish=False):
     """Fit and write stage of a group prepared by
     :func:`prepare_desi_group` (see :func:`proc_desi_group` for the
-    semantics and the return value)."""
+    semantics and the return value).
+
+    Every write is kept in order and run by ``finish()``: at once, or
+    with ``defer_finish`` on proc_many's writer thread, where this
+    returns (counts, ``finish``) and ``finish()`` returns the counts.
+    A unit's deferred tail is collected there; if it fails, the unit's
+    per-file retry runs there too, as it does here when the unit's CCF
+    or Nelder-Mead fails."""
     preps = gprep['preps']
     counts = [None] * len(preps)
     fig_prefixes = fig_prefixes or [None] * len(preps)
+    pending = []
 
-    def finish(i, fit, lo, arms):
+    def write(i, fit, lo, arms):
         try:
             _finish_one(preps[i], fit, lo, tab_ofnames[i], mod_ofnames[i],
                         config, arms, cmdline=cmdline, templates=templates,
@@ -1118,43 +1258,69 @@ def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
         except Exception:
             _log_crash(preps[i]['fname'], 'write', throw_exceptions)
 
+    def write_empty(i, p):
+        try:
+            _write_empty_prep(p, tab_ofnames[i], mod_ofnames[i], config,
+                              cmdline, templates)
+            counts[i] = 0
+        except Exception:
+            _log_crash(p['fname'], 'write_empty', throw_exceptions)
+
+    def retry(members, then):
+        """The unit's fit failed (call from its except block): fit each
+        member alone, its tail at once, and pass its write to
+        ``then``."""
+        logging.exception('group fit of %d files failed; retrying '
+                          'per-file', len(members))
+        if throw_exceptions:
+            raise
+        for i in members:
+            try:
+                fit = _run_group_fit(preps[i]['arms'], templates, config,
+                                     options, banks=banks,
+                                     ccf_init=ccf_init, defer=False)
+            except Exception:
+                _log_crash(preps[i]['fname'], 'per-file retry', False)
+                continue
+            then(functools.partial(write, i, fit, 0, preps[i]['arms']))
+
+    def write_unit(unit, fit):
+        if isinstance(fit, _LazyFit):
+            try:
+                fit.materialize()
+            except Exception:
+                retry(unit['members'], lambda job: job())
+                return
+        lo = 0
+        for i in unit['members']:
+            write(i, fit, lo, unit['arms'])
+            lo += preps[i]['nsel']
+
     for i, p in enumerate(preps):
         if p is not None and p['nsel'] == 0:
-            try:
-                _write_empty_prep(p, tab_ofnames[i], mod_ofnames[i],
-                                  config, cmdline, templates)
-                counts[i] = 0
-            except Exception:
-                _log_crash(p['fname'], 'write_empty', throw_exceptions)
+            pending.append(functools.partial(write_empty, i, p))
     if gprep['units'] and templates is None:
         first = gprep['units'][0]['members'][0]
         templates = _load_templates(config, preps[first]['setups'], device)
 
     for unit in gprep['units']:
-        members = unit['members']
         try:
             fit = _run_group_fit(unit['arms'], templates, config, options,
-                                 banks=banks, ccf_init=ccf_init)
+                                 banks=banks, ccf_init=ccf_init,
+                                 ccf_collect=unit.get('ccf'))
         except Exception:
-            logging.exception('group fit of %d files failed; retrying '
-                              'per-file', len(members))
-            if throw_exceptions:
-                raise
-            for i in members:
-                try:
-                    fit = _run_group_fit(preps[i]['arms'], templates,
-                                         config, options, banks=banks,
-                                         ccf_init=ccf_init)
-                except Exception:
-                    _log_crash(preps[i]['fname'], 'per-file retry', False)
-                    continue
-                finish(i, fit, 0, preps[i]['arms'])
+            retry(unit['members'], pending.append)
             continue
-        lo = 0
-        for i in members:
-            finish(i, fit, lo, unit['arms'])
-            lo += preps[i]['nsel']
-    return counts
+        pending.append(functools.partial(write_unit, unit, fit))
+
+    def finish():
+        for job in pending:
+            job()
+        return counts
+
+    if defer_finish:
+        return counts, finish
+    return finish()
 
 
 # packages whose versions are stamped into output headers, by import
@@ -1361,6 +1527,98 @@ def static_file_list(files):
     return None
 
 
+class _Reader:
+    """proc_many's lookahead reads: :meth:`start` reads files on a
+    daemon thread; :meth:`take` waits for one file's read and returns
+    its FITSFile, or None where it was not started or its read failed
+    (the caller then reads it itself, under its crash isolation)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._reads = {}
+
+    def start(self, fnames):
+        todo = []
+        with self._lock:
+            for f in fnames:
+                if f not in self._reads:
+                    self._reads[f] = concurrent.futures.Future()
+                    todo.append((f, self._reads[f]))
+        if todo:
+            threading.Thread(target=self._read, args=(todo,), daemon=True,
+                             name='rvst-reader').start()
+
+    @staticmethod
+    def _read(todo):
+        for f, fut in todo:
+            try:
+                fut.set_result(fitsio.read(f))
+            except Exception:
+                fut.set_result(None)
+
+    def take(self, fname):
+        with self._lock:
+            fut = self._reads.pop(fname, None)
+        return None if fut is None else fut.result()
+
+
+class _Writer:
+    """proc_many's finishing stage: :meth:`submit` runs a file's or a
+    group's ``finish()`` (collect the deferred tail, rows, RVTAB/RVMOD,
+    plots; it returns the counts) on one writer thread, at most one
+    outstanding, and then ``record(counts, t_done)`` (the status
+    lines), ``t_done`` the time the write completed; :meth:`put`
+    queues a record with no write.  Records are made in submission
+    order.  Without ``threaded`` (``RVST_ASYNC_WRITE=0``) a finish runs
+    at once on the calling thread.  A finish that raises (crash
+    isolation re-raises only with ``throw_exceptions``) raises from the
+    next :meth:`submit`, :meth:`put` or :meth:`close`."""
+
+    def __init__(self, threaded):
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix='rvst-writer') \
+            if threaded else None
+        self._queue = collections.deque()
+
+    @staticmethod
+    def _timed(finish, device):
+        if device is not None:
+            enter_device(device)
+        out = finish()
+        return out, time.time()
+
+    def submit(self, finish, record, device=None):
+        """``device``: the card the writer thread enters first (a tail
+        that fails is retried there)."""
+        self.drain()
+        if self._pool is None:
+            record(*self._timed(finish, None))
+        else:
+            self._queue.append((self._pool.submit(self._timed, finish,
+                                                  device), record))
+
+    def put(self, record, value=None):
+        if self._queue:
+            self._queue.append((None, functools.partial(record, value)))
+        else:
+            record(value, time.time())
+
+    def drain(self):
+        while self._queue:
+            fut, record = self._queue.popleft()
+            if fut is None:
+                record(time.time())
+            else:
+                record(*fut.result())
+
+    def close(self):
+        try:
+            self.drain()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown(wait=True)
+
+
 def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
               output_mod_prefix=MODEL_PREFIX, config=None, options=None,
               skipexisting=False, status_fname=None, coalesce=1,
@@ -1368,32 +1626,38 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
               throw_exceptions=False, cmdline=None, zbest_select=False,
               ccf_init=True, doplot=False, figure_dir=None,
               figure_prefix='fig', **select_kw):
-    """Process a sequence of files, one group after another (reference:
-    desi_fit.py:1392-1551, without its reader and writer threads).
+    """Process a sequence of files, one group after another, with the
+    reference's overlaps (reference: desi_fit.py:1392-1551; the module
+    docstring lists the overlaps and their switches).
     ``ccf_init=False`` starts every group from the brute-force first
     guess instead of the CCF (``--param_init bruteforce``).
 
     ``files``: a list, or one of utils.FileQueue,
     utils.ShardedFileQueue or parallel/distributed.CoordinatedFileQueue
-    (:func:`static_file_list`).  Only a static list is read up front; a
-    queue's items are claimed one at a time, each when the previous one
-    is fitted and written, and a queue runs at coalesce 1 (an early
-    claim would take work from the other processes and widen the window
-    of files lost to a crash).
+    (:func:`static_file_list`).  Only a static list is read up front
+    and read ahead; a queue's items are claimed one at a time, each
+    when the previous one is fitted (its write may still run on the
+    writer thread), and a queue runs at coalesce 1 (an early claim
+    would take work from the other processes and widen the window of
+    files lost to a crash).
 
     ``coalesce``: fit up to this many consecutive compatible files as
-    one batch (:func:`proc_desi_group`); 1 fits file by file through
-    :func:`proc_desi_wrapper`.  ``skipexisting`` skips a file whose
-    outputs both exist (status EXISTING).  ``status_fname`` gets one
-    line per file (:func:`update_process_status_file`); the seconds of
-    a coalesced group are shared equally by its files.
-    ``zbest_select`` selects star-like fibers with the ``redrock-``
-    file beside each ``coadd-`` file.  ``doplot`` writes a plot per
-    fiber into ``figure_dir`` (default: ``output_dir``), named
-    ``{figure_prefix}-{file}_{TARGETID}.png``.  ``templates``/``banks``:
-    as in :func:`proc_desi`; the templates are loaded once, before the
-    first file that is fitted, and a loading failure raises.
-    ``select_kw``: :func:`_prepare_one`'s selection arguments.
+    one batch (:func:`prepare_desi_group`, :func:`fit_desi_group`); 1
+    fits file by file through :func:`proc_desi_wrapper`.
+    ``skipexisting`` skips a file whose outputs both exist (status
+    EXISTING).  ``status_fname`` gets one line per file
+    (:func:`update_process_status_file`), in the order of the files,
+    stamped when the file's write completed; the seconds of a coalesced
+    group (from the start of its fit to the end of its write) are
+    shared equally by its files.  ``zbest_select`` selects star-like
+    fibers with the ``redrock-`` file beside each ``coadd-`` file.
+    ``doplot`` writes a plot per fiber into ``figure_dir`` (default:
+    ``output_dir``), named ``{figure_prefix}-{file}_{TARGETID}.png``.
+    ``templates``/``banks``: as in :func:`proc_desi`; the templates are
+    loaded once, before the first file that is fitted, and a loading
+    failure raises.  ``select_kw``: :func:`_prepare_one`'s selection
+    arguments.  The writer is drained before this returns or raises, so
+    with ``throw_exceptions`` a failed write raises here.
     """
     os.makedirs(output_dir, exist_ok=True)
     if status_fname:
@@ -1406,14 +1670,16 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
         logging.info('--coalesce needs a statically-known file list; '
                      'queue inputs are fitted one file at a time')
         coalesce = 1
+    async_write = os.environ.get('RVST_ASYNC_WRITE', '1') != '0'
+    pipeline = os.environ.get('RVST_PIPELINE_PREP', '1') != '0'
 
-    def status(f, nobj, seconds, code=None):
+    def status(f, nobj, seconds, code=None, finished_at=None):
         if status_fname:
             update_process_status_file(
                 status_fname, f, code or (PROC_STATUS_SUCCESS if nobj
                                           is not None else
                                           PROC_STATUS_FAILURE),
-                nobj or 0, seconds)
+                nobj or 0, seconds, finished_at=finished_at)
 
     def zbest_path(f):
         if not zbest_select:
@@ -1429,9 +1695,11 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
         os.makedirs(fdir, exist_ok=True)
         return os.path.join(fdir, f'{figure_prefix}-{_base_name(f)}')
 
-    def groups():
-        """Groups of up to ``coalesce`` files to fit; a queue's item is
-        claimed when the loop asks for the next group."""
+    def items():
+        """('skip', file, seconds) for a file whose outputs exist, and
+        ('group', [(file, tab, mod)...]) of up to ``coalesce`` files to
+        fit, in input order; a queue's item is claimed when the loop
+        asks for the next item."""
         grp = []
         for f in (files if flist is None else flist):
             t0 = time.time()
@@ -1440,40 +1708,109 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
             if skipexisting and os.path.exists(tab) \
                     and os.path.exists(mod):
                 logging.info('skipping existing %s', f)
-                status(f, 0, time.time() - t0, PROC_STATUS_EXISTING)
+                yield 'skip', f, time.time() - t0
                 continue
             grp.append((f, tab, mod))
             if len(grp) == coalesce:
-                yield grp
+                yield 'group', grp
                 grp = []
         if grp:
-            yield grp
+            yield 'group', grp
 
-    for grp in groups():
-        t0 = time.time()
-        if templates is None:
-            templates = _load_templates(
-                config, select_kw.get('setups', ('b', 'r', 'z')), device)
-        if coalesce == 1:
-            f, tab, mod = grp[0]
-            counts = [proc_desi_wrapper(
-                f, tab, mod, config, options, templates=templates,
-                banks=banks, cmdline=cmdline,
-                zbest_path=zbest_path(f), zbest_select=zbest_select,
+    def prepare(grp, dispatch=False):
+        names = [g[0] for g in grp]
+        return prepare_desi_group(
+            names, config, zbest_paths=[zbest_path(f) for f in names],
+            throw_exceptions=throw_exceptions,
+            prehdus_list=[reader.take(f) for f in names],
+            dispatch_ccf=dispatch, ccf_init=ccf_init, banks=banks,
+            device=tdev, zbest_select=zbest_select, **select_kw)
+
+    def recorder(grp, t0):
+        def record(counts, t_done):
+            dt = (t_done - t0) / len(grp)
+            for (f, _, _), nobj in zip(grp, counts or [None] * len(grp)):
+                status(f, nobj, dt, finished_at=t_done)
+        return record
+
+    seq = items()
+    if flist is not None:
+        seq = list(seq)
+    later = [it[1] for it in seq if it[0] == 'group'] \
+        if flist is not None else []
+    reader, writer = _Reader(), _Writer(async_write)
+    tdev = nxt_prep = None
+    try:
+        for item in seq:
+            if item[0] == 'skip':
+                writer.put(lambda value, t_done, f=item[1], dt=item[2]:
+                           status(f, 0, dt, PROC_STATUS_EXISTING, t_done))
+                continue
+            grp = item[1]
+            t0 = time.time()
+            if templates is None:
+                templates = _load_templates(
+                    config, select_kw.get('setups', ('b', 'r', 'z')),
+                    device)
+            tdev = next(iter(templates.values())).geom.h.device
+            if later:
+                later.pop(0)
+            nxt = later[0] if later else None
+            if nxt is not None:
+                # the next group's reads overlap this group's fit
+                reader.start([g[0] for g in nxt])
+            if coalesce == 1:
+                f, tab, mod = grp[0]
+                out = proc_desi_wrapper(
+                    f, tab, mod, config, options, templates=templates,
+                    banks=banks, cmdline=cmdline,
+                    zbest_path=zbest_path(f), zbest_select=zbest_select,
+                    throw_exceptions=throw_exceptions, ccf_init=ccf_init,
+                    fig_prefix=fig_prefix(f), prehdus=reader.take(f),
+                    defer_finish=async_write, **select_kw)
+                if async_write and out is not None:
+                    nsel, finish = out
+                    writer.submit(functools.partial(
+                        _finish_file, f, nsel, finish, throw_exceptions),
+                        recorder(grp, t0), tdev)
+                else:
+                    writer.put(recorder(grp, t0), [out])
+                continue
+            if nxt_prep is not None:
+                gprep = nxt_prep.result()
+            else:
+                gprep = prepare(grp)
+            nxt_prep = None
+            if pipeline and nxt is not None:
+                nxt_prep = Background(functools.partial(
+                    prepare, nxt, dispatch=True), tdev, name='rvst-prep')
+            out = fit_desi_group(
+                gprep, [g[1] for g in grp], [g[2] for g in grp], config,
+                options, templates=templates, banks=banks, cmdline=cmdline,
                 throw_exceptions=throw_exceptions, ccf_init=ccf_init,
-                fig_prefix=fig_prefix(f), **select_kw)]
-        else:
-            counts = proc_desi_group(
-                [g[0] for g in grp], [g[1] for g in grp],
-                [g[2] for g in grp], config, options, templates=templates,
-                banks=banks, cmdline=cmdline,
-                throw_exceptions=throw_exceptions,
-                zbest_paths=[zbest_path(g[0]) for g in grp],
-                zbest_select=zbest_select, ccf_init=ccf_init,
-                fig_prefixes=[fig_prefix(g[0]) for g in grp], **select_kw)
-        dt = (time.time() - t0) / len(grp)
-        for (f, _, _), nobj in zip(grp, counts):
-            status(f, nobj, dt)
+                fig_prefixes=[fig_prefix(g[0]) for g in grp],
+                defer_finish=async_write)
+            if async_write:
+                writer.submit(out[1], recorder(grp, t0), tdev)
+            else:
+                writer.put(recorder(grp, t0), out)
+    finally:
+        try:
+            writer.close()
+        finally:
+            if nxt_prep is not None:
+                nxt_prep.wait()
+
+
+def _finish_file(fname, nsel, finish, throw):
+    """A file's deferred finish under crash isolation: [nsel], or
+    [None] after a crash log."""
+    try:
+        finish()
+        return [nsel]
+    except Exception:
+        _log_crash(fname, 'write', throw)
+        return [None]
 
 
 Fleet = collections.namedtuple('Fleet', 'files rank world')

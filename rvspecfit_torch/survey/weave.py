@@ -1,7 +1,7 @@
 """WEAVE batch-fitting driver (``rvstorch_weave_fit``).
 
-Counterpart of rvspecfit_tpu/survey/weave.py, run synchronously.  Per
-red(+blue) file pair:
+Counterpart of rvspecfit_tpu/survey/weave.py.  Per red(+blue) file
+pair:
 
  1. read each file (io/fitsio); its CAMERA names the arm (weave_b,
     weave_r); wavelengths from the linear WCS keywords;
@@ -20,18 +20,23 @@ Many processes share the work by striping the fibers of each pair:
 size and rank (parallel/distributed).  ``--doplot`` writes a plot per
 fiber.
 
-Differences from the reference, by design: the pairs are read one
-after another (no lookahead thread), a CCF failure raises (the
-reference starts every fiber at default parameters), and the mesh is
-not ported.
+While a pair fits, a daemon thread reads the next pair's files
+(:func:`proc_many`'s ``prefetch``, on by default as in the reference).
+On a host with several cards the fitter is sharded over them
+(parallel/mesh.auto_shard; ``RVST_NO_MESH=1`` opts out).
+
+Difference from the reference, by design: a CCF failure raises (the
+reference starts every fiber at default parameters).
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import glob
 import logging
 import os
 import sys
+import threading
 import time
 
 import numpy as np
@@ -42,6 +47,7 @@ from rvspecfit_torch.fit import vel_fit
 from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
 from rvspecfit_torch.io import fitsio
 from rvspecfit_torch.parallel import distributed
+from rvspecfit_torch.parallel import mesh as pmesh
 from rvspecfit_torch.pipeline import library
 from rvspecfit_torch.survey.desi import (ccf_starts, make_plot,
                                          masked_median,
@@ -102,20 +108,20 @@ def _read_pair(fnames):
 
 def proc_weave(fnames, config, threadid=0, nthreads=1,
                programs=DEFAULT_PROGRAMS, options=None, templates=None,
-               banks=None, device=None, fig_prefix=None):
+               banks=None, device=None, fig_prefix=None, prehdus=None):
     """Fit one WEAVE red(+blue) file pair; returns a dict of columns
     (None when no fibers are selected).  With ``fig_prefix``, a plot
     per fiber, ``{fig_prefix}_{target id}.png`` (a plot that fails is
-    logged, as in the reference).
+    logged, as in the reference).  ``prehdus``: the pair as
+    :func:`_read_pair` gives it, read ahead by :func:`proc_many`.
 
     ``templates`` ({weave_b/weave_r: TemplateModel}) and ``banks``
     ({setup: (tfft, t2fft, info)}) may come from memory; None loads
     them from ``config['template_lib']`` onto ``device`` (None: the
     CUDA card)."""
     options = options or {'npoly': 15}
-    if isinstance(fnames, str):
-        fnames = fnames.split(',')
-    fps = _read_pair(fnames)
+    fnames = _names(fnames)
+    fps = prehdus if prehdus is not None else _read_pair(fnames)
     setups = sorted(fps)                                  # b before r
     tab = hdr0 = None
     for s in setups:
@@ -160,6 +166,8 @@ def proc_weave(fnames, config, threadid=0, nthreads=1,
         arms, parnames, config, banks, device)
     bf = BatchedFitter(arms, templates, config, options=options,
                        use_vsini=True)
+    if pmesh.auto_shard(bf) is not None:
+        logging.info('fitter sharded over %d devices', len(bf.shards))
     paramDict0 = dict(zip(parnames, start_params.mean(axis=0)))
     paramDict0['vsini'] = 0.01
     mapper = vel_fit.ParamMapper(
@@ -211,16 +219,25 @@ def output_path(grp, oprefix, threadid=0, output_tab_prefix='outtab'):
                         f'{output_tab_prefix}_{base}_{threadid}.fits')
 
 
+def _names(grp):
+    return grp.split(',') if isinstance(grp, str) else list(grp)
+
+
 def proc_many(file_groups, oprefix, config, threadid=0, nthreads=1,
               options=None, overwrite=True, status_fname=None,
               output_tab_prefix='outtab', templates=None, banks=None,
-              device=None, throw_exceptions=False, fig_prefix=None):
+              device=None, throw_exceptions=False, fig_prefix=None,
+              prefetch=True):
     """Fit file groups one after another and write one WEAVE_RV table
     per group (:func:`output_path`).  ``overwrite=False`` skips groups
     whose table exists (status SKIPPED); ``status_fname`` gets one
     line per group: SUCCESS, EMPTY, FAILED or SKIPPED.  A failed group
     is logged and the next one fitted, unless ``throw_exceptions``.
-    ``templates``/``banks``/``fig_prefix``: as in :func:`proc_weave`."""
+    ``prefetch``: read the next group's files on a daemon thread while
+    a group fits (reference: rvspecfit_tpu/survey/weave.py:238-285); a
+    read that fails is made again by :func:`proc_weave`, under its crash
+    isolation.  ``templates``/``banks``/``fig_prefix``: as in
+    :func:`proc_weave`."""
     os.makedirs(oprefix, exist_ok=True)
     if status_fname:
         update_process_status_file(status_fname, None, None, 0, 0,
@@ -231,18 +248,36 @@ def proc_many(file_groups, oprefix, config, threadid=0, nthreads=1,
             update_process_status_file(status_fname, ofname, code, nobj,
                                        time.time() - t0)
 
-    for grp in file_groups:
+    def read_ahead(grp):
+        fut = concurrent.futures.Future()
+
+        def run():
+            try:
+                fut.set_result(_read_pair(_names(grp)))
+            except Exception:
+                fut.set_result(None)
+        threading.Thread(target=run, daemon=True,
+                         name='rvst-reader').start()
+        return grp, fut
+
+    groups = list(file_groups)
+    ahead = None
+    for gi, grp in enumerate(groups):
         t0 = time.time()
         ofname = output_path(grp, oprefix, threadid, output_tab_prefix)
         if not overwrite and os.path.exists(ofname):
             logging.info('skipping, products already exist %s', grp)
             status(ofname, 'SKIPPED', 0, t0)
             continue
+        prehdus = ahead[1].result() if ahead and ahead[0] is grp else None
+        ahead = read_ahead(groups[gi + 1]) \
+            if prefetch and gi + 1 < len(groups) else None
         try:
             out = proc_weave(grp, config, threadid=threadid,
                              nthreads=nthreads, options=options,
                              templates=templates, banks=banks,
-                             device=device, fig_prefix=fig_prefix)
+                             device=device, fig_prefix=fig_prefix,
+                             prehdus=prehdus)
         except Exception:
             logging.exception('failed processing %s', grp)
             status(ofname, 'FAILED', 0, t0)

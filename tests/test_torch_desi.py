@@ -891,9 +891,11 @@ def test_coordinator_wiring_with_the_world_mocked(tmp_path, monkeypatch):
 def test_proc_many_claims_no_queue_item_before_the_previous_is_fitted(
         tmp_path, monkeypatch, caplog):
     """A queue's items are claimed one at a time, each after the
-    previous file is fitted and written, at coalesce 1 with a log line
-    (an early claim would take work from the other ranks); a static
-    list is read up front and fitted in groups."""
+    previous file is fitted, at coalesce 1 with a log line (an early
+    claim would take work from the other ranks); a static list is read
+    up front and fitted in groups.  The fits are stubs that follow the
+    drivers' protocol: with ``defer_finish`` they return their counts
+    with the finish that proc_many's writer runs."""
     events = []
 
     def queue():
@@ -901,16 +903,23 @@ def test_proc_many_claims_no_queue_item_before_the_previous_is_fitted(
             events.append(('claim', f))
             yield f
 
-    def fit_one(f, tab, mod, *args, **kw):
-        events.append(('fit', f))
-        return 1
+    def deferred(count, defer_finish):
+        return (count, lambda: count) if defer_finish else count
 
-    def fit_group(fnames, *args, **kw):
-        events.append(('fit', tuple(fnames)))
-        return [1] * len(fnames)
+    def fit_one(f, tab, mod, *args, defer_finish=False, **kw):
+        events.append(('fit', f))
+        return deferred(1, defer_finish)
+
+    def fit_group(gprep, *args, defer_finish=False, **kw):
+        events.append(('fit', tuple(gprep['fnames'])))
+        return deferred([1] * len(gprep['fnames']), defer_finish)
     monkeypatch.setattr(desi, 'proc_desi_wrapper', fit_one)
-    monkeypatch.setattr(desi, 'proc_desi_group', fit_group)
-    kw = dict(config={}, templates={'desi_b': None}, coalesce=2)
+    monkeypatch.setattr(desi, 'prepare_desi_group',
+                        lambda fnames, *a, **k: dict(fnames=fnames))
+    monkeypatch.setattr(desi, 'fit_desi_group', fit_group)
+    model = types.SimpleNamespace(geom=types.SimpleNamespace(
+        h=torch.zeros(1)))
+    kw = dict(config={}, templates={'desi_b': model}, coalesce=2)
     with caplog.at_level('INFO'):
         desi.proc_many(queue(), str(tmp_path), **kw)
     assert events == [(k, f) for f in ('coadd-a.fits', 'coadd-b.fits',
@@ -924,7 +933,8 @@ def test_proc_many_claims_no_queue_item_before_the_previous_is_fitted(
     qfile.write_text('coadd-a.fits\ncoadd-b.fits\n')
     seen = []
     monkeypatch.setattr(desi, 'proc_desi_wrapper', lambda f, *a, **k:
-                        seen.append((f, qfile.read_text())) or 1)
+                        seen.append((f, qfile.read_text()))
+                        or deferred(1, k.get('defer_finish')))
     desi.proc_many(utils.FileQueue(file_from=str(qfile), queue=True),
                    str(tmp_path), **kw)
     assert seen == [('coadd-a.fits', 'coadd-b.fits\n'),

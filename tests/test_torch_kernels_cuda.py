@@ -151,6 +151,34 @@ def test_kernel_b_f64_takes_the_operands_of_its_own_bank(cuda_device):
                   TOL[torch.float64]['B'])
 
 
+def test_kernel_b_f64_from_worker_threads_and_their_streams(cuda_device):
+    """Kernel B launched from four worker threads at once on the jobs'
+    stream, not the caller's (device.Background, as the prep pipeline
+    runs the next group's CCF), on one bank whose operands the calling
+    thread built on its stream: every result equals the plain version,
+    and the launch counter adds every launch (it is locked)."""
+    from rvspecfit_torch.device import Background
+    args = _ccf_inputs(500, 108, 2049, 401, seed=5, device=cuda_device,
+                       dtype=torch.float64)
+    want = ccf_chisq.ccf_chisq_plain(*args)
+    _assert_close(ccf_chisq.ccf_chisq(*args), want,
+                  TOL[torch.float64]['B'])
+    before = ccf_chisq.launches
+
+    def job():
+        outs = [ccf_chisq.ccf_chisq(*args) for _ in range(5)]
+        torch.cuda.current_stream().synchronize()
+        return outs, torch.cuda.current_stream()
+    jobs = [Background(job, cuda_device) for _ in range(4)]
+    results = [j.result() for j in jobs]
+    assert ccf_chisq.launches == before + 20
+    assert all(st != torch.cuda.default_stream(cuda_device)
+               for _, st in results)
+    for outs, _ in results:
+        for got in outs:
+            _assert_close(got, want, TOL[torch.float64]['B'])
+
+
 def _spline_case(log_step, npix, ncoef, rows_per_coeff, seed, device,
                  dtype=torch.float32):
     """Coefficients of smooth random spectra on a 4096-knot grid and

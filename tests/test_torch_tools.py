@@ -1,7 +1,10 @@
-"""CPU-side logic of chip_smoke.py, tools/torch_kernel_ab.py and
-tools/torch_ablate.py: the kernel A bound's byte count, the A/B tool's
-choice of a baseline's C interface, and the ablation tool's table of
-sources and its reading of ptxas."""
+"""CPU-side logic of chip_smoke.py, tools/torch_kernel_ab.py,
+tools/torch_ablate.py and tools/torch_mesh_cards.py: the kernel A
+bound's byte count, the A/B tool's choice of a baseline's C interface,
+the ablation tool's table of sources and its reading of ptxas, the
+busy time's union, the garbage-collection clock and the mesh tool's
+meshes."""
+import gc
 import re
 import sys
 from pathlib import Path
@@ -15,6 +18,7 @@ sys.path.insert(0, str(ROOT / 'tools'))
 import chip_smoke  # noqa: E402
 import torch_ablate  # noqa: E402
 import torch_kernel_ab  # noqa: E402
+import torch_mesh_cards  # noqa: E402
 from rvspecfit_torch.ops import (  # noqa: E402
     ccf_chisq, cuda_build, spline_eval)
 
@@ -145,3 +149,35 @@ ptxas info    : Used 64 registers, 400 bytes cmem[0]
 ])
 def test_ablation_reads_each_kernels_ptxas_report(entry, want):
     assert torch_ablate.registers(PTXAS, entry) == want
+
+
+def test_union_ms_counts_overlapping_intervals_once():
+    """chip_smoke's busy time: the union of the card's intervals, so two
+    streams at once count once (nanoseconds in, milliseconds out)."""
+    spans = [(0, 2_000_000), (1_000_000, 3_000_000), (5_000_000,
+                                                       6_000_000),
+             (5_500_000, 5_600_000)]
+    assert chip_smoke.union_ms(spans) == pytest.approx(4.0)
+    assert chip_smoke.union_ms([]) == 0.0
+    assert chip_smoke.union_ms(spans[::-1]) == pytest.approx(4.0)
+
+
+def test_gc_time_counts_collections_inside_the_block():
+    with chip_smoke.gc_time({}) as seen:
+        gc.collect()
+        gc.collect(0)
+    assert seen['gc_full'] == 1 and seen['gc_s'] > 0
+    n = len(gc.callbacks)
+    gc.collect()
+    assert seen['gc_full'] == 1 and len(gc.callbacks) == n
+
+
+@pytest.mark.parametrize('cards,want', [
+    (1, {'one card': None, 'card 0 twice': ['cuda:0', 'cuda:0']}),
+    (4, {'one card': None, '2 cards': ['cuda:0', 'cuda:1'],
+         '4 cards': ['cuda:0', 'cuda:1', 'cuda:2', 'cuda:3']}),
+])
+def test_mesh_tool_shards_over_powers_of_two_of_the_cards(
+        monkeypatch, cards, want):
+    monkeypatch.setattr(torch.cuda, 'device_count', lambda: cards)
+    assert torch_mesh_cards.meshes() == want
