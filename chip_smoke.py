@@ -14,8 +14,10 @@ and the CUDA toolkit):
    rvspecfit_torch/_build/.
 2. Compares each kernel, in its float64 and its float32 form, with its
    plain PyTorch version on the card at the main path's shapes (kernel
-   A in both modes, its adjoint at the polish's shape, kernel B with
-   and without continuum, two launches bit-equal), and times both with
+   A in both modes, and per-row in float64 at Nelder-Mead's cand4
+   shape, four trial rows per fiber: 2000 and 4000 x 1024; its adjoint
+   at the polish's shape, kernel B with and without continuum, two
+   launches bit-equal), and times both with
    CUDA events beside the least time the card could take for the work
    (bound_ms) and, for kernel B, one torch.matmul of its materialized
    contraction in the same dtype (library_ms, a yardstick the port
@@ -47,22 +49,22 @@ and the CUDA toolkit):
    float32 for the time.  Holds the kernels against their plain
    versions at a 1000-fiber group's shapes, and the driver's RVTAB on
    the card against the CPU float64 run for an 8-fiber coadd and a
-   64-fiber coadd with per-fiber resolution matrices
+   8-fiber coadd with per-fiber resolution matrices
    (--resolution_matrix, width-11 Gaussian bands): velocities and
    parameters within sigma/2 (ROADMAP C.1).
-6. The single-object fit on 8 objects of the 3-arm layout at full
+6. The single-object fit on 2 objects of the 3-arm layout at full
    width: fit/ccf.fit (kernel B at one fiber row) -> vel_fit.process
    (scan, float64-bookkept Nelder-Mead, BFGS with the autograd
    gradient, refinement, models, AD Hessian: kernel A in both modes
-   and its adjoint), firstguess on 2 of them and one process with a
+   and its adjoint), firstguess on both and one process with a
    Gaussian resolution matrix per arm; kernel B checked and timed at
-   B = 1 in both modes.  Checks
-   RV recovery, every kernel launched, and the card against the CPU
-   float64 run of the same calls: ccf.fit's template and velocity
-   (within 0.01 km/s, ROADMAP C.2), velocities and parameters within
-   sigma/2; prints seconds per call and stage, BFGS calls and launches
-   per call; then ccf.fit and process in float32 for the time and
-   ccf.fit's float32 velocities.
+   B = 1 in both modes.  Checks RV recovery, every kernel launched,
+   and the card against the CPU float64 run of the same calls but
+   firstguess: ccf.fit's template and velocity (within 0.01 km/s,
+   ROADMAP C.2), velocities and parameters within sigma/2; prints
+   seconds per call and stage, BFGS calls and launches per call; then
+   ccf.fit and process in float32 for the time and ccf.fit's float32
+   velocities.
 7. The WEAVE driver, survey/weave.proc_many, over a 500-fiber red +
    blue pair (two 1024-px arms inside the synthetic grid's range):
    status line, WEAVE_RV columns, RV recovery, fibers/s (and in
@@ -85,7 +87,7 @@ and the CUDA toolkit):
    the 6,6,6,4 grid's nodes: RV recovery per file, every kernel
    launched, the BAD_HESSIAN share.
 11. The RV pull harness (validation.run_accuracy) at its defaults on
-   1000 trials: pull std within [0.9, 1.1]; 64 trials on the card and
+   1000 trials: pull std within [0.9, 1.1]; 8 trials on the card and
    on the CPU: velocities within sigma/2.
 12. The offline template pipeline through each stage's core (the
    card's machine has no h5py for the writers): the 6,6,6,4 grid as
@@ -100,7 +102,7 @@ and the CUDA toolkit):
    with the card-built bank: RV recovery, every kernel launched, and 8
    fibers against the CPU float64 run (velocities and parameters
    within sigma/2); each stage's seconds.
-13. The fleet: 6 coadds of 500 fibers (seeds 100-105) through
+13. The fleet: 2 coadds of 500 fibers (seeds 100-101) through
    survey/desi.proc_many at coalesce 1, run 1 in this process over the
    static list, run 2 by two rank processes of this script on the one
    card (``chip_smoke.py --fleet-rank RANK HOST:PORT DIR``), which join
@@ -112,7 +114,7 @@ and the CUDA toolkit):
    every fiber of run 2 within sigma/100 of run 1; prints the walls,
    files and s/file per rank, the aggregate files/s of 2 ranks against
    1 and each rank's peak device memory.
-14. Fiber microbatching: _run_group_fit on 2000 fibers whole and with
+14. Fiber microbatching: _run_group_fit on 1000 fibers whole and with
    config fit_microbatch=500: wall, phases and peak device memory of
    each (and of the untiled CCF start); every fiber within sigma/100,
    RV recovery.
@@ -120,26 +122,47 @@ and the CUDA toolkit):
    templates) on the card, its chi-square at the optimum on the card
    against the CPU (rtol 1e-9).
 16. pipeline/prewarm's core on a 64-fiber synthetic coadd.
-17. The drivers' overlaps: 6 coadds of 500 fibers (seeds 100-105)
+17. The drivers' overlaps: 4 coadds of 500 fibers (seeds 100-103)
    through survey/desi.proc_many at coalesce 2 with the switches
    RVST_PIPELINE_PREP, RVST_DEFER_TAIL and RVST_ASYNC_WRITE at 0, then
-   at their defaults (every earlier driver phase runs at the defaults
-   too).  Checks every file written once, the status lines in input
-   order, RV recovery per file and every fiber of the overlapped run
-   within sigma/100 of the serial run; prints the steady s/file from
-   the status stamps, the cold group, the peak device memory, the
-   launches of each run and the card's busy share of each (the union of
-   its kernel and copy intervals over the wall, torch.profiler, on a
-   second run over the first 4 files).  Then survey/weave.proc_many
-   over two 500-fiber pairs without and with the next pair's prefetch:
-   tables equal.
+   at their defaults, and again in reverse order in phase 21 (every
+   earlier driver phase runs at the defaults too).  Checks every file
+   written once, the status lines in input order, RV recovery per file
+   and every fiber of the overlapped run within sigma/100 of the
+   serial run; prints the steady s/file from the status stamps, the
+   cold group, the peak device memory and the launches of each run.
+   Then survey/weave.proc_many over two 8-fiber pairs without and with
+   the next pair's prefetch: tables equal.
 18. The mesh: _run_group_fit on the 500-fiber exposure with its fitter
    sharded over ('cuda:0', 'cuda:0') (parallel/mesh, two shards and
    host threads on the one card) against unsharded: every fiber within
    sigma/100, every kernel launched; auto_shard does nothing on one
    card.
+19. Nelder-Mead's candidate schemes: _run_group_fit on the 500-fiber
+   exposure under RVST_NM_SCHEME scan2, cand4, cand4, scan2 (in
+   alternating order).  Checks RV recovery, every kernel launched, NM's
+   objective calls per iteration (1 under cand4, 2 under scan2, shrink
+   steps apart), obj_evals per fiber and iteration (4 and 2), every
+   fiber within sigma/2 of the first scan2 run, and the 8-fiber group
+   fit under cand4 on the card against the CPU float64 run
+   (velocities within max(1 km/s, sigma/2), parameters sigma/2);
+   prints each run's NM wall, phases, kernel A's per-row launches in
+   NM, obj_evals and peak memory.
+20. The NN trainer on a (2, 2) (data, model) grid of the card named
+   four times (parallel/mesh.make_grid, train_interpolator(mesh=)):
+   2 epochs on phase 9's 2000-template subset at the CLI's widths,
+   unsharded and on the grid from one init_state draw; every epoch's
+   loss and every folded weight within 1e-9 of the unsharded run;
+   s/epoch of both.  It runs right after phase 9, whose training set it
+   shares.
+21. Phase 17's runs again in reverse order, overlapped then serial,
+   under torch.profiler, last, since a process runs slower after a
+   profiler session: the same checks, every fiber within sigma/100 of
+   phase 17's serial run, steady s/file and the card's busy share of
+   each (the union of its kernel and copy intervals over the wall).
 
 Every path's kernel launches are counted from 0 just before it runs.
+Each phase prints its seconds and the script's seconds at its end.
 Prints, last, the card, a JSON line of the kernels (each in its
 float64 and float32 form) and then the ok line.  Exits non-zero,
 printing no result, without a CUDA device or on any failure.
@@ -406,9 +429,41 @@ def kernel_a_cases(tm, arms, truth, device):
     return coeffs, [('per-row', u_row, 1), ('shared', u_shared, 401)]
 
 
-def check_kernel_a(tm, arms, truth, device):
-    """Kernel A vs plain on the card at both of the path's shapes, in
-    both forms: {form: {mode: numbers}}.
+# Nelder-Mead's candidates per fiber and call under RVST_NM_SCHEME=cand4
+NCAND4 = 4
+
+
+def kernel_a_cand4_case(tm, arms, truth, device):
+    """Kernel A's per-row inputs at the NM call's shape under cand4: four
+    trial points per fiber (reflection, expansion and both contractions
+    around each fiber's truth; seeded offsets kept inside the truths'
+    ranges), each row its own coefficients: (coeffs (4B, 4, n - 1),
+    [('per-row cand4', u (4B, 1024), 1)])."""
+    import torch
+    from rvspecfit_torch.fit.likelihood import doppler_u, template_stage
+    from rvspecfit_torch.fit.spec_data import ArmState
+    dtype = tm.geom.h.dtype
+    arm = ArmState.from_host('B', 'B', arms[0].lam, arms[0].flux,
+                             1.0 / np.sqrt(arms[0].ivar), tm.geom,
+                             device=device, dtype=dtype)
+    names = ('teff', 'logg', 'feh', 'alpha')
+    p = np.repeat(np.stack([truth[k] for k in names], 1), NCAND4, axis=0)
+    rng = np.random.RandomState(5)
+    p = np.clip(p * (1 + 0.02 * rng.normal(size=p.shape)),
+                p.min(0), p.max(0))
+    params = torch.as_tensor(p, dtype=dtype, device=device)
+    coeffs = template_stage(tm, params, None, False, None)[0]
+    vels = np.repeat(truth['vel'], NCAND4) + 5.0 * rng.normal(size=len(p))
+    u = doppler_u(arm, tm.geom, torch.as_tensor(vels, dtype=dtype,
+                                                device=device))
+    return coeffs, [('per-row cand4', u, 1)]
+
+
+def check_kernel_a(tm, arms, truth, device, cases=kernel_a_cases,
+                   forms=FORMS):
+    """Kernel A vs plain on the card at the path's shapes (``cases``:
+    kernel_a_cases, both modes, or kernel_a_cand4_case), in ``forms``:
+    {form: {mode: numbers}}.
 
     Both modes are timed with inputs read from HBM, as the bound
     assumes: the shared mode's u (1.6 GB in float64) exceeds L2; the
@@ -416,10 +471,10 @@ def check_kernel_a(tm, arms, truth, device):
     L2_COPIES copies of its inputs, and also eagerly, one call at a time
     (the host's dispatch, as the path launches it)."""
     from rvspecfit_torch.ops import spline_eval
-    coeffs64, cases = kernel_a_cases(tm, arms, truth, device)
-    result = {form: {} for form in FORMS}
+    coeffs64, cases = cases(tm, arms, truth, device)
+    result = {form: {} for form in forms}
     for mode, u64, rpc in cases:
-        for form in FORMS:
+        for form in forms:
             coeffs, u = as_form((coeffs64, u64), form)
 
             def call(c, uu):
@@ -805,7 +860,7 @@ OPTIONAL_COLUMNS = ('EXPID', 'RR_Z', 'RR_SPECTYPE', 'RR_SUBTYPE')
 # the resolution-matrix comparison: NFIB_RES fibers, each smeared by a
 # Gaussian LSF of its own (sigma 0.35-0.5 A, 1.4-2 px) given as
 # width-RES_WIDTH bands, against templates of RES_SIGMA0 A lines
-NFIB_RES = 64
+NFIB_RES = 8
 RES_WIDTH = 11
 RES_SIGMA0 = 0.25
 C_KMS = 299792.458
@@ -1109,7 +1164,7 @@ def driver_against_cpu(workdir, name, arms_data, tms, banks, bands=None,
 # ------------------------------------------------------------------
 # the single-object fit: SpecData -> ccf.fit -> vel_fit.process
 
-NOBJ = 8
+NOBJ = 2
 NFIRSTGUESS = 2
 # the resolution-matrix object: resolution_exposure's first fiber, whose
 # lines are RES_OBJ_SIGMA A wide, fitted with the narrow templates'
@@ -1221,12 +1276,13 @@ def run_single_object(models, banks):
     each of NOBJ objects, firstguess on NFIRSTGUESS of them and one
     process with a Gaussian resolution matrix per arm (resolParams); its
     kernel launches counted from 0.  Then the CPU float64 run of the
-    same calls, and ccf.fit -> process in float32 on the card (its time
-    and ccf.fit's velocities, logged).  Checks RV recovery, every kernel
-    launched, and the card against the CPU: ccf.fit's template and
-    velocity within CCF_VEL_TOL, velocities within max(1 km/s,
-    sigma/2), parameters within sigma/2, and the chi-square and Hessian
-    errors at the CPU optimum within CHI_TOL and ERR_TOL."""
+    same calls but firstguess, and ccf.fit -> process in float32 on the
+    card (its time and ccf.fit's velocities, logged).  Checks RV
+    recovery, every kernel launched, and the card against the CPU:
+    ccf.fit's template and velocity within CCF_VEL_TOL, velocities
+    within max(1 km/s, sigma/2), parameters within sigma/2, and the
+    chi-square and Hessian errors at the CPU optimum within CHI_TOL and
+    ERR_TOL."""
     import torch
     from rvspecfit_torch.fit import vel_fit
     from rvspecfit_torch.fit.spec_data import SpecData
@@ -1254,9 +1310,9 @@ def run_single_object(models, banks):
         t_phase = time.perf_counter()
         calls = fit_objects(objs, tms[key], bks[key])
         t_fit = time.perf_counter()
-        # the CPU's firstguess takes ~20 s an object: one is enough to
-        # compare with
-        for sds in objs[:NFIRSTGUESS if key == 'cuda' else 1]:
+        # firstguess on the card only: the CPU's takes ~15-20 s an
+        # object, and its guesses are not checked
+        for sds in objs[:NFIRSTGUESS if key == 'cuda' else 0]:
             guesses.append(vel_fit.firstguess(sds, config=CONFIG,
                                               options=OPTIONS,
                                               templates=tms[key]))
@@ -1371,8 +1427,8 @@ def run_single_object(models, banks):
         f'{int((dp32 > 0.5).any(1).sum())} of {len(dp32)}')
     log(f'  resolution-matrix object: vel {r_res["vel"]:.3f} +- '
         f'{r_res["vel_err"]:.3f} (truth {res_truth["vel"][0]:.3f}, CPU '
-        f'{cpu["res"]["vel"]:.3f}); firstguess card '
-        f'{card["guesses"]}, CPU {cpu["guesses"]}')
+        f'{cpu["res"]["vel"]:.3f}); firstguess on the card '
+        f'{card["guesses"]}')
     check((dv <= 1).all() and dv_res <= 1,
           'single-object velocities on the card disagree with the CPU')
     check(np.nanmax(dp) <= 0.5, 'single-object parameters on the card '
@@ -1588,9 +1644,10 @@ TRAIN_GRID = (24, 13, 10, 8)
 TRAIN = dict(width=256, nlayers=2, npc=64, batch_size=100, lr0=1e-3,
              min_lr=1e-8, plateau_patience=20, pca_init=False, seed=22)
 # the cut: a fixed number of epochs (the CLI trains up to 600), so that
-# the phase takes ~50 s and the whole script stays near 700 s (the loss
-# falls below 0.3 of the first epoch's by epoch 10)
-TRAIN_EPOCHS = 30
+# the whole script stays near half its time limit (the loss falls
+# below 0.3 of the first epoch's by epoch 10: 0.244 at epoch 11 on the
+# H100)
+TRAIN_EPOCHS = 15
 # the loss criterion of tests/test_train_nn.py
 TRAIN_DROP = 0.3
 # card vs CPU: 2 epochs on a 2000-template subset from one init_state
@@ -1750,6 +1807,65 @@ def training_against_cpu(device, data, train):
     return res
 
 
+# phase 20: the trainer on a (data, model) grid of the one card
+TRAIN_GRID_SHAPE = (2, 2)
+
+
+def run_train_mesh(device, data):
+    """Phase 20: TRAIN_CMP['epochs'] epochs on training_against_cpu's
+    TRAIN_CMP['ntemplates'] subset at full width, unsharded and on a
+    TRAIN_GRID_SHAPE (data, model) grid of the card named four times
+    (parallel/mesh.make_grid, pipeline/train_nn ``mesh=``), from one
+    init_state draw: every epoch's loss and every folded weight array
+    within TRAIN_CMP['rtol'] of the unsharded run; prints the s/epoch
+    and the peak device memory of both."""
+    import torch
+    from rvspecfit_torch.interp import nn
+    from rvspecfit_torch.parallel import mesh as pmesh
+    from rvspecfit_torch.pipeline import train_nn
+    _, x, specs, _ = data
+    sub = np.random.RandomState(3).permutation(len(x))[
+        :TRAIN_CMP['ntemplates']]
+    kw = dict(TRAIN, num_epochs=TRAIN_CMP['epochs'])
+    grid = pmesh.make_grid([device] * int(np.prod(TRAIN_GRID_SHAPE)),
+                           TRAIN_GRID_SHAPE)
+    runs = {}
+    for key, mesh in (('unsharded', None), ('grid', grid)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model, hist = train_nn.train_interpolator(
+            x[sub], specs[sub], device=device, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[key] = dict(model=model, loss=hist['loss'],
+                         s_per_epoch=wall / len(hist['loss']),
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    u, g = runs['unsharded'], runs['grid']
+    dloss = float(np.max(np.abs(np.subtract(g['loss'], u['loss']))
+                         / np.abs(u['loss'])))
+    got, want = nn.state_to_dict(g['model']), nn.state_to_dict(u['model'])
+    dw = {k: float(np.abs(got[k] - w).max() / np.abs(w).max())
+          for k, w in want.items()
+          if isinstance(w, np.ndarray) and np.abs(w).max() > 0}
+    log(f'NN training on a {TRAIN_GRID_SHAPE} (data, model) grid of '
+        f'{device} against unsharded ({len(sub)} templates, '
+        f'{TRAIN_CMP["epochs"]} epochs, width {TRAIN["width"]}, batch '
+        f'{TRAIN["batch_size"]}): losses grid {g["loss"]} unsharded '
+        f'{u["loss"]}, max rel diff {dloss:.3e}; folded weights max |diff| '
+        f'/ max |w| {max(dw.values()):.3e} (worst {max(dw, key=dw.get)}; '
+        f'limit {TRAIN_CMP["rtol"]}); s/epoch grid {g["s_per_epoch"]:.4f}, '
+        f'unsharded {u["s_per_epoch"]:.4f} '
+        f'({g["s_per_epoch"] / u["s_per_epoch"]:.2f}x); peak device memory '
+        f'{g["peak_gb"]:.2f} / {u["peak_gb"]:.2f} GB')
+    check(dloss <= TRAIN_CMP['rtol'] and max(dw.values()) <= TRAIN_CMP['rtol'],
+          'the grid\'s training disagrees with the unsharded run')
+    return dict(shape=list(TRAIN_GRID_SHAPE), max_rel_dloss=dloss,
+                max_rel_dweight=max(dw.values()),
+                **{f'{k}_{q}': v[q] for k, v in runs.items()
+                   for q in ('s_per_epoch', 'peak_gb')})
+
+
 def run_nn(workdir, device, model, data):
     """The NN cell on the card through the trained model: its
     checkpoint payload (interp/nn.state_to_dict) and the trainer's
@@ -1803,7 +1919,7 @@ def run_nn(workdir, device, model, data):
 # the reference's calibration gate on the pull standard deviation
 PULL_STD = (0.9, 1.1)
 PULL_TRIALS = 1000
-PULL_CMP_TRIALS = 64
+PULL_CMP_TRIALS = 8
 
 
 def run_pull(device, tm, tm_cpu):
@@ -1841,7 +1957,7 @@ def run_pull(device, tm, tm_cpu):
     check((dv < 0.5).all(), 'the pull harness\'s velocities on the card '
           'disagree with the CPU\'s')
     return dict(stats=stats, wall=wall, counts=counts,
-                max_dv_sigma_64=float(dv.max()))
+                max_dv_sigma_cmp=float(dv.max()))
 
 
 # ------------------------------------------------------------------
@@ -2075,8 +2191,9 @@ def run_library_builder(workdir, device):
 # ------------------------------------------------------------------
 # the fleet: the DESI driver as processes claiming files from one queue
 
-# 6 files (8 until the overlap phase came): 3 a rank
-FLEET_FILES = 6
+# 2 files, 1 a rank (8 until the overlap phase came, 6 until the NM
+# scheme and trainer grid phases came)
+FLEET_FILES = 2
 FLEET_RANKS = 2
 FLEET_SEED0 = 100
 # a rank's run, its model build included, and the barrier's timeout (s)
@@ -2190,7 +2307,7 @@ def table_values(tab):
 
 def run_fleet(workdir, tm, bank_d):
     """The slice's path at full width: FLEET_FILES coadds of NFIBERS
-    fibers (seeds 100-105), run 1 in this process over the static list
+    fibers (seeds 100-101), run 1 in this process over the static list
     at coalesce 1, run 2 by FLEET_RANKS rank processes on the one card
     claiming the same files through --dynamic_queue (fleet_rank).
     Checks that each rank exited 0, that every file was fitted exactly
@@ -2293,8 +2410,8 @@ def run_fleet(workdir, tm, bank_d):
 # ------------------------------------------------------------------
 # fiber microbatching: a large group whole and in tiles
 
-MB_NFIBERS = 2000
-MB_TILE = 500
+MB_NFIBERS = 1000
+MB_TILE = NFIBERS
 
 
 def run_microbatch(tm, bank_d):
@@ -2420,16 +2537,17 @@ def run_prewarm(tm, bank_d):
 # ------------------------------------------------------------------
 # phase 17: the drivers' overlaps; phase 18: the fitter on a mesh
 
-OVERLAP_FILES = 6
+OVERLAP_FILES = 4
 OVERLAP_SEED0 = 100
-# the runs under the profiler (the busy share) take the first files only
-OVERLAP_PROFILED_FILES = 4
 OVERLAP_SWITCHES = ('RVST_PIPELINE_PREP', 'RVST_DEFER_TAIL',
                     'RVST_ASYNC_WRITE')
-# (run, overlaps on): serial and overlapped, then again in reverse order
+# (run, overlaps on): serial and overlapped (phase 17), then again in
+# reverse order under the profiler (phase 21)
 OVERLAP_ORDER = (('serial', False), ('overlap', True), ('overlap2', True),
                  ('serial2', False))
 OVERLAP_WEAVE_SEEDS = (42, 43)
+# phase 7's 8-fiber pair: a shape the card has run by then
+OVERLAP_WEAVE_NFIB = 8
 MESH = ('cuda:0', 'cuda:0')
 
 
@@ -2555,24 +2673,22 @@ def overlap_run(files, outdir, status, tm, bank_d, records=None):
 
 
 def run_overlaps(workdir, tm, bank_d, models, bks):
-    """Phase 17: OVERLAP_FILES coadds of NFIBERS fibers (seeds 100-105)
-    through survey/desi.proc_many at COALESCE, four times in the order
-    serial, overlapped, overlapped, serial (serial: the three overlap
-    switches at 0; overlapped: at their defaults; the lookahead reader
-    is on in all), so that a drift of the host over the phase shows
-    apart from the switches.  Checks every file written once, the status
-    lines in input order with stamps that do not go back, RV recovery
-    per file and every fiber of each overlapped run within SAME_SIGMA of
-    the first serial run; prints per run the steady s/file from the
+    """Phase 17: OVERLAP_FILES coadds of NFIBERS fibers (seeds 100-103)
+    through survey/desi.proc_many at COALESCE, serial, then overlapped
+    (serial: the three overlap switches at 0; overlapped: at their
+    defaults; the lookahead reader is on in both); phase 21 runs them
+    again in reverse order, so that a drift of the host shows apart from
+    the switches.  Checks every file written once, the status lines in
+    input order with stamps that do not go back, RV recovery per file
+    and every fiber of the overlapped run within SAME_SIGMA of the
+    serial run; prints per run the steady s/file from the
     status stamps, the cold group, the peak device memory, the launches,
     the seconds spent in garbage collections and the threads alive at
     its start; the launches of each group fit of the first serial run
-    (no tail or CCF of another group overlaps it there); then, after
-    the four, the busy share of each kind (the union of the card's
-    intervals over the wall) from one more run of each over the first
-    OVERLAP_PROFILED_FILES files under the profiler.  Then
-    survey/weave.proc_many over two WEAVE_NFIB-fiber pairs without and
-    with the prefetch: equal tables."""
+    (no tail or CCF of another group overlaps it there).  Then
+    survey/weave.proc_many over two OVERLAP_WEAVE_NFIB-fiber pairs without
+    and with the prefetch: equal tables.  Also returns the serial run's
+    tables as ``serial_tables`` for phase 21."""
     from rvspecfit_torch.io import fitsio
     from rvspecfit_torch.survey import weave
     odir = os.path.join(workdir, 'overlap')
@@ -2580,7 +2696,7 @@ def run_overlaps(workdir, tm, bank_d, models, bks):
     files, truths = driver_inputs(odir, nfiles=OVERLAP_FILES,
                                   seed0=OVERLAP_SEED0)
     runs, groups = {}, []
-    for key, on in OVERLAP_ORDER:
+    for key, on in OVERLAP_ORDER[:2]:
         with overlap_switches(on):
             r = overlap_run(files, os.path.join(odir, f'out-{key}'),
                             os.path.join(odir, f'status-{key}.txt'), tm,
@@ -2596,20 +2712,6 @@ def run_overlaps(workdir, tm, bank_d, models, bks):
             f'launches {r["counts"]["float64"]}; garbage collection '
             f'{r["gc_s"]:.3f} s ({r["gc_full"]} full); {r["threads"]} '
             f'threads alive at the start')
-    # the profiled runs come last: a run after a profiler session was
-    # seen to be slower than one before it
-    for key, on in OVERLAP_ORDER[:2]:
-        with overlap_switches(on):
-            _, busy = device_busy(lambda: overlap_run(
-                files[:OVERLAP_PROFILED_FILES],
-                os.path.join(odir, f'prof-{key}'),
-                os.path.join(odir, f'prof-status-{key}.txt'), tm, bank_d))
-        runs[key]['busy'] = busy
-        log(f'overlap phase, {key}, under the profiler over '
-            f'{OVERLAP_PROFILED_FILES} files: card busy '
-            f'{busy["busy_ms"]:.1f} ms (union) of {busy["wall_ms"]:.1f} ms '
-            f'= {busy["busy_share"]:.4f}, intervals summed '
-            f'{busy["sum_ms"]:.1f} ms, {busy["intervals"]} intervals')
     per_group = [g['launches'] for g in groups]
     for g in groups:
         g['arms'] = g['out'] = None
@@ -2634,17 +2736,15 @@ def run_overlaps(workdir, tm, bank_d, models, bks):
         check(ok.sum() >= 0.98 * NFIBERS,
               f'{f} (overlapped): RV recovery {ok.sum()}/{NFIBERS}')
     s, o = runs['serial'], runs['overlap']
-    order = ', '.join(f'{k} {runs[k]["steady"]:.3f}' for k, _ in
-                      OVERLAP_ORDER)
     log(f'overlap phase: every file written once, status lines in input '
         f'order; RV recovery per file (overlapped, of {NFIBERS}) '
-        f'{recovered}; every run against the first serial one, largest '
+        f'{recovered}; the overlapped run against the serial one, largest '
         f'difference over all fibers {worst:.3g} sigma (limit '
-        f'{SAME_SIGMA}); steady s/file in run order: {order}; busy share '
-        f'{s["busy"]["busy_share"]:.4f} -> {o["busy"]["busy_share"]:.4f}, '
-        f'peak {s["peak_gb"]:.2f} -> {o["peak_gb"]:.2f} GB')
+        f'{SAME_SIGMA}); steady s/file {s["steady"]:.3f} -> '
+        f'{o["steady"]:.3f}; peak {s["peak_gb"]:.2f} -> {o["peak_gb"]:.2f} '
+        'GB')
 
-    groups = [write_weave_pair(odir, WEAVE_NFIB, seed)[0]
+    groups = [write_weave_pair(odir, OVERLAP_WEAVE_NFIB, seed)[0]
               for seed in OVERLAP_WEAVE_SEEDS]
     wv = {}
     for prefetch in (False, True):
@@ -2666,17 +2766,67 @@ def run_overlaps(workdir, tm, bank_d, models, bks):
         check(list(got) == list(want) and all(
             np.array_equal(got[k], want[k]) for k in want),
             'WEAVE with the prefetch differs from WEAVE without it')
-    log(f'overlap phase, WEAVE: {len(groups)} pairs of {WEAVE_NFIB} fibers '
-        f'without / with the prefetch {wv[False]["wall"]:.3f} / '
+    log(f'overlap phase, WEAVE: {len(groups)} pairs of {OVERLAP_WEAVE_NFIB} '
+        f'fibers without / with the prefetch {wv[False]["wall"]:.3f} / '
         f'{wv[True]["wall"]:.3f} s, tables equal')
     return dict(max_sigma=worst, recovered=recovered,
                 weave_s={str(k): v['wall'] for k, v in wv.items()},
                 counts=o['counts'], counts_serial=s['counts'],
-                per_group=per_group,
+                per_group=per_group, serial_tables=tabs['serial'],
                 **{k: {key: v[key] for key in (
-                    'wall', 'steady', 'cold', 'peak_gb', 'busy', 'gc_s',
-                    'gc_full', 'threads') if key in v}
+                    'wall', 'steady', 'cold', 'peak_gb', 'gc_s', 'gc_full',
+                    'threads')}
                    for k, v in runs.items()})
+
+
+def run_overlap_busy(workdir, tm, bank_d, serial_tables):
+    """Phase 21, the script's last (a process runs slower after a
+    profiler session): phase 17's runs again in reverse order,
+    overlapped then serial, each under the profiler over the same
+    OVERLAP_FILES coadds.  Checks each as phase 17 does, every fiber
+    within SAME_SIGMA of phase 17's serial run (``serial_tables``);
+    prints per run the steady s/file, the cold group, the peak and the
+    card's busy share (the union of its intervals over the wall).
+    {run: {wall, steady, cold, peak_gb, gc_s, gc_full, threads,
+    busy}}."""
+    files, _ = driver_inputs(workdir, nfiles=OVERLAP_FILES,
+                             seed0=OVERLAP_SEED0)
+    out, worst = {}, 0.0
+    for key, on in OVERLAP_ORDER[2:]:
+        t0 = time.perf_counter()
+        outdir = os.path.join(workdir, f'out-{key}')
+        with overlap_switches(on):
+            r, busy = device_busy(lambda: overlap_run(
+                files, outdir, os.path.join(workdir, f'status-{key}.txt'),
+                tm, bank_d))
+        check_launches(f'overlap phase ({key})', r['counts'])
+        for f, to, ts in zip(files, fleet_tables(files, outdir),
+                             serial_tables):
+            check(np.array_equal(ts['TARGETID'], to['TARGETID']),
+                  f'{f}: run {key} fitted other targets')
+            d = sigma_spread(table_values(to)[0], *table_values(ts))
+            check((d <= SAME_SIGMA).all(), f'{f}: run {key} differs from '
+                  f'the serial one by up to {np.nanmax(d):.3g} sigma')
+            worst = max(worst, float(d.max()))
+        out[key] = dict({k: r[k] for k in (
+            'wall', 'steady', 'cold', 'peak_gb', 'gc_s', 'gc_full',
+            'threads')}, busy=busy)
+        log(f'overlap phase, {key} (switches '
+            f'{"at their defaults" if on else "at 0"}), under the profiler: '
+            f'{len(files)} files in {r["wall"]:.3f} s; steady '
+            f'{r["steady"]:.3f} s/file, cold group {r["cold"]:.3f} s; peak '
+            f'device memory {r["peak_gb"]:.2f} GB; card busy '
+            f'{busy["busy_ms"]:.1f} ms (union) of {busy["wall_ms"]:.1f} ms '
+            f'= {busy["busy_share"]:.4f}, intervals summed '
+            f'{busy["sum_ms"]:.1f} ms, {busy["intervals"]} intervals; '
+            f'{time.perf_counter() - t0:.1f} s with the profiler\'s start, '
+            'stop and the intervals\' union')
+    share = {k: v['busy']['busy_share'] for k, v in out.items()}
+    log(f'overlap phase under the profiler: every fiber against the '
+        f'serial run, largest difference {worst:.3g} sigma (limit '
+        f'{SAME_SIGMA}); busy share {share["serial2"]:.4f} serial -> '
+        f'{share["overlap2"]:.4f} overlapped')
+    return out
 
 
 def run_mesh(tm, arms, truth, banks):
@@ -2736,6 +2886,170 @@ def run_mesh(tm, arms, truth, banks):
     return dict(max_sigma=float(d.max()), counts=runs['sharded']['counts'],
                 **{k: dict(wall=v['wall'], phases=v['out']['phases'])
                    for k, v in runs.items()})
+
+
+# phase 19: the NM schemes in alternating order (one configuration
+# drifts within a process, PERF.md section 7)
+NM_SCHEME_ORDER = ('scan2', 'cand4', 'cand4', 'scan2')
+# a scheme's fibers against the first scan2 run's, and the card's 8
+# fibers under cand4 against the CPU's: the card-vs-CPU limit
+SCHEME_SIGMA = 0.5
+
+
+@contextlib.contextmanager
+def nm_scheme(scheme):
+    """RVST_NM_SCHEME set to ``scheme`` inside the block."""
+    with mock.patch.dict(os.environ, RVST_NM_SCHEME=scheme):
+        yield
+
+
+@contextlib.contextmanager
+def nm_accounting(record):
+    """Count, into ``record``, NM's iterations (steps), the fibers they
+    advance (fiber_iters), its objective calls by points per fiber (K:
+    calls and rows), its simplex set-ups (init_calls) and their rows
+    (init_rows), and kernel A's per-row launches inside run_neldermead
+    (nm_row_launches)."""
+    from rvspecfit_torch.fit import batch, neldermead as nm
+    from rvspecfit_torch.ops import spline_eval
+    real_obj, real_step, real_init = (batch.BatchedFitter._objective,
+                                      nm._step, nm.nm_init)
+    real_nm = batch.BatchedFitter.run_neldermead
+    record.update(steps=0, fiber_iters=0, calls={}, init_rows=0,
+                  init_calls=0, nm_row_launches=0)
+
+    def objective(self, *args):
+        fun = real_obj(self, *args)
+
+        def counted(x):
+            c = record['calls'].setdefault(int(x.shape[1]), [0, 0])
+            c[0] += 1
+            c[1] += int(x.shape[0] * x.shape[1])
+            return fun(x)
+        return counted
+
+    def step(fun, simplex, *args):
+        record['steps'] += 1
+        record['fiber_iters'] += int(simplex.shape[0])
+        return real_step(fun, simplex, *args)
+
+    def init(fun, simplex, *args):
+        record['init_rows'] += int(simplex.shape[0] * simplex.shape[1])
+        record['init_calls'] += 1
+        return real_init(fun, simplex, *args)
+
+    def run_nm(self, *args, **kwargs):
+        before = spline_eval.row_launches
+        out = real_nm(self, *args, **kwargs)
+        record['nm_row_launches'] += spline_eval.row_launches - before
+        return out
+    with mock.patch.object(batch.BatchedFitter, '_objective', objective), \
+            mock.patch.object(nm, '_step', step), \
+            mock.patch.object(nm, 'nm_init', init), \
+            mock.patch.object(batch.BatchedFitter, 'run_neldermead', run_nm):
+        yield
+
+
+def run_nm_schemes(tm, arms, truth, banks, tm_cpu, bank_cpu):
+    """Phase 19: survey/desi._run_group_fit on the NFIBERS-fiber exposure
+    under RVST_NM_SCHEME in NM_SCHEME_ORDER.  Checks for each run RV
+    recovery, every kernel launched, NM's objective calls per iteration
+    (one (B, 4) call under cand4, two (B, 1) calls under scan2, shrink
+    steps apart), obj_evals per fiber and iteration (4 and 2), and
+    every fiber's velocity and parameters within SCHEME_SIGMA of the
+    first scan2 run; then the 8-fiber group fit under cand4 on the card
+    against the CPU float64 run (velocities within max(1 km/s, sigma/2),
+    parameters within sigma/2).  Prints each run's NM wall, phases,
+    kernel A's per-row launches in NM, obj_evals and peak memory."""
+    import torch
+    from rvspecfit_torch.fit import neldermead as nm
+    from rvspecfit_torch.fit.batch import BatchArm
+    runs = []
+    for scheme in NM_SCHEME_ORDER:
+        acc = {}
+        torch.cuda.empty_cache()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with nm_scheme(scheme), nm_accounting(acc):
+            out = run_group_fit(tm, arms, banks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_launches(f'NM scheme {scheme}', counts)
+        check_outputs(out, NFIBERS, NPIX_ARM)
+        ok = np.abs(out['ref']['best_vel'] - truth['vel']) < np.maximum(
+            10.0, 5 * out['ref']['vel_err'])
+        check(ok.sum() >= 0.98 * NFIBERS,
+              f'NM scheme {scheme}: RV recovery {ok.sum()}/{NFIBERS}')
+        k = NCAND4 if scheme == 'cand4' else 1
+        calls = acc['calls'].get(k, [0, 0])[0] / acc['steps']
+        trials = (out['nm']['obj_evals'] - acc['init_rows']) \
+            / acc['fiber_iters']
+        check(calls == (1 if scheme == 'cand4' else 2),
+              f'NM scheme {scheme}: {calls} objective calls per iteration')
+        check(trials == nm.nm_ncand(scheme),
+              f'NM scheme {scheme}: {trials} trials per fiber-iteration')
+        run = dict(scheme=scheme, wall=wall, nm_s=out['phases']['nm'],
+                   phases=out['phases'], peak_gb=peak,
+                   obj_evals=int(out['nm']['obj_evals']),
+                   nm_iterations=acc['steps'],
+                   fiber_iterations=acc['fiber_iters'],
+                   calls_per_iteration=calls,
+                   trials_per_fiber_iteration=trials,
+                   nm_per_row_launches=acc['nm_row_launches'],
+                   shrink_calls=acc['calls'].get(
+                       out['nm']['x'].shape[1] + 1, [0])[0]
+                   - acc['init_calls'],
+                   recovered=int(ok.sum()), counts=counts, out=out)
+        runs.append(run)
+        log(f'NM scheme {scheme}: group fit {wall:.3f} s (' + ' '.join(
+            f'{p}={out["phases"][p]:.3f}s' for p in PHASES) + f'); NM '
+            f'{acc["steps"]} iterations over {acc["fiber_iters"]} '
+            f'fiber-iterations, {calls:g} objective call(s) per iteration, '
+            f'{trials:g} trials per fiber-iteration, obj_evals '
+            f'{run["obj_evals"]}, kernel A per-row launches in NM '
+            f'{acc["nm_row_launches"]}; peak device memory {peak:.2f} GB; '
+            f'RV recovery {int(ok.sum())}/{NFIBERS}; launches '
+            f'{counts["float64"]}')
+
+    def values(out):
+        return np.column_stack([out['ref']['best_vel'], out['params']])
+    w = runs[0]['out']
+    err = np.column_stack([w['ref']['vel_err'], w['errs']])
+    for run in runs[1:]:
+        d = sigma_spread(values(run['out']), values(w), err)
+        run['max_sigma_vs_scan2'] = float(np.nanmax(d))
+        check((d <= SCHEME_SIGMA).all(), f'NM scheme {run["scheme"]}: '
+              f'fibers differ from the first scan2 run by up to '
+              f'{np.nanmax(d):.3g} sigma')
+    log('NM schemes against the first scan2 run, largest difference '
+        '(sigma): ' + ', '.join(f'{r["scheme"]} {r["max_sigma_vs_scan2"]:.3g}'
+                                for r in runs[1:])
+        + f' (limit {SCHEME_SIGMA})')
+
+    sub = [BatchArm(a.name, a.lam, a.flux[:8], a.ivar[:8]) for a in arms]
+    small = {}
+    with nm_scheme('cand4'):
+        for key, tm_d, bank_d in (('cuda', tm, banks[arms[0].name]),
+                                  ('cpu', tm_cpu, bank_cpu)):
+            small[key] = run_group_fit(tm_d, sub, {a.name: bank_d
+                                                   for a in sub})
+    g, gc = small['cuda'], small['cpu']
+    dv = np.abs(g['ref']['best_vel'] - gc['ref']['best_vel'])
+    dv_lim = float((dv / np.maximum(1.0, 0.5 * gc['ref']['vel_err'])).max())
+    dp = float(np.nanmax(np.abs(g['params'] - gc['params']) / gc['errs']))
+    log(f'8-fiber group fit under cand4, card vs CPU float64: max|dv| '
+        f'{dv.max():.6f} km/s ({dv_lim:.6f} of max(1, sigma/2)); parameters '
+        f'max|dp|/sigma {dp:.6f} (limit {SCHEME_SIGMA})')
+    check(dv_lim <= 1 and dp <= SCHEME_SIGMA, 'the card\'s cand4 fit '
+          'disagrees with the CPU float64 one')
+    for run in runs:
+        del run['out']
+    return dict(runs=runs, cand4_vs_cpu=dict(max_dv=float(dv.max()),
+                                             max_dv_lim=dv_lim, max_dp=dp))
 
 
 def launches_of(counts, name):
@@ -2878,6 +3192,19 @@ def group_fit_pass(tm, arms, truth, banks, form):
                 peak_gb=peak, recovered=int(ok.sum()))
 
 
+T_START = time.perf_counter()
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Log the seconds a phase of main took, and the script's seconds at
+    its end."""
+    t0 = time.perf_counter()
+    yield
+    t1 = time.perf_counter()
+    log(f'phase {name}: {t1 - t0:.1f} s (at {t1 - T_START:.1f} s)')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2890,102 +3217,117 @@ def main():
         print(f'chip_smoke: rvspecfit_torch is not importable ({exc}); '
               'run from the root of a checkout', file=sys.stderr)
         return 2
-    t_script = time.perf_counter()
     device = torch.device('cuda', 0)
     smi = environment()
-    build_kernels()
-    tm, arms, truth, bank = make_workload(device)
-    check(tm.state.dats.dtype == torch.float64,
-          'the card\'s working dtype is not float64')
-    bank_d = convert.ccf_bank(*bank, device=device)
-    banks = {a.name: bank_d for a in arms}
-    both_b = {'continuum': bank_d, 'no-continuum': make_nocont_bank(device)}
-    res_a = check_kernel_a(tm, arms, truth, device)
-    res_adj = check_adjoint(tm, arms, truth, device)
-    res_b = check_kernel_b(arms, both_b, device)
+    with phase('kernels'):
+        build_kernels()
+        tm, arms, truth, bank = make_workload(device)
+        check(tm.state.dats.dtype == torch.float64,
+              'the card\'s working dtype is not float64')
+        bank_d = convert.ccf_bank(*bank, device=device)
+        banks = {a.name: bank_d for a in arms}
+        both_b = {'continuum': bank_d,
+                  'no-continuum': make_nocont_bank(device)}
+        res_a = check_kernel_a(tm, arms, truth, device)
+        res_a4 = check_kernel_a(tm, arms, truth, device,
+                                cases=kernel_a_cand4_case,
+                                forms=('float64',))['float64']
+        res_adj = check_adjoint(tm, arms, truth, device)
+        res_b = check_kernel_b(arms, both_b, device)
 
-    group = group_fit_pass(tm, arms, truth, banks, 'float64')
-    tm32, bank32 = float32_models(device, bank)
-    group32 = group_fit_pass(tm32, arms, truth,
-                             {a.name: bank32 for a in arms}, 'float32')
-    log(f'group fit float64 / float32 warm pass: {group["wall"]:.3f} / '
-        f'{group32["wall"]:.3f} s = {group["wall"] / group32["wall"]:.3f}; '
-        'by phase ' + ' '.join(
-            f'{k}={group["phases"][k] / group32["phases"][k]:.3f}'
-            for k in PHASES))
-    tm_cpu, stats8 = check_against_cpu(arms, bank, device, tm, tm32, bank32)
+    with phase('group fit'):
+        group = group_fit_pass(tm, arms, truth, banks, 'float64')
+        tm32, bank32 = float32_models(device, bank)
+        group32 = group_fit_pass(tm32, arms, truth,
+                                 {a.name: bank32 for a in arms}, 'float32')
+        log(f'group fit float64 / float32 warm pass: {group["wall"]:.3f} / '
+            f'{group32["wall"]:.3f} s = '
+            f'{group["wall"] / group32["wall"]:.3f}; by phase ' + ' '.join(
+                f'{k}={group["phases"][k] / group32["phases"][k]:.3f}'
+                for k in PHASES))
+        tm_cpu, stats8 = check_against_cpu(arms, bank, device, tm, tm32,
+                                           bank32)
 
     from rvspecfit_torch import simulation
     cpu = torch.device('cpu')
     bank_cpu = convert.ccf_bank(*bank, device=cpu)
     with tempfile.TemporaryDirectory() as workdir:
-        files, truths = driver_inputs(workdir)
-        drv = run_driver(workdir, files, truths, tm, bank_d, 'float64')
-        check_launches('driver path', drv['counts'])
-        drv32 = run_driver(workdir, files, truths, tm32, bank32, 'float32')
-        check_launches('driver path in float32', drv32['counts'],
-                       form='float32')
-        grp = drv['records'][-1]
-        log(f'kernels at the shapes of a {grp["nfibers"]}-fiber driver '
-            'group:')
-        res_a_grp = check_kernel_a(tm, grp['arms'], drv['truth'], device)
-        res_adj_grp = check_adjoint(tm, grp['arms'], drv['truth'], device)
-        res_b_grp = check_kernel_b(grp['arms'], both_b, device)
-        drv['records'] = drv32['records'] = grp = None
-        cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
-                                               snr=50.0, seed=7)
-        c8 = driver_against_cpu(workdir, 'coadd8', cmp_arms,
-                                {'cuda': tm, 'cpu': tm_cpu},
-                                {'cuda': bank_d, 'cpu': bank_cpu})
-        res_data, bands, _ = resolution_exposure(NFIB_RES, seed=8)
-        narrow = {key: make_template_model(d, wresol=RES_SIGMA0)
-                  for key, d in (('cuda', device), ('cpu', cpu))}
-        c64 = driver_against_cpu(
-            workdir, f'coadd{NFIB_RES}res', res_data, narrow,
-            {'cuda': bank_d, 'cpu': bank_cpu}, bands=bands,
-            config=dict(CONFIG, lsf_sigma0_angstrom={
-                s: RES_SIGMA0 for s in SETUPS}))
+        with phase('DESI driver'):
+            files, truths = driver_inputs(workdir)
+            drv = run_driver(workdir, files, truths, tm, bank_d, 'float64')
+            check_launches('driver path', drv['counts'])
+            drv32 = run_driver(workdir, files, truths, tm32, bank32,
+                               'float32')
+            check_launches('driver path in float32', drv32['counts'],
+                           form='float32')
+            grp = drv['records'][-1]
+            log(f'kernels at the shapes of a {grp["nfibers"]}-fiber driver '
+                'group:')
+            res_a_grp = check_kernel_a(tm, grp['arms'], drv['truth'], device)
+            res_a4_grp = check_kernel_a(tm, grp['arms'], drv['truth'],
+                                        device, cases=kernel_a_cand4_case,
+                                        forms=('float64',))['float64']
+            res_adj_grp = check_adjoint(tm, grp['arms'], drv['truth'],
+                                        device)
+            res_b_grp = check_kernel_b(grp['arms'], both_b, device)
+            drv['records'] = drv32['records'] = grp = None
+        with phase('DESI driver card vs CPU'):
+            cmp_arms, _ = simulation.make_exposure(8, npix_arm=NPIX_ARM,
+                                                   snr=50.0, seed=7)
+            c8 = driver_against_cpu(workdir, 'coadd8', cmp_arms,
+                                    {'cuda': tm, 'cpu': tm_cpu},
+                                    {'cuda': bank_d, 'cpu': bank_cpu})
+            res_data, bands, _ = resolution_exposure(NFIB_RES, seed=8)
+            narrow = {key: make_template_model(d, wresol=RES_SIGMA0)
+                      for key, d in (('cuda', device), ('cpu', cpu))}
+            c64 = driver_against_cpu(
+                workdir, f'coadd{NFIB_RES}res', res_data, narrow,
+                {'cuda': bank_d, 'cpu': bank_cpu}, bands=bands,
+                config=dict(CONFIG, lsf_sigma0_angstrom={
+                    s: RES_SIGMA0 for s in SETUPS}))
 
         models = {'cuda': tm, 'cpu': tm_cpu, 'cuda32': tm32,
                   'narrow_cuda': narrow['cuda'], 'narrow_cpu': narrow['cpu']}
         bks = {'cuda': bank_d, 'cpu': bank_cpu, 'cuda32': bank32}
-        single = run_single_object(models, bks)
-        objs, _ = single_objects()
-        res_b1 = kernel_b_single(objs[0][0], both_b)
-        wv = run_weave(workdir, models, bks)
-        bf = run_bruteforce(workdir, tm, bank_d)
-        t_phase = time.perf_counter()
-        data = training_set()
-        train_model, train = run_training(device, data)
-        train_cmp = training_against_cpu(device, data, train)
-        log(f'phase NN training: {time.perf_counter() - t_phase:.1f} s')
-        t_phase = time.perf_counter()
-        nn_run = run_nn(workdir, device, train_model, data)
-        del data, train_model
-        log(f'phase NN cell: {time.perf_counter() - t_phase:.1f} s')
-    t_phase = time.perf_counter()
-    pull = run_pull(device, tm, tm_cpu)
-    log(f'phase pull harness: {time.perf_counter() - t_phase:.1f} s')
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
+        with phase('single object'):
+            single = run_single_object(models, bks)
+            objs, _ = single_objects()
+            res_b1 = kernel_b_single(objs[0][0], both_b)
+        with phase('WEAVE'):
+            wv = run_weave(workdir, models, bks)
+        with phase('bruteforce'):
+            bf = run_bruteforce(workdir, tm, bank_d)
+        with phase('NN training'):
+            data = training_set()
+            train_model, train = run_training(device, data)
+            train_cmp = training_against_cpu(device, data, train)
+        # phase 20 here: it trains on phase 9's training set
+        with phase('trainer grid'):
+            train_mesh = run_train_mesh(device, data)
+        with phase('NN cell'):
+            nn_run = run_nn(workdir, device, train_model, data)
+            del data, train_model
+    with phase('pull harness'):
+        pull = run_pull(device, tm, tm_cpu)
+    with phase('library builder'), tempfile.TemporaryDirectory() as workdir:
         libb = run_library_builder(workdir, device)
-    log(f'phase library builder: {time.perf_counter() - t_phase:.1f} s')
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase('fleet'), tempfile.TemporaryDirectory() as workdir:
         fleet = run_fleet(workdir, tm, bank_d)
-    log(f'phase fleet: {time.perf_counter() - t_phase:.1f} s')
-    t_phase = time.perf_counter()
-    mbatch = run_microbatch(tm, bank_d)
-    log(f'phase microbatch: {time.perf_counter() - t_phase:.1f} s')
-    fast = run_fast_interp(tm, tm_cpu)
-    warm = run_prewarm(tm, bank_d)
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as workdir:
+    with phase('microbatch'):
+        mbatch = run_microbatch(tm, bank_d)
+    with phase('fast_interp and prewarm'):
+        fast = run_fast_interp(tm, tm_cpu)
+        warm = run_prewarm(tm, bank_d)
+    with phase('overlaps'), tempfile.TemporaryDirectory() as workdir:
         overlap = run_overlaps(workdir, tm, bank_d, models, bks)
-    log(f'phase overlaps: {time.perf_counter() - t_phase:.1f} s')
-    t_phase = time.perf_counter()
-    mesh = run_mesh(tm, arms, truth, banks)
-    log(f'phase mesh: {time.perf_counter() - t_phase:.1f} s')
+    with phase('mesh'):
+        mesh = run_mesh(tm, arms, truth, banks)
+    with phase('NM schemes'):
+        schemes = run_nm_schemes(tm, arms, truth, banks, tm_cpu, bank_cpu)
+    with phase('overlap busy share'), \
+            tempfile.TemporaryDirectory() as workdir:
+        overlap.update(run_overlap_busy(workdir, tm, bank_d,
+                                        overlap.pop('serial_tables')))
     log('card float64 vs CPU float64 (ROADMAP C.1, C.2): ' + json.dumps(dict(
         group_fit_8=stats8, coadd8=c8, coadd64res=c64,
         single_object=single['stats'], weave8=wv['stats'])))
@@ -3004,7 +3346,8 @@ def main():
                      recovered=nn_run['recovered'],
                      bad_hessian_share=nn_run['bad_hessian_share']),
         pull=dict(pull['stats'], seconds=pull['wall'],
-                  max_dv_sigma_64=pull['max_dv_sigma_64']),
+                  max_dv_sigma_cmp=pull['max_dv_sigma_cmp'],
+                  cmp_trials=PULL_CMP_TRIALS),
         library_builder={k: v for k, v in libb.items()
                          if k not in ('counts', 'kernel_b')})))
     log('fleet, microbatch, fast_interp and prewarm: ' + json.dumps(dict(
@@ -3016,6 +3359,11 @@ def main():
         overlaps={k: v for k, v in overlap.items()
                   if k not in ('counts', 'counts_serial', 'per_group')},
         mesh={k: v for k, v in mesh.items() if k != 'counts'})))
+    log('NM schemes and the trainer\'s grid: ' + json.dumps(dict(
+        nm_schemes=dict(schemes, runs=[
+            {k: v for k, v in r.items() if k != 'counts'}
+            for r in schemes['runs']]),
+        trainer_grid=train_mesh)))
 
     check('jax' not in sys.modules and 'rvspecfit_tpu' not in sys.modules,
           'the run imported jax or the JAX package')
@@ -3057,6 +3405,23 @@ def main():
             k['launches_overlap'] = launches_of(overlap['counts'][form],
                                                 base)
             k['launches_mesh'] = launches_of(mesh['counts'][form], base)
+            k['launches_nm_schemes'] = [
+                dict(scheme=r['scheme'],
+                     launches=launches_of(r['counts'][form], base))
+                for r in schemes['runs']]
+            if base == 'spline_eval':
+                k['launches_per_row_mode_in_nm'] = [
+                    dict(scheme=r['scheme'],
+                         launches=r['nm_per_row_launches'])
+                    for r in schemes['runs']]
+                for rows, res in ((4 * NFIBERS, res_a4),
+                                  (4 * COALESCE * NFIBERS, res_a4_grp)):
+                    r4 = res['per-row cand4']
+                    k.update({f'{key}_per_row_mode_cand4_R{rows}': r4[key]
+                              for key in ('max_abs_err', 'ms', 'eager_ms',
+                                          'plain_ms', 'bound_ms')})
+                    k['max_abs_err'] = max(k['max_abs_err'],
+                                           r4['max_abs_err'])
             if base == 'ccf_chisq':
                 shape = 'T{}_F{}'.format(*libb['bank_shape'])
                 k.update({f'{key}_{shape}': libb['kernel_b'][key] for key in (
@@ -3064,7 +3429,7 @@ def main():
                     'library_ms')})
                 k['max_abs_err'] = max(k['max_abs_err'],
                                        libb['kernel_b']['max_abs_err'])
-    log(f'chip_smoke: {time.perf_counter() - t_script:.1f} s')
+    log(f'chip_smoke: {time.perf_counter() - T_START:.1f} s')
     print(smi)
     print(json.dumps(dict(kernels=kernels)))
     print(json.dumps(dict(ok=True, device=dict(

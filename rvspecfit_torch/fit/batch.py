@@ -23,9 +23,11 @@ stage is elementwise over fibers, so a tiled fit is the whole one.
 The polish reads ``RVST_POLISH_STEPS`` (its Newton steps, default 2)
 and ``RVST_POLISH_FREEZE_H=1`` (the Hessian of the first step reused
 by the later ones), Nelder-Mead ``RVST_NM_XATOL_FRAC`` (its tolerance
-as a fraction of the mapper's scales, default 0.08) and
+as a fraction of the mapper's scales, default 0.08),
 ``RVST_NM_SIMPLEX_SCALE`` (the first simplex's size in those scales,
-default 1), as the reference does.
+default 1), ``RVST_NM_CHUNK`` (its iterations per round) and, through
+fit/neldermead.py, ``RVST_NM_SCHEME`` (its candidate scheme), as the
+reference does.
 
 :meth:`BatchedFitter.run_tail_async` runs the post-NM chain on a
 worker thread and a CUDA stream of its own (device.Background), on a
@@ -284,11 +286,12 @@ class BatchedFitter:
 
     def run_neldermead(self, mapper, best_vel0=None, priors=None,
                        maxrestart=2, fatol=5e-2, xatol=None, maxiter=384,
-                       x0=None, nm_chunk=64):
+                       x0=None, nm_chunk=64, scheme=None):
         """Batched Nelder-Mead over fibers, with straggler compaction.
 
-        Rounds of ``nm_chunk`` iterations run on the fibers that have
-        not converged, gathered into one tile (or tiles of at most
+        Rounds of ``nm_chunk`` iterations (``RVST_NM_CHUNK`` overrides
+        it when set and non-zero) run on the fibers that have not
+        converged, gathered into one tile (or tiles of at most
         ``microbatch``): once most fibers have converged a round costs
         only the stragglers.  (The reference's
         ladder of padded tile widths exists to bound XLA's compiled
@@ -304,17 +307,22 @@ class BatchedFitter:
         ``RVST_NM_XATOL_FRAC`` (8%) of the mapper's per-dimension
         scales (the refinement owns the velocity endgame); the first
         simplex spans ``RVST_NM_SIMPLEX_SCALE`` (1) times those scales,
-        a restart's the scales.  Returns host x (B, nvec), fun (B,),
+        a restart's the scales.  ``scheme``: neldermead's candidate
+        scheme (None: ``RVST_NM_SCHEME``, read once per call, and
+        handed to every shard).  Returns host x (B, nvec), fun (B,),
         converged (B,), obj_evals (the fiber-trials dispatched: nvec +
-        1 per simplex set up and 2 per fiber and iteration of its tile;
+        1 per simplex set up and neldermead.nm_ncand(scheme), 2 under
+        scan2 and 4 under cand4, per fiber and iteration of its tile;
         the rare shrink steps' evaluations are not counted).
         """
+        scheme = nm.nm_scheme(scheme)
+        chunk = int(os.environ.get('RVST_NM_CHUNK', '0')) or nm_chunk
         if self.shards:
             return self._on_shards(
                 'run_neldermead', dict(best_vel0=best_vel0, x0=x0),
                 mapper=mapper, priors=priors, maxrestart=maxrestart,
                 fatol=fatol, xatol=xatol, maxiter=maxiter,
-                nm_chunk=nm_chunk)
+                nm_chunk=chunk, scheme=scheme)
         if x0 is None:
             x0 = np.tile(mapper.start_vector(0.0), (self.nfibers, 1))
             x0[:, 0] = np.asarray(best_vel0)
@@ -334,7 +342,7 @@ class BatchedFitter:
         fvals = torch.zeros((b, nvec + 1), dtype=torch.float64,
                             device=self.device)
         done = torch.zeros(b, dtype=torch.bool, device=self.device)
-        evals = 0
+        evals, ncand = 0, nm.nm_ncand(scheme)
 
         def objective(idx):
             return nm.in_working_dtype(
@@ -368,10 +376,10 @@ class BatchedFitter:
                 for t in self._tiles(undone):
                     s, f, d, it = nm.nm_chunk(objective(t), simplex[t],
                                               fvals[t], done[t], fatol,
-                                              xatol, nm_chunk)
+                                              xatol, chunk, scheme)
                     simplex[t], fvals[t], done[t] = s, f, d
-                    evals += t.numel() * it * 2
-                nit += nm_chunk
+                    evals += t.numel() * it * ncand
+                nit += chunk
         rows = torch.arange(b, device=self.device)
         ib = torch.argmin(fvals, dim=1)
         return dict(x=simplex[rows, ib].double().cpu().numpy(),

@@ -1,12 +1,20 @@
 """Batched Nelder-Mead simplex minimization.
 
-Counterpart of rvspecfit_tpu/fit/neldermead.py with its production
-``scan2`` scheme: per iteration each live instance evaluates the
-reflection, then ONE second candidate derived from it (expansion or a
-contraction), following scipy's decisions (alpha=1, gamma=2, rho=0.5,
-sigma=0.5); the rare shrink evaluates the shrunk simplex only when a
-live instance needs it.  Converged instances are frozen by masking,
-and the convergence test is scipy's with a per-dimension ``xatol``.
+Counterpart of rvspecfit_tpu/fit/neldermead.py: scipy's decisions
+(alpha=1, gamma=2, rho=0.5, sigma=0.5) over a batch of instances, with
+either of the reference's two candidate schemes (``RVST_NM_SCHEME``,
+:func:`nm_scheme`):
+
+* ``scan2`` (the default): per iteration each live instance evaluates
+  the reflection, then ONE second candidate derived from it (expansion
+  or a contraction): two sequential (B, 1) objective calls;
+* ``cand4``: the reflection, the expansion and both contractions in
+  one (B, 4) objective call: half the calls, twice the trials.
+
+Both take the same decisions.  The rare shrink evaluates the shrunk
+simplex only when a live instance needs it.  Converged instances are
+frozen by masking, and the convergence test is scipy's with a
+per-dimension ``xatol``.
 
 The objective is ``fun(x (B, K, n)) -> (B, K)``: instance b evaluates
 its own K candidate points.
@@ -20,8 +28,12 @@ objective's precision.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
+
+SCHEMES = ('scan2', 'cand4')
 
 # Simplex noise of the reference's build_simplex: the first n*n values
 # of jax.random.normal(jax.random.PRNGKey(seed), (1, n, n),
@@ -96,6 +108,25 @@ def build_simplex(x0, scales, seed):
     return np.concatenate([x0[:, None, :], verts], axis=1)
 
 
+def nm_scheme(scheme=None):
+    """The candidate scheme: ``scheme``, or where it is None
+    ``RVST_NM_SCHEME`` (default ``scan2``, the reference's default).
+    Any other value than those of ``SCHEMES`` raises ValueError (the
+    reference runs ``scan2`` for it)."""
+    if scheme is None:
+        scheme = os.environ.get('RVST_NM_SCHEME', 'scan2')
+    if scheme not in SCHEMES:
+        raise ValueError(f'Nelder-Mead scheme {scheme!r} (RVST_NM_SCHEME):'
+                         f' expected one of {SCHEMES}')
+    return scheme
+
+
+def nm_ncand(scheme=None):
+    """Objective trials per NM iteration and instance under ``scheme``
+    (None: :func:`nm_scheme`)."""
+    return 2 if nm_scheme(scheme) == 'scan2' else 4
+
+
 def _stats(simplex, fvals):
     """Worst/best rows, worst, second-worst and best values."""
     big = torch.finfo(simplex.dtype).max / 4
@@ -123,8 +154,9 @@ def converged(simplex, fvals, fatol, xatol):
     return (fspread <= fatol) & (xdev <= xa).all(1)
 
 
-def _step(fun, simplex, fvals, done, fatol, xatol):
-    """One iteration on an unsorted simplex (scan2 scheme)."""
+def _step(fun, simplex, fvals, done, fatol, xatol, scheme=None):
+    """One iteration on an unsorted simplex under ``scheme`` (None:
+    :func:`nm_scheme`)."""
     alpha, gamma, rho, sigma = 1.0, 2.0, 0.5, 0.5
     n = simplex.shape[2]
     iw, ib, f_worst, f_second, f_best = _stats(simplex, fvals)
@@ -133,19 +165,35 @@ def _step(fun, simplex, fvals, done, fatol, xatol):
     centroid = (simplex.sum(1) - worst) / n
 
     xr = centroid + alpha * (centroid - worst)
-    fr = fun(xr[:, None, :])[:, 0]
-    # the one second candidate: fr < f_best -> expansion; fr >= f_worst
-    # -> inside contraction; otherwise outside contraction (for fr in
-    # [f_best, f_second) scipy accepts xr and this value goes unused)
-    x2 = torch.where((fr < f_best)[:, None],
-                     centroid + gamma * (xr - centroid),
-                     torch.where((fr >= f_worst)[:, None],
-                                 centroid - rho * (centroid - worst),
-                                 centroid + rho * (xr - centroid)))
-    f2 = fun(x2[:, None, :])[:, 0]
+    if nm_scheme(scheme) == 'cand4':
+        # every candidate in one call, in the reference's order
+        xe = centroid + gamma * (xr - centroid)
+        xc_out = centroid + rho * (xr - centroid)
+        xc_in = centroid - rho * (centroid - worst)
+        fr, fe, fco, fci = fun(torch.stack([xr, xe, xc_out, xc_in],
+                                           1)).unbind(1)
+        # under this scheme f2 is a contraction's value when the
+        # expansion is rejected: the expansion's test reads fe
+        take_expansion = (fr < f_best) & (fe < fr)
+        inside = fr >= f_worst
+        x2 = torch.where(take_expansion[:, None], xe,
+                         torch.where(inside[:, None], xc_in, xc_out))
+        f2 = torch.where(take_expansion, fe, torch.where(inside, fci, fco))
+    else:
+        fr = fun(xr[:, None, :])[:, 0]
+        # the one second candidate: fr < f_best -> expansion; fr >=
+        # f_worst -> inside contraction; otherwise outside contraction
+        # (for fr in [f_best, f_second) scipy accepts xr and this value
+        # goes unused)
+        x2 = torch.where((fr < f_best)[:, None],
+                         centroid + gamma * (xr - centroid),
+                         torch.where((fr >= f_worst)[:, None],
+                                     centroid - rho * (centroid - worst),
+                                     centroid + rho * (xr - centroid)))
+        f2 = fun(x2[:, None, :])[:, 0]
+        take_expansion = (fr < f_best) & (f2 < fr)
 
     expand = fr < f_best
-    take_expansion = expand & (f2 < fr)
     contract_out = (fr >= f_second) & (fr < f_worst)
     contract_in = fr >= f_worst
     accept_r = (~expand & ~contract_out & ~contract_in) | \
@@ -180,13 +228,15 @@ def nm_init(fun, simplex, fatol, xatol):
     return fvals, converged(simplex, fvals, fatol, xatol)
 
 
-def nm_chunk(fun, simplex, fvals, done, fatol, xatol, chunk):
-    """Advance up to ``chunk`` iterations, stopping early once every
-    instance has converged.  Returns (simplex, fvals, done, iters)."""
+def nm_chunk(fun, simplex, fvals, done, fatol, xatol, chunk, scheme=None):
+    """Advance up to ``chunk`` iterations under ``scheme`` (None:
+    :func:`nm_scheme`, read once), stopping early once every instance
+    has converged.  Returns (simplex, fvals, done, iters)."""
+    scheme = nm_scheme(scheme)
     it = 0
     while it < chunk and not bool(done.all()):
         simplex, fvals, done = _step(fun, simplex, fvals, done, fatol,
-                                     xatol)
+                                     xatol, scheme)
         it += 1
     return simplex, fvals, done, it
 
@@ -199,7 +249,7 @@ def in_working_dtype(fun, dtype):
 
 
 def minimize_batch(fun, simplex, fatol=1e-3, xatol=1e-2, maxiter=2000,
-                   dtype=None):
+                   dtype=None, scheme=None):
     """Minimize ``fun`` from a batch of starting simplexes.
 
     simplex : (B, n+1, n) tensor; the bookkeeping runs in float64 on
@@ -209,11 +259,14 @@ def minimize_batch(fun, simplex, fatol=1e-3, xatol=1e-2, maxiter=2000,
         dimension)
     maxiter : iteration cap; the loop runs :func:`nm_chunk` for up to
         64 iterations at a time, stopping once every instance converged
+    scheme : ``'scan2'``, ``'cand4'`` or None (:func:`nm_scheme`, read
+        once per call)
 
     Returns dict(x (B, n), fun (B,), converged (B,), nit,
     final_simplex (B, n+1, n)) as float64 tensors, each simplex sorted
     by value (row 0 the best vertex) as the reference returns it.
     """
+    scheme = nm_scheme(scheme)
     fun = in_working_dtype(fun, dtype or simplex.dtype)
     simplex = simplex.to(torch.float64)
     xatol = torch.as_tensor(np.asarray(xatol, np.float64),
@@ -223,7 +276,7 @@ def minimize_batch(fun, simplex, fatol=1e-3, xatol=1e-2, maxiter=2000,
     while nit < maxiter and not bool(done.all()):
         simplex, fvals, done, it = nm_chunk(fun, simplex, fvals, done,
                                             fatol, xatol,
-                                            min(64, maxiter - nit))
+                                            min(64, maxiter - nit), scheme)
         nit += it
     order = torch.argsort(fvals, dim=1, stable=True)
     fvals = fvals.gather(1, order)

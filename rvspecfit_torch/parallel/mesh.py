@@ -29,6 +29,10 @@ the host, and does nothing on a one-card host, in a process that is a
 rank of a multi-process world (its devices are its one card, as the
 reference's ``jax.local_devices()`` are a rank's), or with
 ``RVST_NO_MESH=1``.
+
+:func:`make_grid` lays devices out as a two-axis grid, the counterpart
+of the reference's ``Mesh(devices.reshape(D, M), ('data', 'model'))``
+that its NN trainer shards over (pipeline/train_nn.py ``mesh=``).
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ import concurrent.futures
 import copy
 import os
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +59,46 @@ def make_mesh(devices):
     if not mesh:
         raise ValueError('a mesh needs at least one device')
     return mesh
+
+
+class Grid(NamedTuple):
+    """A two-axis device grid: ``devices`` holds shape[0] rows of
+    shape[1] torch devices, ``axis_names`` names the rows' axis, then
+    the columns'."""
+    devices: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self):
+        return len(self.devices), len(self.devices[0])
+
+    def layout(self, row_axis, col_axis):
+        """The devices as rows over ``row_axis`` of columns over
+        ``col_axis`` (transposed where the grid names them the other
+        way round)."""
+        if (row_axis, col_axis) == self.axis_names:
+            return self.devices
+        if (col_axis, row_axis) == self.axis_names:
+            return tuple(zip(*self.devices))
+        raise ValueError(f'the grid\'s axes are {self.axis_names}, not '
+                         f'{row_axis!r} and {col_axis!r}')
+
+
+def make_grid(devices, shape, axis_names=('data', 'model')):
+    """The devices of ``devices`` (names or devices, repeats allowed, as
+    :func:`make_mesh` takes them) laid out row-major as a grid of
+    ``shape`` (rows, columns) with ``axis_names``: grid.devices[d][m]
+    is the device of row d and column m."""
+    flat = make_mesh(devices)
+    rows, cols = (int(n) for n in shape)
+    if rows < 1 or cols < 1 or rows * cols != len(flat):
+        raise ValueError(f'{len(flat)} devices do not make a grid of shape '
+                         f'{tuple(shape)}')
+    axis_names = tuple(axis_names)
+    if len(axis_names) != 2 or axis_names[0] == axis_names[1]:
+        raise ValueError(f'a grid needs two axis names, not {axis_names}')
+    return Grid(tuple(flat[r * cols:(r + 1) * cols] for r in range(rows)),
+                axis_names)
 
 
 def shard_bounds(nfibers, nshards):

@@ -26,10 +26,14 @@ data order, loss, schedule, checkpoints and artifacts:
 
 Everything runs on one device (None: the CUDA card) in its working
 dtype; the epoch's loss is summed there and read once per epoch, for
-the plateau test.  The reference's SPMD mesh is not ported
-(``mesh=`` raises).  Reading ``specs_{setup}.h5`` and writing the
-artifacts (:func:`execute`, :func:`main`) needs ``h5py``; without it
-:func:`train_interpolator` trains in memory.
+the plateau test.  ``mesh=`` (a parallel/mesh.make_grid grid with
+``('data', 'model')`` axes) trains the reference's tensor-parallel
+layout instead (:class:`ShardedMLP`): the batch split over
+``data``, the hidden widths over ``model``, one autograd graph across
+the grid's devices driven from the calling thread.  Reading
+``specs_{setup}.h5`` and writing the artifacts (:func:`execute`,
+:func:`main`) needs ``h5py``; without it :func:`train_interpolator`
+trains in memory.
 """
 from __future__ import annotations
 
@@ -42,6 +46,7 @@ import sys
 import numpy as np
 import scipy.spatial
 import torch
+import torch.nn.functional as F
 
 from rvspecfit_torch import __version__ as git_rev
 from rvspecfit_torch import serializer
@@ -75,6 +80,126 @@ def pca_init_pc_layer(targets_std, npc):
     return (vt * signs[:, None])[:npc], mean
 
 
+class ShardedMLP:
+    """The trainable weights of NNInterpolator ``model`` laid over a
+    (data, model) ``grid`` (parallel/mesh.make_grid) as the reference's
+    shard_training lays them over a jax Mesh
+    (rvspecfit_tpu/pipeline/train_nn.py:72-102):
+
+    * every hidden layer (``ndim -> width``, then ``width -> width``)
+      column-sharded, its output features split over ``model`` into M
+      contiguous blocks, with its bias and batch-norm affine;
+    * the bottleneck (``width -> npc``) row-sharded, its input features
+      split the same way, its bias replicated;
+    * the output layer replicated; the standardization and the hull
+      are not trained.
+
+    The trained tensors (``parameters``) are one copy per shard: model
+    shard m's on the device of grid row 0 and column m, the replicated
+    ones on that of row 0, column 0.  :meth:`loss` copies them to the
+    other rows with differentiable ``.to()``, so one backward sums each
+    copy's gradients over the data parts and one optimizer step over
+    ``parameters`` is the unsharded step up to rounding."""
+
+    def __init__(self, model, grid, data_axis='data', model_axis='model'):
+        self.devices = grid.layout(data_axis, model_axis)
+        self.shape = (len(self.devices), len(self.devices[0]))
+        nmod = self.shape[1]
+        width = model.layers[0].out_features
+        if width % nmod:
+            raise ValueError(f'width {width} does not split over the '
+                             f'{nmod} devices of the {model_axis!r} axis')
+        self.model = model
+        self.mean, self.std = model.mean, model.std
+        self.act = model.act
+        blk = width // nmod
+        home = self.devices[0]
+
+        def split(t, dim):
+            return [torch.nn.Parameter(x.detach().to(home[m]).clone())
+                    for m, x in enumerate(t.split(blk, dim))]
+        # per column-sharded layer: (weight shards, bias shards, batch-norm
+        # scale shards or None, shift shards or None)
+        self.hidden = []
+        for i, lin in enumerate(model.layers[:-1]):
+            bn = [split(getattr(model, f'bn_{part}_{i}'), 0)
+                  for part in ('scale', 'shift')] \
+                if i in model.bn_layers else [None, None]
+            self.hidden.append((split(lin.weight, 0), split(lin.bias, 0),
+                                *bn))
+        last = model.layers[-1]
+        self.bottleneck = split(last.weight, 1)
+        keep = lambda t: torch.nn.Parameter(  # noqa: E731
+            t.detach().to(home[0]).clone())
+        self.replicated = [keep(last.bias), keep(model.output.weight),
+                           keep(model.output.bias)]
+
+    def parameters(self):
+        for w, b, sc, sh in self.hidden:
+            yield from w
+            yield from b
+            yield from sc or ()
+            yield from sh or ()
+        yield from self.bottleneck
+        yield from self.replicated
+
+    def _part(self, x, y, row):
+        """The L1 mean of one data part (x standardized) on its row."""
+        devs = self.devices[row]
+        ins = [x.to(dev) for dev in devs]
+        outs = None
+        for i, (w, b, sc, sh) in enumerate(self.hidden):
+            outs = []
+            for m, dev in enumerate(devs):
+                h = self.act(F.linear(ins[m], w[m].to(dev), b[m].to(dev)))
+                if sc is not None:
+                    h = h * sc[m].to(dev) + sh[m].to(dev)
+                outs.append(h)
+            if i + 1 < len(self.hidden):
+                # all-gather the next layer's input over the model axis
+                ins = [torch.cat([h.to(dev) for h in outs], 1)
+                       for dev in devs]
+        # the bottleneck's partial products summed over the model axis
+        z = sum(F.linear(h, w.to(dev)).to(devs[0])
+                for h, w, dev in zip(outs, self.bottleneck, devs))
+        bias, pc_w, pc_b = (t.to(devs[0]) for t in self.replicated)
+        out = F.linear(self.act(z + bias), pc_w, pc_b)
+        return torch.mean(torch.abs(out - y.to(devs[0])))
+
+    def loss(self, x, y, spread0):
+        """The batch's loss on the device of row 0, column 0: the mean of
+        the D contiguous data parts' L1 means over ``spread0``."""
+        ndata = self.shape[0]
+        if x.shape[0] % ndata:
+            raise ValueError(f'a batch of {x.shape[0]} does not split over '
+                             f'the {ndata} devices of the data axis')
+        x = (x.to(self.mean.dtype) - self.mean) / self.std
+        home = self.devices[0][0]
+        parts = [self._part(xp, yp, d).to(home) for d, (xp, yp) in
+                 enumerate(zip(x.chunk(ndata), y.chunk(ndata)))]
+        return sum(parts) / (ndata * spread0)
+
+    def gather(self):
+        """Write the shards into the unsharded model (on its device);
+        returns the model."""
+        model = self.model
+        dev = model.mean.device
+        cat = lambda ts, dim: torch.cat(  # noqa: E731
+            [t.detach().to(dev) for t in ts], dim)
+        with torch.no_grad():
+            for i, (w, b, sc, sh) in enumerate(self.hidden):
+                model.layers[i].weight.copy_(cat(w, 0))
+                model.layers[i].bias.copy_(cat(b, 0))
+                if sc is not None:
+                    getattr(model, f'bn_scale_{i}').copy_(cat(sc, 0))
+                    getattr(model, f'bn_shift_{i}').copy_(cat(sh, 0))
+            model.layers[-1].weight.copy_(cat(self.bottleneck, 1))
+            for dst, src in zip((model.layers[-1].bias, model.output.weight,
+                                 model.output.bias), self.replicated):
+                dst.copy_(src.detach().to(dev))
+        return model
+
+
 def fold_output_standardization(model, t_mean, t_std):
     """Fold the target standardization y_raw = y t_std + t_mean into
     the output layer of ``model`` (in place), so that its output is the
@@ -100,15 +225,18 @@ def train_interpolator(vecs_mapped, log_specs, width=256, nlayers=3,
     vecs_mapped : (nspec, ndim) mapped (log10 teff) parameters;
     log_specs : (nspec, npix) log template spectra; device : None (the
     CUDA card) or a torch device; dtype : None (the device's working
-    dtype) or a torch dtype.
+    dtype) or a torch dtype; mesh : None, or a (data, model) grid
+    (parallel/mesh.make_grid) to train on as :class:`ShardedMLP` lays
+    it out: ``width`` must split evenly over the ``model`` axis
+    and ``min(batch_size, ntrain)`` over the ``data`` axis (else
+    ValueError).  The PCA initialization and ``resume`` act on the
+    unsharded model before it is laid out; checkpoints hold the
+    gathered weights.
 
     Returns (interp/nn.NNInterpolator on ``device`` with the output
     standardization folded in and no gradients, history dict: loss
     and lr per epoch, t_mean, t_std, spread0).
     """
-    if mesh is not None:
-        raise NotImplementedError('sharded training over a mesh is not '
-                                  'ported (ROADMAP A4)')
     device = resolve_device(device)
     dtype = dtype or dtype_for(device)
     vecs_mapped = np.asarray(vecs_mapped, np.float64)
@@ -166,11 +294,22 @@ def train_interpolator(vecs_mapped, log_specs, width=256, nlayers=3,
         start_epoch = int(ck['epoch'])
         logging.info('resumed NN training at epoch %d', start_epoch)
 
-    model.requires_grad_(True)
-    optimizer = torch.optim.Adam(model.parameters(), lr=lr0)
     history = dict(loss=[], lr=[])
     ntr = len(tr_idx)
     bs = min(batch_size, ntr)
+    if mesh is None:
+        model.requires_grad_(True)
+        params = model.parameters()
+        loss_fn = lambda x, y: torch.mean(  # noqa: E731
+            torch.abs(model(x) - y)) / spread0
+    else:
+        sharded = ShardedMLP(model, mesh)
+        if bs % sharded.shape[0]:
+            raise ValueError(f'a batch of {bs} does not split over the '
+                             f'{sharded.shape[0]} devices of the data axis')
+        params = sharded.parameters()
+        loss_fn = lambda x, y: sharded.loss(x, y, spread0)  # noqa: E731
+    optimizer = torch.optim.Adam(params, lr=lr0)
     # host-side reduce-on-plateau, as the reference's
     cur_lr = lr0
     best_loss = np.inf
@@ -183,11 +322,11 @@ def train_interpolator(vecs_mapped, log_specs, width=256, nlayers=3,
         nb = 0
         for i in range(0, max(ntr - bs + 1, 1), bs):
             sel = order[i:i + bs]
-            loss = torch.mean(torch.abs(model(xs[sel]) - ys[sel])) / spread0
+            loss = loss_fn(xs[sel], ys[sel])
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
             optimizer.step()
-            ep_loss = ep_loss + loss.detach()
+            ep_loss = ep_loss + loss.detach().to(device)
             nb += 1
         ep_loss = float(ep_loss) / max(nb, 1)
         if ep_loss < best_loss * (1 - 1e-4):
@@ -204,6 +343,8 @@ def train_interpolator(vecs_mapped, log_specs, width=256, nlayers=3,
             logging.info('epoch %d loss %.5f lr %.2e', epoch, ep_loss,
                          cur_lr)
         if checkpoint_path and (epoch + 1) % checkpoint_every == 0:
+            if mesh is not None:
+                sharded.gather()
             serializer.save_dict_to_hdf5(
                 checkpoint_path,
                 dict(state=nn_mod.state_to_dict(model), epoch=epoch + 1))
@@ -211,6 +352,8 @@ def train_interpolator(vecs_mapped, log_specs, width=256, nlayers=3,
             logging.info('stopping: lr below min_lr at epoch %d', epoch)
             break
 
+    if mesh is not None:
+        sharded.gather()
     model.requires_grad_(False)
     fold_output_standardization(model, t_mean, t_std)
     history['t_mean'] = t_mean

@@ -43,8 +43,12 @@ def _rosen(x):
             + (1.0 - x[..., :-1])**2).sum(-1)
 
 
-def test_neldermead_chunks_match_reference():
-    """Same simplexes after init and each chunk (scan2 scheme)."""
+@pytest.mark.parametrize('scheme', ['scan2', 'cand4'])
+def test_neldermead_chunks_match_reference(scheme, monkeypatch):
+    """Same simplexes after init and each chunk, under either candidate
+    scheme (RVST_NM_SCHEME on both sides; the reference keys its
+    stepper by scheme)."""
+    monkeypatch.setenv('RVST_NM_SCHEME', scheme)
     x0 = np.random.RandomState(1).uniform(-1.5, 1.5, (6, 3))
     simplex = rnm.build_simplex(jnp.asarray(x0), np.full(3, 0.3),
                                 seed=vel_fit.SIMPLEX_SEED)
@@ -159,6 +163,40 @@ def test_slice_ccf_and_neldermead(slice_runs):
     np.testing.assert_array_equal(p['nm']['converged'],
                                   r['nm']['converged'])
     np.testing.assert_allclose(p['nm']['fun'], r['nm']['fun'], rtol=1e-6)
+
+
+def test_slice_neldermead_cand4(slice_runs, monkeypatch):
+    """The slice's NM under RVST_NM_SCHEME=cand4 on both sides, from the
+    CCF starts of the scan2 runs: same convergence, values within rtol
+    1e-6, and the trials counted at 4 per fiber and iteration (more
+    than the scan2 run's 2)."""
+    monkeypatch.setenv('RVST_NM_SCHEME', 'cand4')
+    rtm = rsim.build_template_model(3, 3, 3, 2, npix=512)
+    arms_data, _ = rsim.make_exposure(8, npix_arm=160, seed=3)
+    tm = convert.template_model(rtm, device='cpu')
+    cfg = dict(CONFIG, second_minimizer=False, template_lib='')
+    res = {}
+    for side in ('ref', 'port'):
+        c = slice_runs[side]['ccf']
+        x0 = np.concatenate([c['best_vel'][:, None], c['best_params']], 1)
+        if side == 'ref':
+            monkeypatch.delenv('RVST_PALLAS_SPLINE', raising=False)
+            bf = rbatch.BatchedFitter(
+                [rbatch.BatchArm(n, *a) for n, a in arms_data.items()],
+                {n: rtm for n in arms_data}, freeze(cfg),
+                options={'npoly': 10})
+            mapper = rvf.ParamMapper(rtm.parnames, START, [], None, False)
+        else:
+            bf = batch.BatchedFitter(
+                [batch.BatchArm(n, *a) for n, a in arms_data.items()],
+                {n: tm for n in arms_data}, CONFIG, options={'npoly': 10})
+            mapper = vel_fit.ParamMapper(tm.parnames, START, [], None,
+                                         False)
+        res[side] = bf.run_neldermead(mapper, c['best_vel'], x0=x0)
+    r, p = res['ref'], res['port']
+    np.testing.assert_array_equal(p['converged'], r['converged'])
+    np.testing.assert_allclose(p['fun'], r['fun'], rtol=1e-6)
+    assert p['obj_evals'] > slice_runs['port']['nm']['obj_evals']
 
 
 def test_slice_refinement_and_models(slice_runs):

@@ -152,11 +152,14 @@ def test_resume_trains_only_the_remaining_epochs(tmp_path):
 
 
 def test_no_card_and_mesh_raise(monkeypatch):
-    """No fallback: without device='cpu' the trainer needs the card; the
-    reference's SPMD mesh is not ported."""
+    """No fallback: without device='cpu' the trainer needs the card; a
+    grid whose model axis does not divide the width is refused, as the
+    reference's NamedSharding refuses uneven shards."""
+    from rvspecfit_torch.parallel import mesh as pmesh
     x, specs = _training_set()
-    with pytest.raises(NotImplementedError, match='ROADMAP A4'):
-        train_nn.train_interpolator(x, specs, mesh=object(), device='cpu')
+    with pytest.raises(ValueError, match='does not split'):
+        train_nn.train_interpolator(x, specs, device='cpu', **dict(
+            SMALL, width=30), mesh=pmesh.make_grid(['cpu'] * 4, (1, 4)))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train_nn.train_interpolator(x, specs, num_epochs=1)

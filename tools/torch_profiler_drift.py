@@ -3,12 +3,12 @@
 
 Usage (from the root of a checkout, on a machine with a CUDA card):
 
-    python3 tools/torch_profiler_drift.py [--files 6] [--no-profile]
+    python3 tools/torch_profiler_drift.py [--files 4] [--no-profile]
 
 Writes ``--files`` coadds of 500 fibers (chip_smoke.py's phase-17 cell:
 seeds 100..., in-memory models and banks, float64, coalesce 2) and runs
 survey/desi.proc_many over them with the overlap switches at 0, then
-at their defaults; then once over 4 files under torch.profiler
+at their defaults; then once over the first 4 files under torch.profiler
 (chip_smoke.device_busy), or, with ``--no-profile``, the same run
 without the profiler; then at the defaults and at 0 again.  Prints
 per run the steady s/file from the status stamps, the cold group and
@@ -64,7 +64,7 @@ def main():
                       f'{out["wall"]:.3f} s', flush=True)
             if stage == 'after':
                 break
-            sub = files[:cs.OVERLAP_PROFILED_FILES]
+            sub = files[:4]
             if args.no_profile:
                 out = run('middle', sub, False)
                 print(f'middle run without the profiler: wall '
