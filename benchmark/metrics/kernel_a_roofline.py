@@ -1,0 +1,9 @@
+"""Kernel A's share of its roofline: the least time of the launches in
+the traced window (the program's ``kernel_a`` events, at their shapes:
+kernels/kernel_a/work.py) over the device time of the kernels that
+kernels/kernel_a/*.json name."""
+from benchlib import program_trace as pt
+
+
+def read(ctx, win, dtrace):
+    return pt.kernel_share(ctx, dtrace, 'kernel_a')

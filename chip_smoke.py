@@ -260,14 +260,15 @@ def environment():
 def build_kernels():
     """Both kernel libraries through pipeline/prewarm.build_kernels (one
     nvcc per source, started together), and what nvcc reported."""
-    from rvspecfit_torch.ops import cuda_build
+    from rvspecfit_torch import trace
     from rvspecfit_torch.pipeline import prewarm
     t0 = time.perf_counter()
     prewarm.build_kernels()
     log(f'kernel build: {time.perf_counter() - t0:.2f} s')
-    for name, info in cuda_build.build_log.items():
-        log(f'  {name}: nvcc {info["seconds"]:.2f} s; ptxas: '
-            + ' | '.join(line.strip() for line in info['ptxas'].splitlines()
+    for rec in trace.kept('kernel.build'):
+        log(f'  {rec.attrs["kernel"]}: nvcc {rec.seconds:.2f} s; ptxas: '
+            + ' | '.join(line.strip() for line in rec.attrs['ptxas']
+                         .splitlines()
                          if 'registers' in line or 'spill' in line))
 
 
@@ -667,33 +668,26 @@ def check_outputs(out, nfib, npix):
           f'{int(worse.sum())} fibers')
 
 
-KERNELS = ('spline_eval_per_row', 'spline_eval_shared', 'ccf_chisq',
-           'spline_eval_adjoint')
+# each kernel's launch counter in rvspecfit_torch.trace, by the name
+# this script gives it, before the form
+KERNELS = dict(spline_eval_per_row='kernel_a.per_row',
+               spline_eval_shared='kernel_a.shared', ccf_chisq='kernel_b',
+               spline_eval_adjoint='kernel_a_adjoint')
 
 
 def kernel_counts():
     """Launches since the last reset by form and kernel: {form: {kernel:
-    n}} (the wrappers count all launches and the float32 forms' apart)."""
-    from rvspecfit_torch.ops import ccf_chisq, spline_eval
-    f32 = spline_eval.float32_launches
-    f32 = dict(spline_eval_per_row=f32['per_row'],
-               spline_eval_shared=f32['shared'],
-               ccf_chisq=ccf_chisq.float32_launches,
-               spline_eval_adjoint=f32['adjoint'])
-    total = dict(spline_eval_per_row=spline_eval.row_launches,
-                 spline_eval_shared=spline_eval.shared_launches,
-                 ccf_chisq=ccf_chisq.launches,
-                 spline_eval_adjoint=spline_eval.adjoint_launches)
-    return dict(float64={k: total[k] - f32[k] for k in KERNELS},
-                float32=f32)
+    n}} (rvspecfit_torch.trace's counters)."""
+    from rvspecfit_torch import trace
+    c = trace.counters()
+    return {f: {k: c.get(f'{name}.{f}', 0) for k, name in KERNELS.items()}
+            for f in FORMS}
 
 
 def reset_counts():
-    from rvspecfit_torch.ops import ccf_chisq, spline_eval
-    spline_eval.launches = spline_eval.adjoint_launches = 0
-    spline_eval.row_launches = spline_eval.shared_launches = 0
-    spline_eval.float32_launches.update(per_row=0, shared=0, adjoint=0)
-    ccf_chisq.launches = ccf_chisq.float32_launches = 0
+    from rvspecfit_torch import trace
+    for name in KERNELS.values():
+        trace.reset_counters(name + '.')
 
 
 def check_launches(name, counts, form='float64', unused=()):
@@ -2910,8 +2904,8 @@ def nm_accounting(record):
     calls and rows), its simplex set-ups (init_calls) and their rows
     (init_rows), and kernel A's per-row launches inside run_neldermead
     (nm_row_launches)."""
+    from rvspecfit_torch import trace
     from rvspecfit_torch.fit import batch, neldermead as nm
-    from rvspecfit_torch.ops import spline_eval
     real_obj, real_step, real_init = (batch.BatchedFitter._objective,
                                       nm._step, nm.nm_init)
     real_nm = batch.BatchedFitter.run_neldermead
@@ -2938,10 +2932,13 @@ def nm_accounting(record):
         record['init_calls'] += 1
         return real_init(fun, simplex, *args)
 
+    def row_launches():
+        return sum(trace.counters('kernel_a.per_row.').values())
+
     def run_nm(self, *args, **kwargs):
-        before = spline_eval.row_launches
+        before = row_launches()
         out = real_nm(self, *args, **kwargs)
-        record['nm_row_launches'] += spline_eval.row_launches - before
+        record['nm_row_launches'] += row_launches() - before
         return out
     with mock.patch.object(batch.BatchedFitter, '_objective', objective), \
             mock.patch.object(nm, '_step', step), \

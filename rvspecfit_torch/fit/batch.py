@@ -47,11 +47,11 @@ import copy
 import logging
 import math
 import os
-import time
 
 import numpy as np
 import torch
 
+from rvspecfit_torch import trace
 from rvspecfit_torch.device import Background, map_tensors
 from rvspecfit_torch.fit import neldermead as nm
 from rvspecfit_torch.fit.find_best import scan_stats
@@ -313,7 +313,11 @@ class BatchedFitter:
         converged (B,), obj_evals (the fiber-trials dispatched: nvec +
         1 per simplex set up and neldermead.nm_ncand(scheme), 2 under
         scan2 and 4 under cand4, per fiber and iteration of its tile;
-        the rare shrink steps' evaluations are not counted).
+        the rare shrink steps' evaluations are not counted).  Each round
+        of a tile is a span ``fit.nm.round`` (:mod:`rvspecfit_torch.trace`)
+        with its restart, width, iters and live_iters (neldermead.
+        nm_chunk's ``stats``); the counters ``fit.nm.live_iters`` and
+        ``fit.nm.tile_iters`` add up live_iters and width x iters.
         """
         scheme = nm.nm_scheme(scheme)
         chunk = int(os.environ.get('RVST_NM_CHUNK', '0')) or nm_chunk
@@ -374,10 +378,16 @@ class BatchedFitter:
                 logging.info('NM restart %d nit %d: %d/%d unconverged',
                              restart, nit, undone.numel(), b)
                 for t in self._tiles(undone):
-                    s, f, d, it = nm.nm_chunk(objective(t), simplex[t],
-                                              fvals[t], done[t], fatol,
-                                              xatol, chunk, scheme)
-                    simplex[t], fvals[t], done[t] = s, f, d
+                    with trace.span('fit.nm.round', restart=restart,
+                                    width=t.numel()) as sp:
+                        stats = {}
+                        s, f, d, it = nm.nm_chunk(
+                            objective(t), simplex[t], fvals[t], done[t],
+                            fatol, xatol, chunk, scheme, stats)
+                        simplex[t], fvals[t], done[t] = s, f, d
+                        sp.set(iters=it, **stats)
+                    trace.count('fit.nm.live_iters', stats['live_iters'])
+                    trace.count('fit.nm.tile_iters', t.numel() * it)
                     evals += t.numel() * it * ncand
                 nit += chunk
         rows = torch.arange(b, device=self.device)
@@ -621,28 +631,34 @@ class BatchedFitter:
         Returns dict(x, fun, params, vsini, ref, errs, covars,
         bad_hess, mods), the keys of the reference's run_tail_async
         collect(), and phases: wall seconds of polish, refine, hessian
-        and models (each stage ends in a fetch to the host)."""
-        t = [time.perf_counter()]
-        x = np.asarray(x, np.float64)
-        if polish:
-            pol = self.run_polish(mapper, x, priors=priors, fun0=fun)
-            x, fun = pol['x'], pol['fun']
-        elif fun is not None:
-            fun = np.asarray(fun, np.float64)
-        t.append(time.perf_counter())
-        vel, params, vsini = mapper.unpack_host(x)
-        ref = self.refine_velocities(vel, params, vsinis=vsini)
-        t.append(time.perf_counter())
-        errs, covars, bad = self.hessian_errors(
-            ref['best_vel'], params, vsinis=vsini, priors=priors,
-            parnames=parnames)
-        t.append(time.perf_counter())
-        mods = self.best_models(ref['best_vel'], params, vsinis=vsini)
-        t.append(time.perf_counter())
+        and models (each stage ends in a fetch to the host), the seconds
+        of the spans ``fit.polish``, ``fit.refine``, ``fit.hessian`` and
+        ``fit.models`` inside ``fit.tail`` (:mod:`rvspecfit_torch.trace`)."""
+        with trace.span('fit.tail', fibres=self.nfibers):
+            with trace.span('fit.polish') as sp_polish:
+                x = np.asarray(x, np.float64)
+                if polish:
+                    pol = self.run_polish(mapper, x, priors=priors,
+                                          fun0=fun)
+                    x, fun = pol['x'], pol['fun']
+                elif fun is not None:
+                    fun = np.asarray(fun, np.float64)
+            with trace.span('fit.refine') as sp_refine:
+                vel, params, vsini = mapper.unpack_host(x)
+                ref = self.refine_velocities(vel, params, vsinis=vsini)
+            with trace.span('fit.hessian') as sp_hessian:
+                errs, covars, bad = self.hessian_errors(
+                    ref['best_vel'], params, vsinis=vsini, priors=priors,
+                    parnames=parnames)
+            with trace.span('fit.models') as sp_models:
+                mods = self.best_models(ref['best_vel'], params,
+                                        vsinis=vsini)
         return dict(x=x, fun=fun, params=params, vsini=vsini, ref=ref,
                     errs=errs, covars=covars, bad_hess=bad, mods=mods,
-                    phases=dict(zip(('polish', 'refine', 'hessian',
-                                     'models'), np.diff(t))))
+                    phases=dict(polish=sp_polish.seconds,
+                                refine=sp_refine.seconds,
+                                hessian=sp_hessian.seconds,
+                                models=sp_models.seconds))
 
     def run_tail_async(self, mapper, x, fun=None, parnames=None,
                        priors=None, polish=True):

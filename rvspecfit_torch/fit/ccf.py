@@ -33,7 +33,7 @@ import os
 import numpy as np
 import torch
 
-from rvspecfit_torch import serializer
+from rvspecfit_torch import serializer, trace
 from rvspecfit_torch.device import complex_dtype_for, resolve_device
 from rvspecfit_torch.ops import ccf_chisq
 from rvspecfit_torch.ops import continuum as continuum_mod
@@ -220,19 +220,22 @@ def fit_batch_async(arm_batches, config, banks=None, device=None):
     fits (survey/desi.proc_many's prep pipeline).  A failure of the
     host prep or of a launch raises here; ``collect`` raises what the
     fetch raises.  Nothing is swallowed: there is no fallback start.
+    The host part is the span ``ccf.dispatch`` (:mod:`rvspecfit_torch.trace`).
     """
-    if banks is None:
-        banks, _ = _load_banks([a[0] for a in arm_batches], config, device)
-    prep = [prepare_arm_batch(s, lam, fl, er, bm, config, banks[s])
-            for s, lam, fl, er, bm in arm_batches]
-    tid, bvel, bchi, _, sse = _reduce_arms(prep)
-    bchi = bchi + sse
-    info0, vel_grid = prep[0]['info'], prep[0]['vel_grid']
-    stream = event = None
-    if tid.device.type == 'cuda':
-        stream = torch.cuda.current_stream(tid.device)
-        event = torch.cuda.Event()
-        event.record(stream)
+    with trace.span('ccf.dispatch', fibres=len(arm_batches[0][2])):
+        if banks is None:
+            banks, _ = _load_banks([a[0] for a in arm_batches], config,
+                                   device)
+        prep = [prepare_arm_batch(s, lam, fl, er, bm, config, banks[s])
+                for s, lam, fl, er, bm in arm_batches]
+        tid, bvel, bchi, _, sse = _reduce_arms(prep)
+        bchi = bchi + sse
+        info0, vel_grid = prep[0]['info'], prep[0]['vel_grid']
+        stream = event = None
+        if tid.device.type == 'cuda':
+            stream = torch.cuda.current_stream(tid.device)
+            event = torch.cuda.Event()
+            event.record(stream)
 
     def collect():
         if event is not None:

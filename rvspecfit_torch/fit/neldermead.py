@@ -33,6 +33,8 @@ import os
 import numpy as np
 import torch
 
+from rvspecfit_torch import trace
+
 SCHEMES = ('scan2', 'cand4')
 
 # Simplex noise of the reference's build_simplex: the first n*n values
@@ -228,16 +230,29 @@ def nm_init(fun, simplex, fatol, xatol):
     return fvals, converged(simplex, fvals, fatol, xatol)
 
 
-def nm_chunk(fun, simplex, fvals, done, fatol, xatol, chunk, scheme=None):
+def nm_chunk(fun, simplex, fvals, done, fatol, xatol, chunk, scheme=None,
+             stats=None):
     """Advance up to ``chunk`` iterations under ``scheme`` (None:
     :func:`nm_scheme`, read once), stopping early once every instance
-    has converged.  Returns (simplex, fvals, done, iters)."""
+    has converged.  Returns (simplex, fvals, done, iters).
+
+    Each iteration is a span ``fit.nm.iter`` (:mod:`rvspecfit_torch.
+    trace`) with ``live``, the instances not yet converged as it began;
+    it ends where the loop reads the mask to decide whether to go on,
+    so it holds the iteration's device work.  ``stats``, a dict,
+    receives ``live_iters``, the sum of ``live`` over the iterations."""
     scheme = nm_scheme(scheme)
-    it = 0
-    while it < chunk and not bool(done.all()):
-        simplex, fvals, done = _step(fun, simplex, fvals, done, fatol,
-                                     xatol, scheme)
-        it += 1
+    it = live_iters = 0
+    live = int((~done).sum())
+    while it < chunk and live:
+        with trace.span('fit.nm.iter', live=live):
+            simplex, fvals, done = _step(fun, simplex, fvals, done, fatol,
+                                         xatol, scheme)
+            it += 1
+            live_iters += live
+            live = int((~done).sum())
+    if stats is not None:
+        stats['live_iters'] = live_iters
     return simplex, fvals, done, it
 
 

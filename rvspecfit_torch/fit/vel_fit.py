@@ -25,13 +25,13 @@ from __future__ import annotations
 import itertools
 import logging
 import math
-import time
 
 import numpy as np
 import scipy.linalg
 import scipy.optimize
 import torch
 
+from rvspecfit_torch import trace
 from rvspecfit_torch.fit import neldermead as nm
 from rvspecfit_torch.fit.find_best import find_best, scan_stats
 from rvspecfit_torch.fit.likelihood import FusedChisq
@@ -280,71 +280,76 @@ def process(specdata, paramDict0, fixParam=None, options=None, config=None,
     specParamNames = templates[specdata[0].name].parnames
     curparam = np.array([paramDict0[p] for p in specParamNames],
                         np.float64)
-    t = [time.perf_counter()]
+    # each stage is a span vel_fit.<stage> (rvspecfit_torch.trace)
+    total = []
 
-    def phase(name):
-        t.append(time.perf_counter())
-        logging.debug('process() phase %s: %.3f s', name, t[-1] - t[-2])
+    def phase(sp):
+        total.append(sp.seconds)
+        logging.debug('process() phase %s: %.3f s',
+                      sp.name[len('vel_fit.'):], sp.seconds)
 
-    fused = FusedChisq(specdata, templates, config, options=options,
-                       resol_mats=resolParams, use_vsini=use_vsini,
-                       espec_systematic=espec_systematic)
-    phase('setup')
+    with trace.span('vel_fit.setup') as sp:
+        fused = FusedChisq(specdata, templates, config, options=options,
+                           resol_mats=resolParams, use_vsini=use_vsini,
+                           espec_systematic=espec_systematic)
+    phase(sp)
 
     # 1. velocity scan at the starting parameters
-    rot0 = paramDict0.get('vsini') if use_vsini else None
-    best_vel = find_best(fused, np.arange(min_vel, max_vel, vel_step0),
-                         [curparam], vsini=rot0)['best_vel']
-    phase('scan')
+    with trace.span('vel_fit.scan') as sp:
+        rot0 = paramDict0.get('vsini') if use_vsini else None
+        best_vel = find_best(fused, np.arange(min_vel, max_vel, vel_step0),
+                             [curparam], vsini=rot0)['best_vel']
+    phase(sp)
 
     # 2. Nelder-Mead, restarted once from a fresh simplex around its best
-    mapper = ParamMapper(specParamNames, paramDict0, fixParam, vsiniMapper,
-                         fitVsini)
-    objective = _make_objective(fused, mapper, config, priors)
-    nvec = mapper.nvec
+    with trace.span('vel_fit.neldermead') as sp:
+        mapper = ParamMapper(specParamNames, paramDict0, fixParam,
+                             vsiniMapper, fitVsini)
+        objective = _make_objective(fused, mapper, config, priors)
+        nvec = mapper.nvec
 
-    def nm_objective(x):
-        return objective(x.reshape(-1, nvec)).reshape(x.shape[:2])
+        def nm_objective(x):
+            return objective(x.reshape(-1, nvec)).reshape(x.shape[:2])
 
-    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,
-                                    device=fused.device)
-    scales = mapper.scales()
-    simplex = f64(nm.build_simplex(mapper.start_vector(best_vel)[None],
-                                   scales, SIMPLEX_SEED))
-    minimize_success = True
-    maxiter = 2
-    nm_fatol = config.get('nm_fatol') or 1e-3
-    for curiter in range(1, maxiter + 1):
-        nmres = nm.minimize_batch(nm_objective, simplex, fatol=nm_fatol,
-                                  xatol=scales * 0.01, maxiter=10000,
-                                  dtype=fused.dtype)
-        xbest = nmres['x'][0].cpu().numpy()
-        if bool(nmres['converged'][0]):
-            break
-        if curiter == maxiter:
-            logging.warning('Maximum number of NM restarts reached')
-            minimize_success = False
-            break
-        # a fresh simplex: re-feeding the collapsed one replays the
-        # collapse
-        simplex = f64(nm.build_simplex(xbest[None], scales,
-                                       SIMPLEX_SEED + curiter))
+        f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,
+                                        device=fused.device)
+        scales = mapper.scales()
+        simplex = f64(nm.build_simplex(
+            mapper.start_vector(best_vel)[None], scales, SIMPLEX_SEED))
+        minimize_success = True
+        maxiter = 2
+        nm_fatol = config.get('nm_fatol') or 1e-3
+        for curiter in range(1, maxiter + 1):
+            nmres = nm.minimize_batch(nm_objective, simplex,
+                                      fatol=nm_fatol, xatol=scales * 0.01,
+                                      maxiter=10000, dtype=fused.dtype)
+            xbest = nmres['x'][0].cpu().numpy()
+            if bool(nmres['converged'][0]):
+                break
+            if curiter == maxiter:
+                logging.warning('Maximum number of NM restarts reached')
+                minimize_success = False
+                break
+            # a fresh simplex: re-feeding the collapsed one replays the
+            # collapse
+            simplex = f64(nm.build_simplex(xbest[None], scales,
+                                           SIMPLEX_SEED + curiter))
 
-    # 3. optional BFGS with autograd gradients, kept if not worse
-    if config.get('second_minimizer'):
-        def fun_and_jac(p):
-            x = fused.tensor(p).requires_grad_(True)
-            with torch.enable_grad():
-                v = objective(x[None])[0]
-                g, = torch.autograd.grad(v, x)
-            return float(v.detach()), g.double().cpu().numpy()
+        # 3. optional BFGS with autograd gradients, kept if not worse
+        if config.get('second_minimizer'):
+            def fun_and_jac(p):
+                x = fused.tensor(p).requires_grad_(True)
+                with torch.enable_grad():
+                    v = objective(x[None])[0]
+                    g, = torch.autograd.grad(v, x)
+                return float(v.detach()), g.double().cpu().numpy()
 
-        res2 = scipy.optimize.minimize(fun_and_jac, xbest, jac=True,
-                                       method='BFGS')
-        logging.debug('BFGS: %d objective and gradient calls', res2.nfev)
-        if np.isfinite(res2.fun) and res2.fun <= float(nmres['fun'][0]):
-            xbest = res2.x
-    phase('neldermead')
+            res2 = scipy.optimize.minimize(fun_and_jac, xbest, jac=True,
+                                           method='BFGS')
+            logging.debug('BFGS: %d objective and gradient calls', res2.nfev)
+            if np.isfinite(res2.fun) and res2.fun <= float(nmres['fun'][0]):
+                xbest = res2.x
+    phase(sp)
     vel_b, params_b, vsini_b = mapper.unpack_host(xbest[None])
     best_params = params_b[0]
     best_vel = float(vel_b[0])
@@ -354,25 +359,29 @@ def process(specdata, paramDict0, fixParam=None, options=None, config=None,
         ret['vsini'] = best_vsini
 
     # 4. velocity refinement
-    best_vel, vel_err, res1 = _minimum_sampler(
-        lambda vels: _scan_velocities(fused, vels, best_params, best_vsini),
-        best_vel, min_vel, max_vel, vel_step0, min_vel_step)
-    phase('refinement')
+    with trace.span('vel_fit.refinement') as sp:
+        best_vel, vel_err, res1 = _minimum_sampler(
+            lambda vels: _scan_velocities(fused, vels, best_params,
+                                          best_vsini),
+            best_vel, min_vel, max_vel, vel_step0, min_vel_step)
+    phase(sp)
     ret.update(vel=best_vel, vel_err=vel_err,
                vel_skewness=res1['skewness'],
                vel_kurtosis=res1['kurtosis'])
 
     # 5. models at the optimum
-    outp = fused.full_output(best_vel, best_params, best_vsini)
-    phase('models')
+    with trace.span('vel_fit.models') as sp:
+        outp = fused.full_output(best_vel, best_params, best_vsini)
+    phase(sp)
 
     # 6. AD Hessian of 0.5 (chisq + priors) in the parameters
-    hess = fused.hessian(best_vel, best_params, best_vsini,
-                         prior_rows(specParamNames, priors))
-    diag_err, covar, bad_hessian = uncertainties_from_hessian(
-        hess.double().cpu().numpy())
-    phase('hessian')
-    logging.debug('process() total: %.3f s', t[-1] - t[0])
+    with trace.span('vel_fit.hessian') as sp:
+        hess = fused.hessian(best_vel, best_params, best_vsini,
+                             prior_rows(specParamNames, priors))
+        diag_err, covar, bad_hessian = uncertainties_from_hessian(
+            hess.double().cpu().numpy())
+    phase(sp)
+    logging.debug('process() total: %.3f s', sum(total))
     ret.update(param_err=dict(zip(specParamNames, diag_err.tolist())),
                param_covar=covar, minimize_success=minimize_success,
                bad_hessian=bad_hessian, yfit=outp['models'],

@@ -28,20 +28,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 import weakref
 from typing import NamedTuple
 
 import torch
 
+from rvspecfit_torch import trace
 from rvspecfit_torch.ops import cuda_build
-
-# kernel launches by this process, in either form and in the float32
-# (3xTF32) form alone (chip_smoke.py resets and reads them), added under
-# _count_lock (threads launch too)
-_count_lock = threading.Lock()
-launches = 0
-float32_launches = 0
 
 # complex elements of one (fibers, T, F) product tile of the plain
 # version: bounds its intermediate (512 MB in complex128)
@@ -347,12 +340,12 @@ def ccf_chisq(tfft, t2fft, sfft_conj, ivfft_conj, ecos, esin,
     CUDA inputs: contiguous complex (T, F), (T, F), (B, F), (B, F) and
     real (F, V), (F, V) on one device (no lazy-conjugate views), all
     complex128 / float64 (the float64 kernel) or all complex64 / float32
-    (the 3xTF32 kernel).
+    (the 3xTF32 kernel).  A launch adds to the counter
+    ``kernel_b.<form>`` (:mod:`rvspecfit_torch.trace`).
     """
     if tfft.device.type == 'cpu':
         return ccf_chisq_plain(tfft, t2fft, sfft_conj, ivfft_conj, ecos,
                                esin, continuum)
-    global launches, float32_launches
     cplx = (tfft, t2fft, sfft_conj, ivfft_conj)
     real = (ecos, esin)
     dev = tfft.device
@@ -396,8 +389,6 @@ def ccf_chisq(tfft, t2fft, sfft_conj, ivfft_conj, ecos, esin,
             err = launch_f64(build(torch.float64), cplx + real, continuum,
                              out)
     cuda_build.check_launch(err, 'ccf_chisq')
-    with _count_lock:
-        launches += 1
-        if cdt == torch.complex64:
-            float32_launches += 1
+    trace.count('kernel_b.float32' if cdt == torch.complex64
+                else 'kernel_b.float64')
     return out

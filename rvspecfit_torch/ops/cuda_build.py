@@ -17,10 +17,11 @@ import os
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
 
 import torch
+
+from rvspecfit_torch import trace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
@@ -28,11 +29,6 @@ BUILD = _PKG / '_build'
 
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-
-# seconds nvcc took and what ptxas reported (registers, spills), per
-# library built by this process
-build_log = {}
-
 
 def nvcc_path():
     found = shutil.which('nvcc')
@@ -66,14 +62,16 @@ def _load(name):
         BUILD.mkdir(exist_ok=True)
         tmp = lib.with_name(f'{lib.name}.{os.getpid()}.'
                            f'{threading.get_ident()}.tmp')
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o', str(tmp),
-                               str(src)], capture_output=True, text=True)
+        # kept (trace.kept('kernel.build')) with the seconds nvcc took
+        # and what ptxas reported (registers, spills)
+        with trace.span('kernel.build', keep=True, kernel=name) as sp:
+            proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, '-o',
+                                   str(tmp), str(src)],
+                                  capture_output=True, text=True)
+            sp.set(ptxas=proc.stderr.strip())
         if proc.returncode:
             raise RuntimeError(f'nvcc failed on {src}:\n{proc.stderr}')
         os.replace(tmp, lib)
-        build_log[name] = dict(seconds=time.perf_counter() - t0,
-                               ptxas=proc.stderr.strip())
     return ctypes.CDLL(str(lib))
 
 

@@ -34,24 +34,11 @@ import collections
 import ctypes
 import functools
 import math
-import threading
 
 import torch
 
+from rvspecfit_torch import trace
 from rvspecfit_torch.ops import cuda_build
-
-# kernel launches by this process: of the evaluation in per-row mode
-# (rows_per_coeff 1), in shared mode, both together, and of the adjoint,
-# in either form; and of the float32 forms alone, by mode (chip_smoke.py
-# resets and reads them).  Threads launch too (the deferred tail, the
-# mesh's shards, autograd's device thread): every count is added under
-# _count_lock.
-_count_lock = threading.Lock()
-row_launches = 0
-shared_launches = 0
-launches = 0
-adjoint_launches = 0
-float32_launches = dict(per_row=0, shared=0, adjoint=0)
 
 
 def _intervals(geom, u, nm1):
@@ -157,14 +144,18 @@ def _check_cuda(name, *tensors):
                         f'{" / ".join(str(t.dtype) for t in tensors)}')
 
 
+_FORMS = {torch.float64: 'float64', torch.float32: 'float32'}
+
+
 def _geo_args(geom):
     return (int(geom.log_step), geom.x0, geom.step,
             math.expm1(geom.step) if geom.log_step else 0.0)
 
 
 def _launch(geom, coeffs, u, rows_per_coeff):
-    """Kernel A on CUDA tensors (checks, launch, count)."""
-    global launches, row_launches, shared_launches
+    """Kernel A on CUDA tensors (checks, launch; the counter
+    ``kernel_a.<mode>.<form>`` of trace.counters, and, while a profiler
+    records, an event ``kernel_a`` with the launch's shapes)."""
     _check_cuda('spline_eval', u, coeffs)
     if coeffs.dim() != 3 or coeffs.shape[1] != 4 or u.dim() != 2 \
             or u.shape[0] != coeffs.shape[0] * rows_per_coeff:
@@ -181,15 +172,12 @@ def _launch(geom, coeffs, u, rows_per_coeff):
                              coeffs.shape[-1], rows_per_coeff, log_step, x0,
                              step, em1, cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval')
-    with _count_lock:
-        launches += 1
-        if rows_per_coeff == 1:
-            row_launches += 1
-        else:
-            shared_launches += 1
-        if u.dtype == torch.float32:
-            float32_launches['per_row' if rows_per_coeff == 1
-                             else 'shared'] += 1
+    form = _FORMS[u.dtype]
+    trace.count(f'kernel_a.{"per_row" if rows_per_coeff == 1 else "shared"}'
+                f'.{form}')
+    trace.event('kernel_a', rows=u.shape[0], npix=u.shape[1],
+                nm1=coeffs.shape[-1], rows_per_coeff=rows_per_coeff,
+                form=form)
     return out
 
 
@@ -197,10 +185,11 @@ def spline_eval_index_vjp(geom, u, g, nm1):
     """The adjoint kernel on CUDA tensors, its plain version on CPU
     tensors: (R, npix) u and g -> (R, 4, nm1) dcoeffs of their dtype.  Same
     contract as :func:`spline_eval_index_vjp_plain`; the result does
-    not depend on the launch (no atomics)."""
+    not depend on the launch (no atomics).  A launch adds to the counter
+    ``kernel_a_adjoint.<form>`` and, while a profiler records, makes an
+    event ``kernel_a_adjoint`` with its shapes (:mod:`rvspecfit_torch.trace`)."""
     if u.device.type == 'cpu':
         return spline_eval_index_vjp_plain(geom, u, g, nm1)
-    global adjoint_launches
     _check_cuda('spline_eval_adjoint', u, g)
     if u.dim() != 2 or g.shape != u.shape:
         raise ValueError(f'spline_eval_adjoint: bad shapes u '
@@ -214,10 +203,10 @@ def spline_eval_index_vjp(geom, u, g, nm1):
             u.shape[1], nm1, log_step, x0, step, em1,
             cuda_build.current_stream(u))
     cuda_build.check_launch(err, 'spline_eval_adjoint')
-    with _count_lock:
-        adjoint_launches += 1
-        if u.dtype == torch.float32:
-            float32_launches['adjoint'] += 1
+    form = _FORMS[u.dtype]
+    trace.count(f'kernel_a_adjoint.{form}')
+    trace.event('kernel_a_adjoint', rows=u.shape[0], npix=u.shape[1],
+                nm1=nm1, form=form)
     return out
 
 

@@ -39,7 +39,14 @@ Every worker thread enters the card first (device.enter_device).  A
 tail that fails gives the group's per-file retry, as a failure of the
 group's CCF or Nelder-Mead does.  On a host with several cards the
 fitter is sharded over them (parallel/mesh.auto_shard;
-``RVST_NO_MESH=1`` opts out).
+``RVST_NO_MESH=1`` opts out).  Each stage is a span of
+:mod:`rvspecfit_torch.trace` on the thread that runs it, recorded while
+a torch profiler records: ``driver.group`` (and in it ``driver.prep`` or
+``driver.prep_wait``, ``fit.group``, ``driver.write_wait``) on the
+calling thread, ``driver.prep`` (``driver.read_wait``, ``ccf.dispatch``)
+on ``rvst-prep``, ``driver.read`` on ``rvst-reader``, ``fit.tail`` on
+``rvst-tail``, ``driver.finish`` (``fit.tail_collect``,
+``driver.write``) on ``rvst-writer``.
 
 Many processes fit one list of files (:func:`fleet`): static
 ``--rank/--world`` sharding, a lock-file queue on a shared filesystem
@@ -85,7 +92,7 @@ import warnings
 
 import numpy as np
 
-from rvspecfit_torch import __version__, utils
+from rvspecfit_torch import __version__, trace, utils
 from rvspecfit_torch.device import Background, enter_device, resolve_device
 from rvspecfit_torch.fit import ccf as ccf_mod
 from rvspecfit_torch.fit import vel_fit
@@ -777,8 +784,9 @@ class _LazyFit(collections.abc.Mapping):
                 raise self._exc
             if self._value is None:
                 try:
-                    self._value = _group_result(self._base,
-                                                self._collect())
+                    with trace.span('fit.tail_collect'):
+                        tail = self._collect()
+                    self._value = _group_result(self._base, tail)
                 except BaseException as exc:
                     self._exc = exc
                     raise
@@ -839,7 +847,10 @@ def _run_group_fit(arms, templates, config, options, banks=None,
     Returns per-fiber host arrays: ref, params, vsini, errs, bad_hess,
     mods, converged, ccf_cols, vrad_ccf, parnames, and phases (seconds
     per stage, each measured on the thread that ran it: ccf, nm,
-    polish, refine, hessian, models).
+    polish, refine, hessian, models; the seconds of the spans
+    ``fit.ccf_collect`` (``fit.bruteforce`` without ``ccf_init``) and
+    ``fit.nm`` inside ``fit.group``, and of the tail's,
+    :mod:`rvspecfit_torch.trace`).
     """
     if defer is None:
         defer = os.environ.get('RVST_DEFER_TAIL', '1') != '0'
@@ -849,47 +860,48 @@ def _run_group_fit(arms, templates, config, options, banks=None,
     if config.get('pipeline_warm') and device.type == 'cuda':
         from rvspecfit_torch.pipeline import prewarm
         prewarm.build_kernels()
-    t = [time.perf_counter()]
+    with trace.span('fit.group', fibres=nf):
+        with trace.span('fit.ccf_collect' if ccf_init
+                        else 'fit.bruteforce') as sp_ccf:
+            if ccf_init:
+                start_params, start_vel, start_vsini, has_vs, ccf_cols = \
+                    ccf_starts(arms, parnames, config, banks, device,
+                               collect=ccf_collect)
+            else:
+                start_params, start_vel, start_vsini, has_vs = \
+                    bruteforce_starts(arms, parnames, templates, config,
+                                      options)
+                ccf_cols = {}
+            vrad_ccf = start_vel.copy()
 
-    if ccf_init:
-        start_params, start_vel, start_vsini, has_vs, ccf_cols = \
-            ccf_starts(arms, parnames, config, banks, device,
-                       collect=ccf_collect)
-    else:
-        start_params, start_vel, start_vsini, has_vs = \
-            bruteforce_starts(arms, parnames, templates, config, options)
-        ccf_cols = {}
-    vrad_ccf = start_vel.copy()
-    t.append(time.perf_counter())
-
-    # rotation is modeled only when the CCF bank's best templates (or
-    # the brute-force start) carried vsini
-    fit_vsini = bool(has_vs.any())
-    bf = BatchedFitter(arms, templates, config, options=options,
-                       use_vsini=fit_vsini,
-                       microbatch=config.get('fit_microbatch'))
-    mesh = pmesh.auto_shard(bf)
-    if mesh is not None:
-        logging.info('fitter sharded over %d devices', len(mesh))
-    paramDict0 = dict(zip(parnames, start_params.mean(axis=0)))
-    if fit_vsini:
-        paramDict0['vsini'] = 0.01
-    mapper = vel_fit.ParamMapper(
-        parnames, paramDict0, [],
-        vel_fit.VSiniMapper(config['max_vsini'],
-                            config.get('min_vsini') or 0.0)
-        if fit_vsini else None, fit_vsini)
-    x0 = np.zeros((nf, mapper.nvec))
-    x0[:, 0] = start_vel
-    if fit_vsini:
-        x0[:, 1] = np.clip(start_vsini, 0, config['max_vsini'])
-    x0[:, 1 + int(fit_vsini):] = start_params
-    nmres = bf.run_neldermead(mapper, start_vel, x0=x0)
-    t.append(time.perf_counter())
+        with trace.span('fit.nm') as sp_nm:
+            # rotation is modeled only when the CCF bank's best templates
+            # (or the brute-force start) carried vsini
+            fit_vsini = bool(has_vs.any())
+            bf = BatchedFitter(arms, templates, config, options=options,
+                               use_vsini=fit_vsini,
+                               microbatch=config.get('fit_microbatch'))
+            mesh = pmesh.auto_shard(bf)
+            if mesh is not None:
+                logging.info('fitter sharded over %d devices', len(mesh))
+            paramDict0 = dict(zip(parnames, start_params.mean(axis=0)))
+            if fit_vsini:
+                paramDict0['vsini'] = 0.01
+            mapper = vel_fit.ParamMapper(
+                parnames, paramDict0, [],
+                vel_fit.VSiniMapper(config['max_vsini'],
+                                    config.get('min_vsini') or 0.0)
+                if fit_vsini else None, fit_vsini)
+            x0 = np.zeros((nf, mapper.nvec))
+            x0[:, 0] = start_vel
+            if fit_vsini:
+                x0[:, 1] = np.clip(start_vsini, 0, config['max_vsini'])
+            x0[:, 1 + int(fit_vsini):] = start_params
+            nmres = bf.run_neldermead(mapper, start_vel, x0=x0)
 
     base = dict(converged=nmres['converged'], ccf_cols=ccf_cols,
                 vrad_ccf=vrad_ccf, parnames=parnames, nm=nmres,
-                phases=dict(zip(('ccf', 'nm'), np.diff(t))))
+                phases=dict(ccf=sp_ccf.seconds, nm=sp_nm.seconds))
     tail_args = (mapper, nmres['x'])
     tail_kw = dict(fun=nmres['fun'], parnames=parnames,
                    polish=bool(config.get('second_minimizer')))
@@ -1251,9 +1263,10 @@ def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
 
     def write(i, fit, lo, arms):
         try:
-            _finish_one(preps[i], fit, lo, tab_ofnames[i], mod_ofnames[i],
-                        config, arms, cmdline=cmdline, templates=templates,
-                        fig_prefix=fig_prefixes[i])
+            with trace.span('driver.write', file=preps[i]['fname']):
+                _finish_one(preps[i], fit, lo, tab_ofnames[i],
+                            mod_ofnames[i], config, arms, cmdline=cmdline,
+                            templates=templates, fig_prefix=fig_prefixes[i])
             counts[i] = preps[i]['nsel']
         except Exception:
             _log_crash(preps[i]['fname'], 'write', throw_exceptions)
@@ -1552,14 +1565,19 @@ class _Reader:
     def _read(todo):
         for f, fut in todo:
             try:
-                fut.set_result(fitsio.read(f))
+                with trace.span('driver.read', file=f):
+                    hdus = fitsio.read(f)
+                fut.set_result(hdus)
             except Exception:
                 fut.set_result(None)
 
     def take(self, fname):
         with self._lock:
             fut = self._reads.pop(fname, None)
-        return None if fut is None else fut.result()
+        if fut is None:
+            return None
+        with trace.span('driver.read_wait', file=fname):
+            return fut.result()
 
 
 class _Writer:
@@ -1581,21 +1599,26 @@ class _Writer:
         self._queue = collections.deque()
 
     @staticmethod
-    def _timed(finish, device):
+    def _timed(finish, device, files):
         if device is not None:
             enter_device(device)
-        out = finish()
+        with trace.span('driver.finish', files=files):
+            out = finish()
         return out, time.time()
 
-    def submit(self, finish, record, device=None):
+    def submit(self, finish, record, device=None, files=None):
         """``device``: the card the writer thread enters first (a tail
-        that fails is retried there)."""
-        self.drain()
+        that fails is retried there); ``files``: how many files the
+        finish writes (an attribute of its span).  The wait for the
+        one before is the span ``driver.write_wait``."""
+        if self._queue:
+            with trace.span('driver.write_wait'):
+                self.drain()
         if self._pool is None:
-            record(*self._timed(finish, None))
+            record(*self._timed(finish, None, files))
         else:
             self._queue.append((self._pool.submit(self._timed, finish,
-                                                  device), record))
+                                                  device, files), record))
 
     def put(self, record, value=None):
         if self._queue:
@@ -1719,12 +1742,15 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
 
     def prepare(grp, dispatch=False):
         names = [g[0] for g in grp]
-        return prepare_desi_group(
-            names, config, zbest_paths=[zbest_path(f) for f in names],
-            throw_exceptions=throw_exceptions,
-            prehdus_list=[reader.take(f) for f in names],
-            dispatch_ccf=dispatch, ccf_init=ccf_init, banks=banks,
-            device=tdev, zbest_select=zbest_select, **select_kw)
+        with trace.span('driver.prep', files=len(names)) as sp:
+            gprep = prepare_desi_group(
+                names, config, zbest_paths=[zbest_path(f) for f in names],
+                throw_exceptions=throw_exceptions,
+                prehdus_list=[reader.take(f) for f in names],
+                dispatch_ccf=dispatch, ccf_init=ccf_init, banks=banks,
+                device=tdev, zbest_select=zbest_select, **select_kw)
+            sp.set(fibres=_fibres(gprep))
+        return gprep
 
     def recorder(grp, t0):
         def record(counts, t_done):
@@ -1772,34 +1798,46 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                     nsel, finish = out
                     writer.submit(functools.partial(
                         _finish_file, f, nsel, finish, throw_exceptions),
-                        recorder(grp, t0), tdev)
+                        recorder(grp, t0), tdev, files=1)
                 else:
                     writer.put(recorder(grp, t0), [out])
                 continue
-            if nxt_prep is not None:
-                gprep = nxt_prep.result()
-            else:
-                gprep = prepare(grp)
-            nxt_prep = None
-            if pipeline and nxt is not None:
-                nxt_prep = Background(functools.partial(
-                    prepare, nxt, dispatch=True), tdev, name='rvst-prep')
-            out = fit_desi_group(
-                gprep, [g[1] for g in grp], [g[2] for g in grp], config,
-                options, templates=templates, banks=banks, cmdline=cmdline,
-                throw_exceptions=throw_exceptions, ccf_init=ccf_init,
-                fig_prefixes=[fig_prefix(g[0]) for g in grp],
-                defer_finish=async_write)
-            if async_write:
-                writer.submit(out[1], recorder(grp, t0), tdev)
-            else:
-                writer.put(recorder(grp, t0), out)
+            with trace.span('driver.group', files=len(grp)) as sp:
+                if nxt_prep is not None:
+                    with trace.span('driver.prep_wait'):
+                        gprep = nxt_prep.result()
+                else:
+                    gprep = prepare(grp)
+                sp.set(fibres=_fibres(gprep))
+                nxt_prep = None
+                if pipeline and nxt is not None:
+                    nxt_prep = Background(functools.partial(
+                        prepare, nxt, dispatch=True), tdev,
+                        name='rvst-prep')
+                out = fit_desi_group(
+                    gprep, [g[1] for g in grp], [g[2] for g in grp],
+                    config, options, templates=templates, banks=banks,
+                    cmdline=cmdline, throw_exceptions=throw_exceptions,
+                    ccf_init=ccf_init,
+                    fig_prefixes=[fig_prefix(g[0]) for g in grp],
+                    defer_finish=async_write)
+                if async_write:
+                    writer.submit(out[1], recorder(grp, t0), tdev,
+                                  files=len(grp))
+                else:
+                    writer.put(recorder(grp, t0), out)
     finally:
         try:
             writer.close()
         finally:
             if nxt_prep is not None:
                 nxt_prep.wait()
+
+
+def _fibres(gprep):
+    """The fibres a prepared group selected for its fit (an attribute of
+    the driver's spans)."""
+    return sum(p['nsel'] for p in gprep.get('preps', ()) if p is not None)
 
 
 def _finish_file(fname, nsel, finish, throw):

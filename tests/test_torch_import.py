@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import rvspecfit_torch
-from rvspecfit_torch import convert, device, simulation
+from rvspecfit_torch import convert, device, simulation, trace
 from rvspecfit_torch.ops import ccf_chisq, spline, spline_eval
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,7 +45,7 @@ def test_every_module_imports_without_jax():
             'rvspecfit_torch.pipeline.make_ccf',
             'rvspecfit_torch.parallel.distributed',
             'rvspecfit_torch.parallel.mesh',
-            'rvspecfit_torch.perf',
+            'rvspecfit_torch.trace',
             'rvspecfit_torch.pipeline.prewarm'} <= set(mods)
     # h5py, yaml and matplotlib are missing on the card's machine too;
     # the trainer takes optax's place and computes its PCA without
@@ -91,8 +91,7 @@ def _ccf_inputs(device, cdtype=torch.complex128, rdtype=torch.float64):
 
 
 def test_cpu_tensors_take_the_plain_versions():
-    before = (spline_eval.launches, spline_eval.adjoint_launches,
-              ccf_chisq.launches)
+    before = trace.counters()
     geom, coeffs, u = _spline_inputs('cpu')
     assert torch.equal(
         spline_eval.spline_eval_index(geom, coeffs, u),
@@ -103,8 +102,7 @@ def test_cpu_tensors_take_the_plain_versions():
     args = _ccf_inputs('cpu')
     assert torch.equal(ccf_chisq.ccf_chisq(*args),
                        ccf_chisq.ccf_chisq_plain(*args))
-    assert (spline_eval.launches, spline_eval.adjoint_launches,
-            ccf_chisq.launches) == before
+    assert trace.counters() == before
 
 
 def test_other_devices_raise_instead_of_falling_back():

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from rvspecfit_torch import trace
 from rvspecfit_torch.fit import ccf
 from rvspecfit_torch.ops import ccf_chisq, spline, spline_eval
 
@@ -33,6 +34,12 @@ TOL = {torch.float32: dict(A=A_TOL, B=B_TOL, ADJ=ADJ_TOL),
                            ADJ=ADJ_TOL * F64_SCALE)}
 COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 DTYPES = [torch.float32, torch.float64]
+
+
+def _launches(prefix):
+    """Launches so far of the kernels whose launch counters
+    (rvspecfit_torch.trace) start with ``prefix``."""
+    return sum(trace.counters(prefix).values())
 
 
 @pytest.fixture
@@ -87,9 +94,9 @@ def test_kernel_b_matches_plain(cuda_device, continuum, nb, nt, nf, nv,
                                 dtype):
     args = _ccf_inputs(nb, nt, nf, nv, seed=nb + nt + nf + nv,
                        device=cuda_device, dtype=dtype)
-    before = ccf_chisq.launches
+    before = _launches('kernel_b.')
     got = ccf_chisq.ccf_chisq(*args, continuum=continuum)
-    assert ccf_chisq.launches == before + 1
+    assert _launches('kernel_b.') == before + 1
     want = ccf_chisq.ccf_chisq_plain(*args, continuum=continuum)
     assert got.shape == (nb, nt, nv) and got.dtype == dtype
     _assert_close(got, want, TOL[dtype]['B'])
@@ -163,7 +170,7 @@ def test_kernel_b_f64_from_worker_threads_and_their_streams(cuda_device):
     want = ccf_chisq.ccf_chisq_plain(*args)
     _assert_close(ccf_chisq.ccf_chisq(*args), want,
                   TOL[torch.float64]['B'])
-    before = ccf_chisq.launches
+    before = _launches('kernel_b.')
 
     def job():
         outs = [ccf_chisq.ccf_chisq(*args) for _ in range(5)]
@@ -171,7 +178,7 @@ def test_kernel_b_f64_from_worker_threads_and_their_streams(cuda_device):
         return outs, torch.cuda.current_stream()
     jobs = [Background(job, cuda_device) for _ in range(4)]
     results = [j.result() for j in jobs]
-    assert ccf_chisq.launches == before + 20
+    assert _launches('kernel_b.') == before + 20
     assert all(st != torch.cuda.default_stream(cuda_device)
                for _, st in results)
     for outs, _ in results:
@@ -219,12 +226,12 @@ def test_kernel_a_matches_plain(cuda_device, log_step, npix, ncoef,
     geom, coeffs, u = _spline_case(log_step, npix, ncoef, rows_per_coeff,
                                    seed=npix + ncoef, device=cuda_device,
                                    dtype=dtype)
-    before = (spline_eval.launches, spline_eval.row_launches,
-              spline_eval.shared_launches)
+    before = (_launches('kernel_a.'), _launches('kernel_a.per_row.'),
+              _launches('kernel_a.shared.'))
     got = spline_eval.spline_eval_index(geom, coeffs, u, rows_per_coeff)
     per_row = rows_per_coeff == 1
-    assert (spline_eval.launches, spline_eval.row_launches,
-            spline_eval.shared_launches) == (before[0] + 1,
+    assert (_launches('kernel_a.'), _launches('kernel_a.per_row.'),
+            _launches('kernel_a.shared.')) == (before[0] + 1,
                                              before[1] + per_row,
                                              before[2] + (not per_row))
     want = spline_eval.spline_eval_index_plain(geom, coeffs, u,
@@ -331,9 +338,9 @@ def test_adjoint_matches_plain(cuda_device, log_step, rows, npix, nm1,
     geom, u, g = _adjoint_case(log_step, rows, npix, nm1,
                                seed=rows + npix + nm1, device=cuda_device,
                                dtype=dtype)
-    before = spline_eval.adjoint_launches
+    before = _launches('kernel_a_adjoint.')
     got = spline_eval.spline_eval_index_vjp(geom, u, g, nm1)
-    assert spline_eval.adjoint_launches == before + 1
+    assert _launches('kernel_a_adjoint.') == before + 1
     want = spline_eval.spline_eval_index_vjp_plain(geom, u, g, nm1)
     assert got.shape == (rows, 4, nm1)
     _assert_adjoint_close(got, want)
@@ -531,9 +538,9 @@ def test_single_object_ccf_fit_on_the_card(cuda_device, monkeypatch):
         with monkeypatch.context() as m:
             if key == 'plain':
                 m.setattr(ccf_chisq, 'ccf_chisq', ccf_chisq.ccf_chisq_plain)
-            before = ccf_chisq.launches
+            before = _launches('kernel_b.')
             res[key] = ccf.fit(sds, cfg, banks={sd.name: b for sd in sds})
-            assert ccf_chisq.launches == before + (
+            assert _launches('kernel_b.') == before + (
                 len(sds) if key == 'kernel' else 0)
     assert res['kernel']['best_par'] == res['plain']['best_par'] \
         == res['cpu']['best_par']
@@ -567,13 +574,13 @@ def test_process_on_the_card(cuda_device):
     res = {}
     for dev in ('cuda', 'cpu'):
         sds, templates, truth = _single_object(dev)
-        before = (spline_eval.row_launches, spline_eval.shared_launches,
-                  spline_eval.adjoint_launches)
+        before = (_launches('kernel_a.per_row.'), _launches('kernel_a.shared.'),
+                  _launches('kernel_a_adjoint.'))
         res[dev] = vel_fit.process(sds, start, config=cfg,
                                    options={'npoly': 6},
                                    templates=templates)
-        after = (spline_eval.row_launches, spline_eval.shared_launches,
-                 spline_eval.adjoint_launches)
+        after = (_launches('kernel_a.per_row.'), _launches('kernel_a.shared.'),
+                 _launches('kernel_a_adjoint.'))
         if dev == 'cuda':
             assert all(a > b for a, b in zip(after, before))
     got, want = res['cuda'], res['cpu']

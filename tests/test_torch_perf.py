@@ -1,11 +1,10 @@
-"""FLOP accounting of the port (rvspecfit_torch/perf.py and
-run_neldermead's obj_evals): the reference's tests/test_perf.py on the
-port, and the H100 peak table."""
+"""run_neldermead's obj_evals: the reference's tests/test_perf.py on
+the port."""
 import numpy as np
 import pytest
 
 import synth
-from rvspecfit_torch import convert, perf
+from rvspecfit_torch import convert
 from rvspecfit_torch.fit import vel_fit
 from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
 from rvspecfit_tpu.interp.api import TemplateModel
@@ -54,31 +53,3 @@ def test_run_neldermead_counts_objective_evals(fitter_and_mapper):
     # NM iterations (2 trials each) must be counted
     nvec = len(mapper.start_vector(0.0))
     assert res['obj_evals'] > NFIB * (nvec + 1)
-
-
-def test_objective_flops_per_trial_positive(fitter_and_mapper):
-    """The counted products of the chi-square (2 npoly^2 npix for the
-    normal matrix alone, ~1.5e4 here) plus kernel A's arithmetic (21
-    FLOPs a point on a log grid, 6300 here): well over 1e4, and over
-    the spline's share alone."""
-    bf, mapper = fitter_and_mapper
-    fpt = perf.objective_flops_per_trial(bf, mapper, ncand=4)
-    assert fpt > 1e4
-    assert fpt > 300 * perf.SPLINE_POINT_FLOPS['log']
-    assert perf.objective_flops_per_trial(bf, mapper, width=5, ncand=2) \
-        == pytest.approx(fpt, rel=1e-12)
-
-
-def test_device_peak_table(monkeypatch):
-    monkeypatch.setenv('RVST_PEAK_TFLOPS', '275')
-    peak, label = perf.device_peak_tflops()
-    assert peak == 275.0 and label == 'RVST_PEAK_TFLOPS'
-    monkeypatch.delenv('RVST_PEAK_TFLOPS')
-    name = 'NVIDIA H100 80GB HBM3'
-    assert perf.device_peak_tflops(name)[0] == 67.0
-    assert perf.device_peak_tflops(name, 'fp64')[0] == 34.0
-    assert perf.device_peak_tflops(name, 'fp32')[0] == 67.0
-    assert perf.device_peak_tflops('Tesla T4') == (None, 'Tesla T4')
-    assert perf.device_peak_tflops('cpu') == (None, 'cpu')
-    msg = perf.mfu_report(1.34e12, 2.0, name)
-    assert '0.6700 TFLOP/s' in msg and '1.00% of 67 TFLOP/s' in msg

@@ -188,6 +188,7 @@ def f64_cases(device):
 def main_f64(baseline_csrc):
     """--dtype float64: kernel B's float64 form against the baseline's."""
     import torch
+    from rvspecfit_torch import trace
     from rvspecfit_torch.ops import ccf_chisq, cuda_build
     device = torch.device('cuda', 0)
     smi = chip_smoke.environment()
@@ -235,7 +236,8 @@ def main_f64(baseline_csrc):
                          rel_err=errs[1]))
     report(rows)
     print(json.dumps(dict(card=smi, baseline_interface=base[1], ptxas={
-        **{k: v['ptxas'] for k, v in cuda_build.build_log.items()},
+        **{r.attrs['kernel']: r.attrs['ptxas']
+           for r in trace.kept('kernel.build')},
         'baseline_ccf_chisq': base_ptxas}, kernels=rows)))
     return 0
 
@@ -390,7 +392,7 @@ def main():
         return 2
     if args.dtype == 'float64':
         return main_f64(args.baseline_csrc)
-    from rvspecfit_torch import convert
+    from rvspecfit_torch import convert, trace
     from rvspecfit_torch.ops import ccf_chisq, cuda_build, spline_eval
     device = torch.device('cuda', 0)
     smi = chip_smoke.environment()
@@ -479,7 +481,8 @@ def main():
                          rel_err_baseline=errs[0], rel_err=errs[1]))
     report(rows)
     print(json.dumps(dict(card=smi, ptxas={
-        **{k: v['ptxas'] for k, v in cuda_build.build_log.items()},
+        **{r.attrs['kernel']: r.attrs['ptxas']
+           for r in trace.kept('kernel.build')},
         **{f'baseline_{k}': v for k, v in base_ptxas.items()}},
         kernels=rows)))
     return 0
