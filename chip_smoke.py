@@ -2899,18 +2899,25 @@ def nm_scheme(scheme):
 
 @contextlib.contextmanager
 def nm_accounting(record):
-    """Count, into ``record``, NM's iterations (steps), the fibers they
-    advance (fiber_iters), its objective calls by points per fiber (K:
-    calls and rows), its simplex set-ups (init_calls) and their rows
-    (init_rows), and kernel A's per-row launches inside run_neldermead
-    (nm_row_launches)."""
+    """Count, into ``record``, NM's eager iterations (steps: the CPU's;
+    on the card every iteration is a replay of its graph, counted by
+    fit/nm_graph.py: replays, eager_calls and captures), the fibers
+    the iterations advance (fiber_iters, pad rows included), its eager
+    objective calls by points per fiber (K: calls and rows), its simplex
+    set-ups (init_calls) and their rows (init_rows), and kernel A's
+    per-row launches inside run_neldermead (nm_row_launches)."""
     from rvspecfit_torch import trace
     from rvspecfit_torch.fit import batch, neldermead as nm
     real_obj, real_step, real_init = (batch.BatchedFitter._objective,
                                       nm._step, nm.nm_init)
     real_nm = batch.BatchedFitter.run_neldermead
     record.update(steps=0, fiber_iters=0, calls={}, init_rows=0,
-                  init_calls=0, nm_row_launches=0)
+                  init_calls=0, nm_row_launches=0, replays=0,
+                  eager_calls=0, captures=0)
+    names = dict(fiber_iters='fit.nm.tile_iters',
+                 replays='fit.nm.graph_replays',
+                 eager_calls='fit.nm.eager_calls',
+                 captures='fit.nm.graph_captures')
 
     def objective(self, *args):
         fun = real_obj(self, *args)
@@ -2924,7 +2931,6 @@ def nm_accounting(record):
 
     def step(fun, simplex, *args):
         record['steps'] += 1
-        record['fiber_iters'] += int(simplex.shape[0])
         return real_step(fun, simplex, *args)
 
     def init(fun, simplex, *args):
@@ -2937,8 +2943,12 @@ def nm_accounting(record):
 
     def run_nm(self, *args, **kwargs):
         before = row_launches()
+        c0 = trace.counters('fit.nm.')
         out = real_nm(self, *args, **kwargs)
         record['nm_row_launches'] += row_launches() - before
+        c1 = trace.counters('fit.nm.')
+        for k, name in names.items():
+            record[k] += c1.get(name, 0) - c0.get(name, 0)
         return out
     with mock.patch.object(batch.BatchedFitter, '_objective', objective), \
             mock.patch.object(nm, '_step', step), \
@@ -2982,29 +2992,46 @@ def run_nm_schemes(tm, arms, truth, banks, tm_cpu, bank_cpu):
         check(ok.sum() >= 0.98 * NFIBERS,
               f'NM scheme {scheme}: RV recovery {ok.sum()}/{NFIBERS}')
         k = NCAND4 if scheme == 'cand4' else 1
-        calls = acc['calls'].get(k, [0, 0])[0] / acc['steps']
         trials = (out['nm']['obj_evals'] - acc['init_rows']) \
             / acc['fiber_iters']
-        check(calls == (1 if scheme == 'cand4' else 2),
-              f'NM scheme {scheme}: {calls} objective calls per iteration')
+        if acc['steps']:
+            calls = acc['calls'].get(k, [0, 0])[0] / acc['steps']
+        else:
+            # one replay an iteration, its objective calls in the graph:
+            # kernel A's per-row launches a call and arm, the set-ups'
+            # and shrinks' (eager_calls) apart (a capture's warm-up
+            # launches too, where this run captured)
+            calls = (acc['nm_row_launches'] / len(arms)
+                     - acc['eager_calls']) / acc['replays']
+            check(acc['replays'] > 0, f'NM scheme {scheme}: no replays')
+        if not acc['captures']:
+            check(calls == (1 if scheme == 'cand4' else 2),
+                  f'NM scheme {scheme}: {calls} objective calls per '
+                  'iteration')
         check(trials == nm.nm_ncand(scheme),
               f'NM scheme {scheme}: {trials} trials per fiber-iteration')
         run = dict(scheme=scheme, wall=wall, nm_s=out['phases']['nm'],
                    phases=out['phases'], peak_gb=peak,
                    obj_evals=int(out['nm']['obj_evals']),
-                   nm_iterations=acc['steps'],
+                   nm_iterations=acc['steps'] + acc['replays'],
+                   nm_graph=dict(replays=acc['replays'],
+                                 eager_calls=acc['eager_calls'],
+                                 captures=acc['captures']),
                    fiber_iterations=acc['fiber_iters'],
                    calls_per_iteration=calls,
                    trials_per_fiber_iteration=trials,
                    nm_per_row_launches=acc['nm_row_launches'],
-                   shrink_calls=acc['calls'].get(
-                       out['nm']['x'].shape[1] + 1, [0])[0]
+                   shrink_calls=(acc['eager_calls'] if acc['replays']
+                                 else acc['calls'].get(
+                                     out['nm']['x'].shape[1] + 1, [0])[0])
                    - acc['init_calls'],
                    recovered=int(ok.sum()), counts=counts, out=out)
         runs.append(run)
         log(f'NM scheme {scheme}: group fit {wall:.3f} s (' + ' '.join(
             f'{p}={out["phases"][p]:.3f}s' for p in PHASES) + f'); NM '
-            f'{acc["steps"]} iterations over {acc["fiber_iters"]} '
+            f'{run["nm_iterations"]} iterations ({acc["replays"]} graph '
+            f'replays, {acc["captures"]} captures, {acc["eager_calls"]} '
+            f'eager calls) over {acc["fiber_iters"]} '
             f'fiber-iterations, {calls:g} objective call(s) per iteration, '
             f'{trials:g} trials per fiber-iteration, obj_evals '
             f'{run["obj_evals"]}, kernel A per-row launches in NM '

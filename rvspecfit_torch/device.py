@@ -127,11 +127,15 @@ def side_stream(device, kind):
     """The CUDA stream of jobs of ``kind`` on ``device``, made once per
     process: cuBLAS keeps a workspace (tens of MB) for every stream a
     handle has run on, so jobs reuse their kind's stream rather than
-    take a new one each."""
+    take a new one each.  The stream has a high priority: a job's
+    chains of small kernels (the group's tail, the next group's prep)
+    go ahead of the main thread's Nelder-Mead graph replays, which
+    keep the card busy, rather than wait behind them."""
     device = concrete(device)
     with _side_streams_lock:
         if (device, kind) not in _side_streams:
-            _side_streams[device, kind] = torch.cuda.Stream(device)
+            _side_streams[device, kind] = torch.cuda.Stream(device,
+                                                            priority=-1)
         return _side_streams[device, kind]
 
 

@@ -54,6 +54,7 @@ import torch
 from rvspecfit_torch import trace
 from rvspecfit_torch.device import Background, map_tensors
 from rvspecfit_torch.fit import neldermead as nm
+from rvspecfit_torch.fit import nm_graph
 from rvspecfit_torch.fit.find_best import scan_stats
 from rvspecfit_torch.fit.likelihood import (chisq_trials_core,
                                             grad_hessian, hessian_core,
@@ -257,32 +258,28 @@ class BatchedFitter:
         return self._objective_arms(mapper, priors, self._arms_at(idx))
 
     def _objective_arms(self, mapper, priors, arms):
-        """fun(x (b, K, nvec)) -> (b, K) for the fibers of ``arms``:
-        -2logL plus priors and the vsini penalty; 1e30 outside the
-        velocity bounds or at non-finite parameters."""
-        min_vel = float(self.config['min_vel'])
-        max_vel = float(self.config['max_vel'])
-        rows_p = prior_rows(mapper.specParams, priors)
+        """fun(x (b, K, nvec)) -> (b, K) for the fibers of ``arms``
+        (:func:`trial_objective`)."""
+        return trial_objective(arms, mapper, priors, **self._objective_kw())
 
-        def fun(x):
-            b, k, nvec = x.shape
-            vel, params, vsini, penalty = mapper.unpack(
-                x.reshape(b * k, nvec))
-            vel = vel.reshape(b, k)
-            params = params.reshape(b, k, -1)
-            chis = chisq_trials_core(arms, self.templates, vel, params,
-                                     vsini.reshape(b, k),
-                                     badchi=self.badchi,
-                                     use_vsini=self.use_vsini,
-                                     half_widths=self.half_widths)
-            for i, mu, sig in rows_p:
-                chis = chis + ((params[:, :, i] - mu) / sig)**2
-            chis = chis + penalty.reshape(b, k)
-            bad = (vel > max_vel) | (vel < min_vel) \
-                | ~torch.isfinite(params).all(-1)
-            return torch.where(bad, 1e30, chis)
+    def _objective_kw(self):
+        return dict(templates=self.templates,
+                    min_vel=float(self.config['min_vel']),
+                    max_vel=float(self.config['max_vel']),
+                    badchi=self.badchi, use_vsini=self.use_vsini,
+                    half_widths=self.half_widths)
 
-        return fun
+    def nm_graphs(self, mapper, priors, widths, scheme, fatol, state):
+        """{width: nm_graph.IterationGraph} of Nelder-Mead's iteration on
+        this fitter's objective at ``widths`` (nm_graph.graphs: cached
+        for the process, or captured now on the first rows of ``state``,
+        (simplex, fvals, done, xatol) of every fiber)."""
+        kw = self._objective_kw()
+        return nm_graph.graphs(
+            self.arms, mapper, priors, kw,
+            lambda arms: nm.in_working_dtype(trial_objective(
+                arms, mapper, priors, **kw), self.dtype),
+            widths, state[0].shape[2], scheme, fatol, state)
 
     def run_neldermead(self, mapper, best_vel0=None, priors=None,
                        maxrestart=2, fatol=5e-2, xatol=None, maxiter=384,
@@ -291,11 +288,17 @@ class BatchedFitter:
 
         Rounds of ``nm_chunk`` iterations (``RVST_NM_CHUNK`` overrides
         it when set and non-zero) run on the fibers that have not
-        converged, gathered into one tile (or tiles of at most
-        ``microbatch``): once most fibers have converged a round costs
-        only the stragglers.  (The reference's
-        ladder of padded tile widths exists to bound XLA's compiled
-        shapes; an eager tile is exactly the unconverged set.)  Each
+        converged, gathered into tiles of one of the reference's padded
+        widths (fit/nm_graph.py: ``microbatch``, or else the first of 64,
+        128, 256 and 500 that holds the group, or 500, and its half and
+        quarter where at least 32; the last tile padded with converged
+        copies of its last fiber): once most fibers have converged a
+        round costs a narrow tile.  On a CUDA device each width's
+        iteration is a CUDA graph, captured at NM's first use in the
+        process and replayed on every iteration (nm_graph.IterationGraph
+        .step); on the CPU neldermead.nm_chunk runs it eagerly, both
+        through neldermead.iterate.  The simplexes are set up eagerly, in tiles of at
+        most ``microbatch``.  Each
         restart rebuilds a fresh simplex (seed SIMPLEX_SEED + restart)
         around an unconverged fiber's best vertex.  The simplexes, their
         values and every step's arithmetic are float64 on the device;
@@ -316,8 +319,12 @@ class BatchedFitter:
         the rare shrink steps' evaluations are not counted).  Each round
         of a tile is a span ``fit.nm.round`` (:mod:`rvspecfit_torch.trace`)
         with its restart, width, iters and live_iters (neldermead.
-        nm_chunk's ``stats``); the counters ``fit.nm.live_iters`` and
-        ``fit.nm.tile_iters`` add up live_iters and width x iters.
+        iterate's ``stats``); the counters ``fit.nm.live_iters`` and
+        ``fit.nm.tile_iters`` add up live_iters and width x iters (pad
+        rows included), and on a CUDA device ``fit.nm.eager_calls`` the
+        simplex set-ups (nm_graph counts the replays and the shrinks).
+        obj_evals counts the pad rows too; ``replayed`` says whether the
+        iterations were graph replays (:meth:`check_neldermead`).
         """
         scheme = nm.nm_scheme(scheme)
         chunk = int(os.environ.get('RVST_NM_CHUNK', '0')) or nm_chunk
@@ -347,6 +354,9 @@ class BatchedFitter:
                             device=self.device)
         done = torch.zeros(b, dtype=torch.bool, device=self.device)
         evals, ncand = 0, nm.nm_ncand(scheme)
+        widths = nm_graph.ladder(nm_graph.top_width(b, self.microbatch))
+        cuda = self.device.type == 'cuda'
+        graphs = None
 
         def objective(idx):
             return nm.in_working_dtype(
@@ -358,6 +368,19 @@ class BatchedFitter:
                 fvals[t], done[t] = nm.nm_init(objective(t), simplex[t],
                                                fatol, xatol)
                 evals += t.numel() * (nvec + 1)
+                if cuda:
+                    trace.count('fit.nm.eager_calls')
+
+        def eager_round(sel, n, stats):
+            # pad rows start converged, so they never move
+            d = done[sel]
+            d[n:] = True
+            s, f, d, it = nm.nm_chunk(objective(sel), simplex[sel],
+                                      fvals[sel], d, fatol, xatol, chunk,
+                                      scheme, stats)
+            real = sel[:n]
+            simplex[real], fvals[real], done[real] = s[:n], f[:n], d[:n]
+            return it
 
         init(torch.arange(b, device=self.device))
         for restart in range(maxrestart):
@@ -377,24 +400,63 @@ class BatchedFitter:
                     break
                 logging.info('NM restart %d nit %d: %d/%d unconverged',
                              restart, nit, undone.numel(), b)
-                for t in self._tiles(undone):
+                if cuda and graphs is None:
+                    graphs = self.nm_graphs(mapper, priors, widths, scheme,
+                                            fatol, (simplex, fvals, done,
+                                                    xatol))
+                for sel, n in nm_graph.tiles(undone, widths):
+                    w = sel.numel()
                     with trace.span('fit.nm.round', restart=restart,
-                                    width=t.numel()) as sp:
+                                    width=w) as sp:
                         stats = {}
-                        s, f, d, it = nm.nm_chunk(
-                            objective(t), simplex[t], fvals[t], done[t],
-                            fatol, xatol, chunk, scheme, stats)
-                        simplex[t], fvals[t], done[t] = s, f, d
+                        if graphs is None:
+                            it = eager_round(sel, n, stats)
+                        else:
+                            g = graphs[w]
+                            g.load(self.arms, sel, n, simplex, fvals, done,
+                                   xatol)
+                            it = nm.iterate(g.step, n, chunk, stats)
+                            g.store(sel, n, simplex, fvals, done)
                         sp.set(iters=it, **stats)
                     trace.count('fit.nm.live_iters', stats['live_iters'])
-                    trace.count('fit.nm.tile_iters', t.numel() * it)
-                    evals += t.numel() * it * ncand
+                    trace.count('fit.nm.tile_iters', w * it)
+                    evals += w * it * ncand
                 nit += chunk
         rows = torch.arange(b, device=self.device)
         ib = torch.argmin(fvals, dim=1)
         return dict(x=simplex[rows, ib].double().cpu().numpy(),
                     fun=fvals[rows, ib].double().cpu().numpy(),
-                    converged=done.cpu().numpy(), obj_evals=evals)
+                    converged=done.cpu().numpy(), obj_evals=evals,
+                    replayed=graphs is not None)
+
+    def check_neldermead(self, mapper, res, priors=None):
+        """Evaluate the objective at Nelder-Mead's optima ``res['x']``
+        eagerly on the calling thread (one call per tile, a span
+        ``fit.nm.check``), on every device; where NM replayed CUDA graphs
+        (``res['replayed']``, fit/nm_graph.py), raise unless its values
+        ``res['fun']`` agree within the square root of the working
+        dtype's unit roundoff: it holds the graphs to the arithmetic they
+        were captured from, whose inputs their cache key must name in
+        full.  (benchmark/drivers/desi_files.py stops the group fit in
+        flight at the main thread's next likelihood call once its window
+        has closed: this call is that point for every group.)"""
+        with trace.span('fit.nm.check'):
+            got = self._run_mb(
+                lambda arms, x: nm.in_working_dtype(self._objective_arms(
+                    mapper, priors, arms), self.dtype)(x[:, None, :])[:, 0],
+                torch.as_tensor(np.asarray(res['x'], np.float64),
+                                device=self.device)).cpu().numpy()
+        if not res.get('replayed'):
+            return
+        rtol = torch.finfo(self.dtype).eps ** 0.5
+        bad = ~np.isclose(got, res['fun'], rtol=rtol, atol=0,
+                          equal_nan=True)
+        if bad.any():
+            i = int(np.flatnonzero(bad)[0])
+            raise RuntimeError(
+                f'Nelder-Mead graphs: fiber {i}\'s optimum gives '
+                f'{got[i]!r} eagerly and {res["fun"][i]!r} as replayed '
+                f'({int(bad.sum())} fibers differ)')
 
     # -------------------------------------------------------------
     def _chisq_at(self, vel, params, vsinis, arms=None):
@@ -792,6 +854,33 @@ def _concat_shards(parts, device):
     if isinstance(first, (int, np.integer)):
         return sum(parts)
     return first
+
+
+def trial_objective(arms, mapper, priors, *, templates, min_vel, max_vel,
+                    badchi, use_vsini, half_widths):
+    """fun(x (b, K, nvec)) -> (b, K) for the fibers of ``arms``: -2logL
+    plus priors and the vsini penalty; 1e30 outside the velocity bounds
+    [min_vel, max_vel] or at non-finite parameters.  It reads only its
+    arguments (so fit/nm_graph.py can build it on buffers of its own)."""
+    rows_p = prior_rows(mapper.specParams, priors)
+
+    def fun(x):
+        b, k, nvec = x.shape
+        vel, params, vsini, penalty = mapper.unpack(x.reshape(b * k, nvec))
+        vel = vel.reshape(b, k)
+        params = params.reshape(b, k, -1)
+        chis = chisq_trials_core(arms, templates, vel, params,
+                                 vsini.reshape(b, k), badchi=badchi,
+                                 use_vsini=use_vsini,
+                                 half_widths=half_widths)
+        for i, mu, sig in rows_p:
+            chis = chis + ((params[:, :, i] - mu) / sig)**2
+        chis = chis + penalty.reshape(b, k)
+        bad = (vel > max_vel) | (vel < min_vel) \
+            | ~torch.isfinite(params).all(-1)
+        return torch.where(bad, 1e30, chis)
+
+    return fun
 
 
 def _concat_tiles(parts):

@@ -158,8 +158,23 @@ def converged(simplex, fvals, fatol, xatol):
 
 def _step(fun, simplex, fvals, done, fatol, xatol, scheme=None):
     """One iteration on an unsorted simplex under ``scheme`` (None:
-    :func:`nm_scheme`)."""
-    alpha, gamma, rho, sigma = 1.0, 2.0, 0.5, 0.5
+    :func:`nm_scheme`): :func:`_propose`, the shrink where a live
+    instance needs it (:func:`_shrink`, the one read of the device), then
+    :func:`_finish`."""
+    prop = _propose(fun, simplex, fvals, scheme)
+    simplex_upd, fvals_upd, shrink, best = prop
+    if bool((shrink & ~done).any()):
+        simplex_upd, fvals_upd = _shrink(fun, simplex, *prop)
+    return _finish(simplex, fvals, done, simplex_upd, fvals_upd, fatol,
+                   xatol)
+
+
+def _propose(fun, simplex, fvals, scheme=None):
+    """The iteration's candidates and accept decisions, without the
+    shrink: (simplex_upd, fvals_upd, shrink (B,) bool, best (B, n)),
+    the simplexes with each accepted point in place of the worst vertex
+    (left as they were where ``shrink``)."""
+    alpha, gamma, rho = 1.0, 2.0, 0.5
     n = simplex.shape[2]
     iw, ib, f_worst, f_second, f_best = _stats(simplex, fvals)
     worst = _row(simplex, iw)
@@ -211,13 +226,22 @@ def _step(fun, simplex, fvals, done, fatol, xatol, scheme=None):
     simplex_upd = torch.where(replace[:, :, None], new_point[:, None, :],
                               simplex)
     fvals_upd = torch.where(replace, new_f[:, None], fvals)
+    return simplex_upd, fvals_upd, shrink, best
 
-    if bool((shrink & ~done).any()):
-        shrunk = best[:, None, :] + sigma * (simplex - best[:, None, :])
-        simplex_upd = torch.where(shrink[:, None, None], shrunk,
-                                  simplex_upd)
-        fvals_upd = torch.where(shrink[:, None], fun(shrunk), fvals_upd)
 
+def _shrink(fun, simplex, simplex_upd, fvals_upd, shrink, best):
+    """:func:`_propose`'s result with every ``shrink`` instance's simplex
+    shrunk towards its best vertex and evaluated (one objective call of
+    the whole batch)."""
+    sigma = 0.5
+    shrunk = best[:, None, :] + sigma * (simplex - best[:, None, :])
+    return (torch.where(shrink[:, None, None], shrunk, simplex_upd),
+            torch.where(shrink[:, None], fun(shrunk), fvals_upd))
+
+
+def _finish(simplex, fvals, done, simplex_upd, fvals_upd, fatol, xatol):
+    """The updated simplexes, values and mask: the converged instances
+    kept as they were, then the convergence test."""
     simplex_new = torch.where(done[:, None, None], simplex, simplex_upd)
     fvals_new = torch.where(done[:, None], fvals, fvals_upd)
     return simplex_new, fvals_new, done | converged(simplex_new, fvals_new,
@@ -234,26 +258,39 @@ def nm_chunk(fun, simplex, fvals, done, fatol, xatol, chunk, scheme=None,
              stats=None):
     """Advance up to ``chunk`` iterations under ``scheme`` (None:
     :func:`nm_scheme`, read once), stopping early once every instance
-    has converged.  Returns (simplex, fvals, done, iters).
+    has converged (:func:`iterate` with :func:`_step`).  Returns
+    (simplex, fvals, done, iters)."""
+    scheme = nm_scheme(scheme)
+    state = [simplex, fvals, done]
+
+    def step():
+        state[:] = _step(fun, *state, fatol, xatol, scheme)
+        return int((~state[2]).sum())
+
+    it = iterate(step, int((~done).sum()), chunk, stats)
+    return (*state, it)
+
+
+def iterate(step, live, chunk, stats=None):
+    """Call ``step()``, one iteration that returns the instances still
+    live after it, up to ``chunk`` times while any of the ``live`` is
+    -> the iterations run.
 
     Each iteration is a span ``fit.nm.iter`` (:mod:`rvspecfit_torch.
     trace`) with ``live``, the instances not yet converged as it began;
-    it ends where the loop reads the mask to decide whether to go on,
+    it ends where ``step`` reads the mask to decide whether to go on,
     so it holds the iteration's device work.  ``stats``, a dict,
     receives ``live_iters``, the sum of ``live`` over the iterations."""
-    scheme = nm_scheme(scheme)
     it = live_iters = 0
-    live = int((~done).sum())
     while it < chunk and live:
         with trace.span('fit.nm.iter', live=live):
-            simplex, fvals, done = _step(fun, simplex, fvals, done, fatol,
-                                         xatol, scheme)
+            nlive = step()
             it += 1
             live_iters += live
-            live = int((~done).sum())
+            live = nlive
     if stats is not None:
         stats['live_iters'] = live_iters
-    return simplex, fvals, done, it
+    return it
 
 
 def in_working_dtype(fun, dtype):

@@ -34,7 +34,12 @@ def chol_solve_logdet(m, v, ridge_rel=1e-10):
     chol = torch.where(ok[..., None, None], chol, torch.nan)
     logdet = 2.0 * torch.log(torch.diagonal(chol, dim1=-2,
                                             dim2=-1)).sum(-1)
-    a = torch.cholesky_solve(v[..., None], chol)[..., 0]
+    # the two triangular solves of cholesky_solve (as the reference's
+    # cho_solve): on the card they are cuBLAS's, which a CUDA graph can
+    # capture (Nelder-Mead's iteration is one, fit/nm_graph.py), where
+    # the batched cholesky_solve (MAGMA's) cannot be
+    y = torch.linalg.solve_triangular(chol, v[..., None], upper=False)
+    a = torch.linalg.solve_triangular(chol.mT, y, upper=True)[..., 0]
     return a, logdet
 
 

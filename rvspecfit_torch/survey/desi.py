@@ -815,7 +815,8 @@ def _group_result(base, tail):
 
 
 def _run_group_fit(arms, templates, config, options, banks=None,
-                   ccf_init=True, ccf_collect=None, defer=None):
+                   ccf_init=True, ccf_collect=None, defer=None,
+                   before_tail=None):
     """Fit a stacked fiber batch: list of BatchArm, setup ->
     TemplateModel (all on one device), config (min_vel, max_vel,
     vel_step0, min_vel_step, max_vsini, min_vsini, second_minimizer,
@@ -840,7 +841,12 @@ def _run_group_fit(arms, templates, config, options, banks=None,
 
     ``defer`` (None: ``RVST_DEFER_TAIL`` is not ``0``): return after
     Nelder-Mead a :class:`_LazyFit` whose tail runs on a worker thread
-    (BatchedFitter.run_tail_async); else run the tail here.
+    (BatchedFitter.run_tail_async); else run the tail here.  A deferred
+    tail starts after ``before_tail()`` returns (proc_many's: the wait
+    for the group before to be written) and after an eager evaluation
+    at Nelder-Mead's optima on this thread (BatchedFitter.
+    check_neldermead, which holds replayed CUDA graphs to it), both
+    inside the span ``fit.group`` and outside ``fit.nm``.
 
     ``banks`` : optional {setup: (tfft, t2fft, info)} in-memory CCF
     banks; None loads them from the library onto the templates' device.
@@ -898,6 +904,9 @@ def _run_group_fit(arms, templates, config, options, banks=None,
                 x0[:, 1] = np.clip(start_vsini, 0, config['max_vsini'])
             x0[:, 1 + int(fit_vsini):] = start_params
             nmres = bf.run_neldermead(mapper, start_vel, x0=x0)
+        if defer and before_tail is not None:
+            before_tail()
+        bf.check_neldermead(mapper, nmres)
 
     base = dict(converged=nmres['converged'], ccf_cols=ccf_cols,
                 vrad_ccf=vrad_ccf, parnames=parnames, nm=nmres,
@@ -1245,10 +1254,11 @@ def _reraise(exc):
 def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
                    templates=None, banks=None, device=None, cmdline=None,
                    throw_exceptions=False, ccf_init=True,
-                   fig_prefixes=None, defer_finish=False):
+                   fig_prefixes=None, defer_finish=False, before_tail=None):
     """Fit and write stage of a group prepared by
     :func:`prepare_desi_group` (see :func:`proc_desi_group` for the
-    semantics and the return value).
+    semantics and the return value); ``before_tail``: as
+    :func:`_run_group_fit`'s.
 
     Every write is kept in order and run by ``finish()``: at once, or
     with ``defer_finish`` on proc_many's writer thread, where this
@@ -1320,7 +1330,8 @@ def fit_desi_group(gprep, tab_ofnames, mod_ofnames, config, options,
         try:
             fit = _run_group_fit(unit['arms'], templates, config, options,
                                  banks=banks, ccf_init=ccf_init,
-                                 ccf_collect=unit.get('ccf'))
+                                 ccf_collect=unit.get('ccf'),
+                                 before_tail=before_tail)
         except Exception:
             retry(unit['members'], pending.append)
             continue
@@ -1620,6 +1631,15 @@ class _Writer:
             self._queue.append((self._pool.submit(self._timed, finish,
                                                   device, files), record))
 
+    def wait(self):
+        """Wait (the span ``driver.write_wait``) until every finish
+        submitted has run, leaving their results and errors to
+        :meth:`drain`."""
+        futs = [fut for fut, _ in self._queue if fut is not None]
+        if futs:
+            with trace.span('driver.write_wait'):
+                concurrent.futures.wait(futs)
+
     def put(self, record, value=None):
         if self._queue:
             self._queue.append((None, functools.partial(record, value)))
@@ -1820,7 +1840,7 @@ def proc_many(files, output_dir, output_tab_prefix=TABLE_PREFIX,
                     cmdline=cmdline, throw_exceptions=throw_exceptions,
                     ccf_init=ccf_init,
                     fig_prefixes=[fig_prefix(g[0]) for g in grp],
-                    defer_finish=async_write)
+                    defer_finish=async_write, before_tail=writer.wait)
                 if async_write:
                     writer.submit(out[1], recorder(grp, t0), tdev,
                                   files=len(grp))

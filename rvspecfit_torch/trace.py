@@ -21,9 +21,12 @@ The start times of the profiler's (kineto's) events, and its
 ``trace_start_ns()``, are on the same epoch clock.
 
 :func:`event` adds a zero-length record under the same rule.
-:func:`count` adds to a named integer counter, always.  Spans made
-with ``keep=True`` (the kernels' builds) are also kept, always, in a
-small list of their own (:func:`kept`).
+:func:`count` adds to a named integer counter, always.  Inside
+:func:`deferred` a thread's counts and events are held instead, and
+:func:`replay` applies them later, as often as the work they describe
+runs again (the launches a CUDA graph holds, at each of its replays).
+Spans made with ``keep=True`` (the kernels' builds) are also kept,
+always, in a small list of their own (:func:`kept`).
 
 Records go to a bounded in-memory buffer (the oldest go first once it
 holds :data:`MAX_RECORDS`); :func:`spans` returns a snapshot of it and
@@ -33,6 +36,7 @@ here synchronizes a device.
 from __future__ import annotations
 
 import collections
+import contextlib
 import itertools
 import threading
 import time
@@ -135,7 +139,11 @@ def span(name, keep=False, **attrs):
 
 def event(name, **attrs):
     """A zero-length record ``name`` with ``attrs``, while a profiler
-    records."""
+    records (held inside :func:`deferred`)."""
+    held = getattr(_local, 'held', None)
+    if held is not None:
+        held.append(('event', name, attrs))
+        return
     if not _autograd_profiler._is_profiler_enabled:
         return
     stack = _stack()
@@ -146,9 +154,36 @@ def event(name, **attrs):
 
 
 def count(name, n=1):
-    """Add ``n`` to the counter ``name`` (always; any thread)."""
+    """Add ``n`` to the counter ``name`` (always; any thread; held
+    inside :func:`deferred`)."""
+    held = getattr(_local, 'held', None)
+    if held is not None:
+        held.append(('count', name, n))
+        return
     with _count_lock:
         _counters[name] += n
+
+
+@contextlib.contextmanager
+def deferred():
+    """Hold this thread's :func:`count` and :func:`event` calls in the
+    list it yields, in order, instead of applying them."""
+    prev = getattr(_local, 'held', None)
+    _local.held = held = []
+    try:
+        yield held
+    finally:
+        _local.held = prev
+
+
+def replay(held):
+    """Apply the counts and events that :func:`deferred` held (the
+    events only while a profiler records, as :func:`event`)."""
+    for kind, name, arg in held:
+        if kind == 'count':
+            count(name, arg)
+        else:
+            event(name, **arg)
 
 
 def counters(prefix=''):

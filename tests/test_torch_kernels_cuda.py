@@ -616,3 +616,309 @@ def test_trainer_on_the_card(cuda_device):
            for dev in (cuda_device, 'cpu')]
     for a, b in zip(*pcs):
         assert float((a.cpu() - b).abs().max()) <= 1e-9
+
+
+# -------------------------------------------------------------------
+# Nelder-Mead's iteration as a CUDA graph (fit/nm_graph.py)
+
+NM_CONFIG = dict(min_vel=-1000, max_vel=1000, vel_step0=5, max_vsini=500,
+                 min_vsini=1e-2, min_vel_step=0.2, second_minimizer=False)
+NM_START = dict(teff=6000.0, logg=3.0, feh=-1.0, alpha=0.5, vsini=10.0)
+NM_FATOL = 5e-2
+NM_MB = 500
+
+
+@pytest.fixture(scope='module')
+def nm_card():
+    """{use_vsini: (fitter, mapper, state)}: chip_smoke's 500-fiber
+    exposure (3 arms of 1024 px) on its 864-template grid at 4096 px,
+    microbatch 500 (tile widths 500, 250, 125), each fiber's simplex set
+    up around its true velocity: state = (simplex, fvals, done, xatol)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.fit import neldermead as nm
+    from rvspecfit_torch.fit import vel_fit
+    from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
+    from rvspecfit_torch.pipeline.library import \
+        template_model_from_artifacts
+    dev = torch.device('cuda', 0)
+    tm = template_model_from_artifacts(*simulation.template_artifacts(
+        6, 6, 6, 4, npix=4096, lam0=4550.0, lam1=5450.0, wresol=2.0),
+        device=dev)
+    data, truth = simulation.make_exposure(NM_MB, npix_arm=1024, snr=50.0,
+                                           seed=7)
+    arms = [BatchArm(n, lam, fl, iv) for n, (lam, fl, iv) in data.items()]
+    out = {}
+    for use_vsini in (False, True):
+        bf = BatchedFitter(arms, {a.name: tm for a in arms}, NM_CONFIG,
+                           {'npoly': 10}, use_vsini=use_vsini,
+                           microbatch=NM_MB)
+        mapper = vel_fit.ParamMapper(tm.parnames, NM_START, [],
+                                     vel_fit.VSiniMapper(500, 1e-2),
+                                     use_vsini)
+        x0 = np.tile(mapper.start_vector(0.0), (NM_MB, 1))
+        x0[:, 0] = truth['vel'] + 3.0
+        scales = mapper.scales()
+        simplex = torch.as_tensor(nm.build_simplex(
+            x0, scales, vel_fit.SIMPLEX_SEED), device=dev)
+        xatol = torch.as_tensor(scales * 0.08, device=dev)
+        fun = nm.in_working_dtype(bf._objective(
+            mapper, None, torch.arange(NM_MB, device=dev)), bf.dtype)
+        fvals, done = nm.nm_init(fun, simplex, NM_FATOL, xatol)
+        out[use_vsini] = (bf, mapper, (simplex, fvals, done, xatol))
+    return out
+
+
+def _nm_graphs(nm_card, scheme, use_vsini=False):
+    from rvspecfit_torch.fit import nm_graph
+    bf, mapper, state = nm_card[use_vsini]
+    return bf, state, bf.nm_graphs(mapper, None, nm_graph.ladder(NM_MB),
+                                   scheme, NM_FATOL, state)
+
+
+def _load(bf, state, g, npad=3):
+    """Load the graph's tile with its width less ``npad`` unconverged
+    fibers, padded."""
+    from rvspecfit_torch.fit import nm_graph
+    undone = torch.nonzero(~state[2])[:, 0]
+    (sel, n), = nm_graph.tiles(undone[:g.width - npad], [g.width])
+    assert n == g.width - npad
+    g.load(bf.arms, sel, n, *state)
+
+
+def _eager_step(g, scheme):
+    from rvspecfit_torch.fit import neldermead as nm
+    return nm._step(g.fun, *[t.clone() for t in g.state], NM_FATOL,
+                    g.xatol, scheme)
+
+
+@pytest.mark.parametrize('scheme', ['scan2', 'cand4'])
+def test_nm_graph_replays_the_eager_iteration_bit_for_bit(nm_card, scheme):
+    """At each width of the ladder, four iterations replayed equal
+    neldermead._step run eagerly on the same buffers, bit for bit, with
+    the shrink redone apart; before the third, seven fibers' values are
+    lowered by 1e6, so that they shrink."""
+    bf, state, graphs = _nm_graphs(nm_card, scheme)
+    assert sorted(graphs) == [125, 250, 500]
+    for w, g in graphs.items():
+        _load(bf, state, g)
+        for k in range(4):
+            if k == 2:
+                g.state[1][:7] -= 1e6
+            want = _eager_step(g, scheme)
+            shrink, live = g.replay()
+            if k == 2:
+                assert shrink
+            if shrink:
+                live = g.shrink()
+            for got, exp in zip(g.state, want):
+                assert torch.equal(got, exp), (w, k)
+            assert live == int((~want[2]).sum())
+
+
+def test_nm_graph_replays_count_the_eager_launches(nm_card):
+    """A replay applies the counts and events of the kernel launches the
+    graph holds: the same kernel A counters and events (with their
+    shapes) as the eager iteration's (two per-row calls under scan2 on
+    3 arms)."""
+    bf, state, graphs = _nm_graphs(nm_card, 'scan2')
+    g = graphs[500]
+    _load(bf, state, g)
+
+    def launches(fn):
+        before = trace.counters('kernel_a')
+        trace.clear()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = fn()
+            torch.cuda.synchronize()
+        after = trace.counters('kernel_a')
+        return ({k: v - before.get(k, 0) for k, v in after.items()
+                 if v != before.get(k, 0)},
+                [(r.name, r.attrs) for r in trace.spans()
+                 if r.kind == 'event'], out)
+
+    eager = launches(lambda: _eager_step(g, 'scan2'))
+    replay = launches(g.replay)
+    assert not replay[2][0]
+    assert replay[:2] == eager[:2]
+    assert eager[0] == {'kernel_a.per_row.float64': 6}
+    assert [e[1]['rows'] for e in eager[1]] == [500] * 6
+
+
+def test_nm_graph_captures_beside_a_busy_thread(nm_card):
+    """A capture (capture_error_mode='thread_local') while another
+    thread runs matrix products and allocations on its own stream (no
+    draws from the card's random generator), and its replay equals the
+    eager iteration."""
+    import threading
+    from rvspecfit_torch.fit import nm_graph
+    stop = threading.Event()
+    ran = []
+
+    def busy():
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            x = torch.ones(1024, 1024, dtype=torch.float64,
+                           device='cuda') / 1024
+            while not stop.is_set():
+                x = (x @ x).clamp_(max=1.0)
+                torch.empty(1 << 22, device='cuda')
+                ran.append(float(x[0, 0]))
+    th = threading.Thread(target=busy)
+    th.start()
+    try:
+        while not ran:
+            pass
+        captures = trace.counters('fit.nm.graph_captures').get(
+            'fit.nm.graph_captures', 0)
+        nm_graph._ladders.clear()
+        bf, state, graphs = _nm_graphs(nm_card, 'scan2')
+        assert trace.counters('fit.nm.graph_captures')[
+            'fit.nm.graph_captures'] == captures + 3
+    finally:
+        stop.set()
+        th.join()
+    n = len(ran)
+    g = graphs[250]
+    _load(bf, state, g)
+    want = _eager_step(g, 'scan2')
+    if g.replay()[0]:
+        g.shrink()
+    assert all(torch.equal(a, b) for a, b in zip(g.state, want))
+    assert n > 1
+
+
+def test_nm_graph_captures_the_vsini_and_fast_interp_objectives(nm_card):
+    """With rotation (the vsini kernel and its broadening) an iteration
+    replays as it runs eagerly; the likelihood with ``fast_interp`` (the
+    nearest-pixel gather) captures too and replays its eager values."""
+    from rvspecfit_torch.fit.likelihood import chisq_trials_core
+    bf, state, graphs = _nm_graphs(nm_card, 'scan2', use_vsini=True)
+    g = graphs[125]
+    _load(bf, state, g)
+    want = _eager_step(g, 'scan2')
+    if g.replay()[0]:
+        g.shrink()
+    assert all(torch.equal(a, b) for a, b in zip(g.state, want))
+
+    bf = nm_card[False][0]
+    vel = torch.linspace(-300, 300, NM_MB, dtype=torch.float64,
+                         device='cuda')[:, None]
+    params = torch.tensor([6000.0, 3.0, -1.0, 0.5], dtype=torch.float64,
+                          device='cuda').expand(NM_MB, 1, 4).contiguous()
+
+    def call():
+        return chisq_trials_core(bf.arms, bf.templates, vel, params,
+                                 torch.zeros_like(vel), badchi=bf.badchi,
+                                 use_vsini=False, half_widths={},
+                                 fast_interp=True)
+    want = call()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        call()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+        got = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_nm_graph_iteration_is_one_replay_and_one_read(nm_card):
+    """Five iterations at width 500 without a shrink: the host launches
+    one graph each, at most 10 kernels each beside it (none, as
+    written) and one device-to-host copy each; the profiler records the
+    replayed kernels by name (kernel A's per-row kernel on the device).
+    The eager iteration's launches are printed beside them."""
+    bf, state, graphs = _nm_graphs(nm_card, 'scan2')
+    g = graphs[500]
+    _load(bf, state, g)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def counts(fn):
+        with torch.profiler.profile(activities=acts) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        dev = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        return dict(
+            graphs=sum(n.startswith('cudaGraphLaunch') for n in names),
+            kernels=sum(n.startswith(('cudaLaunchKernel', 'cuLaunchKernel'))
+                        for n in names),
+            d2h=sum('DtoH' in n or 'Device -> Pageable' in n
+                    or 'Device -> Pinned' in n for n in dev),
+            rows_kernel=sum('spline_rows_kernel' in n for n in dev)), out
+
+    got, flags = counts(lambda: [g.replay() for _ in range(5)])
+    assert not any(f[0] for f in flags)
+    eager, _ = counts(lambda: _eager_step(g, 'scan2'))
+    print(f'\nper iteration: replayed {got}, eager {eager}')
+    assert got['graphs'] == 5
+    assert got['kernels'] <= 10 * 5
+    assert got['d2h'] == 5
+    assert got['rows_kernel'] == 5 * 6
+    assert eager['kernels'] > 300
+
+
+def test_nm_groups_of_any_size_replay_one_ladder(nm_card):
+    """Without a microbatch, groups of 300 and of 450 fibers both tile
+    NM at the widest width 500 (and 250, 125): the first group captures
+    the three graphs, the second replays them and captures none."""
+    from rvspecfit_torch import simulation
+    from rvspecfit_torch.fit import nm_graph
+    from rvspecfit_torch.fit.batch import BatchArm, BatchedFitter
+    bf0, mapper, _ = nm_card[False]
+    data, truth = simulation.make_exposure(NM_MB, npix_arm=1024, snr=50.0,
+                                           seed=7)
+    nm_graph._ladders.clear()
+    name = 'fit.nm.graph_captures'
+    captures = []
+    for nfib in (300, 450):
+        arms = [BatchArm(n, lam, fl[:nfib], iv[:nfib])
+                for n, (lam, fl, iv) in data.items()]
+        bf = BatchedFitter(arms, bf0.templates, NM_CONFIG, {'npoly': 10})
+        assert bf.microbatch is None
+        before = trace.counters(name).get(name, 0)
+        res = bf.run_neldermead(mapper, truth['vel'][:nfib] + 3.0,
+                                maxiter=8, maxrestart=1, nm_chunk=4)
+        assert res['replayed'] and res['x'].shape[0] == nfib
+        captures.append(trace.counters(name).get(name, 0) - before)
+    assert captures == [3, 0]
+
+
+def test_nm_graph_two_threads_capture_on_one_card(nm_card):
+    """Two threads (as two shards of a mesh on one card) build their
+    ladders at once: the process captures one graph at a time, so
+    neither capture meets the other's device synchronization, and each
+    thread's graphs replay the eager iteration."""
+    import threading
+    from rvspecfit_torch.fit import nm_graph
+    nm_graph._ladders.clear()
+    out, errs = {}, []
+
+    def build(scheme):
+        try:
+            torch.cuda.set_device(0)
+            out[scheme] = _nm_graphs(nm_card, scheme)
+        except BaseException as exc:
+            errs.append(exc)
+    threads = [threading.Thread(target=build, args=(s,))
+               for s in ('scan2', 'cand4')]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not errs, errs
+    for scheme, (bf, state, graphs) in out.items():
+        g = graphs[125]
+        _load(bf, state, g)
+        want = _eager_step(g, scheme)
+        if g.replay()[0]:
+            g.shrink()
+        assert all(torch.equal(a, b) for a, b in zip(g.state, want))
